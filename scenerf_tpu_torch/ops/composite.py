@@ -1,0 +1,109 @@
+"""Kernel C: per-ray sort + alpha composite, and its plain PyTorch version.
+
+`sort_composite(sd, dv, density, rgb)` takes the per-ray samples in the order
+they were drawn, sorts them by sensor distance and alpha-composites them. On
+a CUDA tensor it launches `csrc/composite.cu`; on a CPU tensor it runs
+`sort_composite_plain`. It replaces the TPU-shaped
+`scenerf_tpu/sampling.py:198 sort_samples_by_distance` +
+`rendering.py:102 composite` (see the kernel source).
+
+Both return a dict with the per-ray `depth` [R], `color` [R, 3],
+`weights_at_depth` [R], `closest_pts_to_depth` [R], `closest_idx` [R] and
+the sorted `sensor_distance`, `depth_volume`, `alphas`, `weights` [R, P].
+"""
+from __future__ import annotations
+
+from typing import Dict
+
+import torch
+
+from scenerf_tpu_torch.ops import build
+
+MAX_PTS = 64  # samples per ray the kernel holds in one warp's registers
+
+
+def composite(density: torch.Tensor, sensor_distance: torch.Tensor,
+              depth_volume: torch.Tensor, colors: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Alpha-composite densities along rays already sorted by distance.
+
+    deltas[0] = d[0]; alpha = 1 - exp(-delta * sigma); T = exclusive cumprod
+    of (1 - alpha + 1e-10); weights = alpha * T. Depth integrates the
+    source-frame z (depth_volume), not the ray length.
+    """
+    sd = torch.clamp(sensor_distance, min=0.0)
+    deltas = torch.cat([sd[:, :1], sd[:, 1:] - sd[:, :-1]], dim=1)
+    alphas = 1.0 - torch.exp(-deltas * density)
+    trans = torch.cumprod(
+        torch.cat([torch.ones_like(alphas[:, :1]), 1.0 - alphas + 1e-10], dim=1),
+        dim=1,
+    )[:, :-1]
+    weights = alphas * trans
+
+    depth = torch.sum(weights * depth_volume, dim=-1)
+    color = torch.sum(weights[..., None] * colors, dim=-2)
+
+    abs_diff = torch.abs(depth[:, None] - depth_volume)
+    closest, closest_idx = torch.min(abs_diff, dim=1)
+    weights_at_depth = torch.gather(weights, 1, closest_idx[:, None])[:, 0]
+    return {
+        "depth": depth,
+        "color": color,
+        "alphas": alphas,
+        "weights": weights,
+        "weights_at_depth": weights_at_depth,
+        "closest_pts_to_depth": closest,
+        "closest_idx": closest_idx.to(torch.int32),
+        "sensor_distance": sensor_distance,
+        "depth_volume": depth_volume,
+    }
+
+
+def sort_composite_plain(sd: torch.Tensor, dv: torch.Tensor, density: torch.Tensor,
+                         rgb: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Stable sort by distance, gather the payloads, then `composite`."""
+    sd_sorted, order = torch.sort(sd, dim=1, stable=True)
+    dv_sorted = torch.gather(dv, 1, order)
+    dens_sorted = torch.gather(density, 1, order)
+    rgb_sorted = torch.gather(rgb, 1, order[..., None].expand(-1, -1, 3))
+    return composite(dens_sorted, sd_sorted, dv_sorted, rgb_sorted)
+
+
+def sort_composite(sd: torch.Tensor, dv: torch.Tensor, density: torch.Tensor,
+                   rgb: torch.Tensor) -> Dict[str, torch.Tensor]:
+    """Sort each ray's samples by `sd` [R, P] and alpha-composite them."""
+    R, P = sd.shape
+    if dv.shape != (R, P) or density.shape != (R, P) or rgb.shape != (R, P, 3):
+        raise ValueError(f"sort_composite: shapes {tuple(sd.shape)}, {tuple(dv.shape)}, "
+                         f"{tuple(density.shape)}, {tuple(rgb.shape)}")
+    if not build.use_kernel(sd):
+        return sort_composite_plain(sd, dv, density, rgb)
+
+    if P > MAX_PTS:
+        raise ValueError(f"sort_composite kernel takes at most {MAX_PTS} samples per ray, got {P}")
+    dev = sd.device
+    ins = [t.contiguous() for t in (sd, dv, density, rgb)]
+    for t in ins:
+        if t.device != dev or t.dtype != torch.float32:
+            raise ValueError("sort_composite kernel takes f32 tensors on one device")
+    f32 = dict(dtype=torch.float32, device=dev)
+    out = {
+        "sensor_distance": torch.empty((R, P), **f32),
+        "depth_volume": torch.empty((R, P), **f32),
+        "alphas": torch.empty((R, P), **f32),
+        "weights": torch.empty((R, P), **f32),
+        "depth": torch.empty((R,), **f32),
+        "color": torch.empty((R, 3), **f32),
+        "weights_at_depth": torch.empty((R,), **f32),
+        "closest_pts_to_depth": torch.empty((R,), **f32),
+        "closest_idx": torch.empty((R,), dtype=torch.int32, device=dev),
+    }
+    lib = build.library()
+    status = lib.scenerf_sort_composite_f32(
+        *(t.data_ptr() for t in ins), R, P,
+        *(out[k].data_ptr() for k in ("sensor_distance", "depth_volume", "alphas",
+                                      "weights", "depth", "color", "weights_at_depth",
+                                      "closest_pts_to_depth", "closest_idx")),
+        build.stream_handle(dev))
+    build.check(status, "sort_composite")
+    build.LAUNCHES["sort_composite"] += 1
+    return out

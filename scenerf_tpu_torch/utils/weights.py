@@ -1,0 +1,134 @@
+"""Weights between the JAX package and the port.
+
+`state_dict_from_jax_variables` maps the JAX `SceneRF.init` variables tree
+(nested dicts of arrays) to this package's `state_dict`: the inverse of
+`scenerf_tpu/utils/port_reference.py:85 port_reference_state_dict`, which
+maps a reference (and so a port) `state_dict` to the JAX tree. Layouts:
+dense kernel [in, out] -> weight [out, in]; conv HWIO -> OIHW (a depthwise
+[kh, kw, 1, C] becomes [C, 1, kh, kw]); BN scale/bias -> weight/bias and
+mean/var -> running_mean/running_var.
+
+`load_reference_state_dict` loads a reference Lightning `state_dict` and
+skips exactly what the reference forward never uses (and
+port_reference_state_dict never reads): the encoder's bn2 and classifier,
+the decoder's resize_* convs, and BN batch counters.
+"""
+from __future__ import annotations
+
+import re
+from typing import Any, Dict, Mapping
+
+import numpy as np
+import torch
+from torch import nn
+
+Tree = Mapping[str, Any]
+
+ENCODER = "net_rgb.encoder.original_model"
+DECODER = "net_rgb.decoder"
+
+
+def _conv(out: Dict, prefix: str, p: Tree) -> None:
+    out[f"{prefix}.weight"] = np.transpose(np.asarray(p["kernel"]), (3, 2, 0, 1))
+    if "bias" in p:
+        out[f"{prefix}.bias"] = np.asarray(p["bias"])
+
+
+def _linear(out: Dict, prefix: str, p: Tree) -> None:
+    out[f"{prefix}.weight"] = np.asarray(p["kernel"]).T
+    out[f"{prefix}.bias"] = np.asarray(p["bias"])
+
+
+def _bn(out: Dict, prefix: str, p: Tree, s: Tree) -> None:
+    out[f"{prefix}.weight"] = np.asarray(p["scale"])
+    out[f"{prefix}.bias"] = np.asarray(p["bias"])
+    out[f"{prefix}.running_mean"] = np.asarray(s["mean"])
+    out[f"{prefix}.running_var"] = np.asarray(s["var"])
+
+
+def _backbone(out: Dict, p: Tree, s: Tree) -> None:
+    if "conv_stem" not in p:  # TinyBackbone keeps the JAX names
+        for name, leaf in p.items():
+            _conv(out, f"{ENCODER}.{name}", leaf)
+        return
+    _conv(out, f"{ENCODER}.conv_stem", p["conv_stem"])
+    _bn(out, f"{ENCODER}.bn1", p["bn1"], s["bn1"])
+    for name in p:
+        m = re.fullmatch(r"stage(\d+)_block(\d+)", name)
+        if m is None:
+            continue
+        t = f"{ENCODER}.blocks.{m.group(1)}.{m.group(2)}"
+        bp, bs = p[name], s[name]
+        if "expand_conv" in bp:
+            _conv(out, f"{t}.conv_pw", bp["expand_conv"])
+            _bn(out, f"{t}.bn1", bp["expand_bn"], bs["expand_bn"])
+            _conv(out, f"{t}.conv_dw", bp["dw_conv"])
+            _bn(out, f"{t}.bn2", bp["dw_bn"], bs["dw_bn"])
+            proj, proj_bn = "conv_pwl", "bn3"
+        else:
+            _conv(out, f"{t}.conv_dw", bp["dw_conv"])
+            _bn(out, f"{t}.bn1", bp["dw_bn"], bs["dw_bn"])
+            proj, proj_bn = "conv_pw", "bn2"
+        _conv(out, f"{t}.se.conv_reduce", bp["se_reduce"])
+        _conv(out, f"{t}.se.conv_expand", bp["se_expand"])
+        _conv(out, f"{t}.{proj}", bp["project_conv"])
+        _bn(out, f"{t}.{proj_bn}", bp["project_bn"], bs["project_bn"])
+    _conv(out, f"{ENCODER}.conv_head", p["conv_head"])
+
+
+def _decoder(out: Dict, p: Tree, s: Tree) -> None:
+    _conv(out, f"{DECODER}.conv2", p["conv2"])
+    for up in ("up16", "up8", "up4", "up2", "up1"):
+        _conv(out, f"{DECODER}.{up}._net.0", p[up]["conv"])
+        for i in range(3):
+            bp, bs = p[up][f"block{i}"], s[up][f"block{i}"]
+            b = f"{DECODER}.{up}._net.{i + 1}"
+            _conv(out, f"{b}.conv_block1.0", bp["conv1"])
+            _bn(out, f"{b}.conv_block1.1", bp["bn1"], bs["bn1"])
+            _conv(out, f"{b}.conv_block2.0", bp["conv2"])
+            _bn(out, f"{b}.conv_block2.1", bp["bn2"], bs["bn2"])
+
+
+def _resnetfc(out: Dict, prefix: str, p: Tree) -> None:
+    _linear(out, f"{prefix}.lin_in", p["lin_in"])
+    _linear(out, f"{prefix}.lin_out", p["lin_out"])
+    i = 0
+    while f"block_{i}" in p:
+        _linear(out, f"{prefix}.blocks.{i}.fc_0", p[f"block_{i}"]["fc_0"])
+        _linear(out, f"{prefix}.blocks.{i}.fc_1", p[f"block_{i}"]["fc_1"])
+        _linear(out, f"{prefix}.lin_z.{i}", p[f"lin_z_{i}"])
+        i += 1
+
+
+def numpy_state_dict_from_jax_variables(variables: Tree) -> Dict[str, np.ndarray]:
+    """JAX variables tree -> {port state_dict key: numpy array (a transposed
+    view, nothing copied)}."""
+    out: Dict[str, np.ndarray] = {}
+    net = variables["net_rgb"]
+    _backbone(out, net["params"]["backbone"], net["batch_stats"].get("backbone", {}))
+    _decoder(out, net["params"]["decoder"], net["batch_stats"]["decoder"])
+    _resnetfc(out, "mlp", variables["mlp"]["params"])
+    _resnetfc(out, "mlp_gaussian", variables["mlp_gaussian"]["params"])
+    return out
+
+
+def state_dict_from_jax_variables(variables: Tree) -> Dict[str, torch.Tensor]:
+    """JAX variables tree -> the port's state_dict (f32 CPU tensors), ready
+    for `load_state_dict(strict=True)`."""
+    return {k: torch.tensor(np.ascontiguousarray(v), dtype=torch.float32)
+            for k, v in numpy_state_dict_from_jax_variables(variables).items()}
+
+
+def _skipped(key: str) -> bool:
+    return (key.startswith((f"{ENCODER}.bn2.", f"{ENCODER}.classifier.",
+                            f"{DECODER}.resize_"))
+            or key.endswith(".num_batches_tracked"))
+
+
+def load_reference_state_dict(model: nn.Module, sd: Mapping[str, Any]) -> None:
+    """Load a reference Lightning checkpoint's state_dict (or the checkpoint
+    dict holding it) into the port, strictly, minus the keys the reference
+    forward never reads."""
+    if "state_dict" in sd:
+        sd = sd["state_dict"]
+    model.load_state_dict({k: v for k, v in sd.items() if not _skipped(k)}, strict=True)
