@@ -1,5 +1,6 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: the novel-depth
-serve path at the full KITTI preset, through the hand-written kernels.
+serve path and the training step at the full KITTI preset, through the
+hand-written kernels.
 
     python3 chip_smoke.py
 
@@ -14,6 +15,27 @@ Phases (each prints one line and raises on failure):
   5. serve: render_pose_sweep over the first 3 poses of the CLI's default
      sweep at stride 2, chunk 5000; pose 0 again on the plain versions
   6. numbers: encode ms, ms per pose, rays/s, peak device memory
+  7. kernel G-bwd against autograd of the plain gather into the KITTI
+     pyramid, at the cotangents the training path launches it with (a
+     render chunk's [19200, 2480] samples and [1200, 2480] anchors) and at
+     one source's [76800, 2480], its time including the zeroing of the
+     level gradients; each level alone (atomic contention at 1_16), the
+     3-channel reprojection gather with coordinate gradients, and
+     F.grid_sample forward + backward on the s2 sphere resample as the
+     library yardstick
+  8. kernel C-bwd against autograd of the plain sort + composite, R=5000,
+     P=64 with saturated alphas and clamped ties; the device time of kernels
+     C and C-bwd alone (CUDA-graph replay of 50 launches), with the inputs
+     read from HBM and L2-resident
+  9. kernel S (RaySOM EM) against its plain version at a training chunk
+     (R=300, C=4, P=64)
+ 10. train: Trainer(kitti()) on the phase-4 weights takes 3 steps on
+     make_batch (4 sources x 1200 rays, f32): finite loss and gradients,
+     every parameter gets a nonzero gradient, the first AdamW step moves
+     each weight by -lr g / (|g| + eps), BN running statistics move,
+     every kernel launches; step 0 again on the plain versions from the same
+     weights and draws, loss and every gradient leaf held to the kernel
+     path's; ms per step, rays/s, peak device memory
 Then one JSON line of per-kernel results, the card line, and the last line
 {"ok": true, "device": {...}}. It exits non-zero, printing no result, when no
 CUDA device is present or any phase fails. Imports torch, numpy and the port
@@ -22,6 +44,7 @@ CUDA device is present or any phase fails. Imports torch, numpy and the port
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -40,6 +63,21 @@ COMPOSITE_RTOL = 1e-5
 ARGMIN_MIN_SHARE = 0.999
 SERVE_RTOL = 1e-3
 SERVE_MIN_SHARE = 0.99
+SERVE_KERNELS = ("gather_levels", "sort_composite")  # the serve path runs no backward
+GATHER_BWD_REL_TOL = 1e-5  # max abs error <= this x max|d_level| (f32 atomics)
+COORD_GRAD_REL_TOL = 1e-4  # d_ix, d_iy: sums over channels in another order
+COMPOSITE_BWD_RTOL = 1e-4  # the plain cumprod backward divides by 1 - alpha + 1e-10
+SOM_RTOL = 1e-4            # EM sums over samples in another order
+SOM_MIN_SHARE = 0.999
+TRAIN_STEPS = 3
+TRAIN_LOSS_RTOL = 1e-3
+TRAIN_GRAD_REL_L2 = 1e-2   # per gradient leaf, kernel path vs plain path
+ADAM_EPS = 1e-8
+ADAM_STEP_TOL = 0.05       # lr: a weight's first AdamW move against -lr g / (|g| + eps)
+GRAPH_REPS = 50
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
+L2_BYTES = 50 * 2**20      # H100 SXM L2 cache
+F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
 
 
 def fail(msg: str) -> None:
@@ -65,6 +103,56 @@ def cuda_ms(fn, runs: int = TIMING_RUNS) -> float:
     return statistics.median(times)
 
 
+def graph_ms(fns, reps: int = GRAPH_REPS) -> float:
+    """Device time of one call in ms, without the host's launch overhead:
+    `reps` calls captured in one CUDA graph, replayed 3 times (median). The
+    calls cycle through `fns` (a callable, or one per copy of the inputs:
+    copies that together exceed the L2 make every call read its inputs from
+    HBM), and every call's outputs stay alive, so each writes fresh memory."""
+    import torch
+
+    fns = fns if isinstance(fns, (list, tuple)) else [fns]
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fns[0]()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = [fns[i % len(fns)]() for i in range(reps)]
+    graph.replay()
+    times = []
+    for _ in range(3):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        graph.replay()
+        end.record()
+        end.synchronize()
+        times.append(start.elapsed_time(end) / reps)
+    del graph, outs
+    return statistics.median(times)
+
+
+def hbm_copies(tensors) -> list:
+    """Copies of `tensors` (the first is the tensors themselves), enough
+    that together they fill twice the L2."""
+    n = min(GRAPH_REPS, -(-2 * L2_BYTES // nbytes(*tensors)))
+    return [tuple(tensors)] + [tuple(t.clone() for t in tensors) for _ in range(n - 1)]
+
+
+def bound(n_bytes: float, n_ops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over the
+    HBM rate and the f32 operations over the f32 peak."""
+    t_bytes, t_ops = n_bytes / HBM_BYTES_PER_S * 1e3, n_ops / F32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
 def main() -> None:
     if not (ROOT / "scenerf_tpu_torch").is_dir():
         fail(f"the port package scenerf_tpu_torch is not beside {Path(__file__).name}")
@@ -74,17 +162,24 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA device")
 
+    import torch.nn.functional as F
+
     from scenerf_tpu_torch import config as C
     from scenerf_tpu_torch import geometry as geo
     from scenerf_tpu_torch import sampling as S
-    from scenerf_tpu_torch.data.synthetic import default_intrinsics, input_frame
+    from scenerf_tpu_torch.data.synthetic import default_intrinsics, input_frame, make_batch
     from scenerf_tpu_torch.encoder.sphere_decoder import sphere_map_coords
+    from scenerf_tpu_torch.fields import gaussian_params_from_offsets
     from scenerf_tpu_torch.model import SceneRF, compute_sphere_maps
     from scenerf_tpu_torch.ops import build
-    from scenerf_tpu_torch.ops.composite import sort_composite, sort_composite_plain
-    from scenerf_tpu_torch.ops.gather import gather_levels, gather_levels_plain
-    from scenerf_tpu_torch.rendering import (SCALES, pyramid_coords,
+    from scenerf_tpu_torch.ops.composite import (sort_composite, sort_composite_backward,
+                                                 sort_composite_forward, sort_composite_plain)
+    from scenerf_tpu_torch.ops.gather import (gather_levels, gather_levels_backward,
+                                              gather_levels_plain)
+    from scenerf_tpu_torch.rendering import (SCALES, inverse, pyramid_coords,
                                              pyramid_level_size)
+    from scenerf_tpu_torch.som import som_em, som_em_plain
+    from scenerf_tpu_torch.train import Trainer
 
     dev = torch.device("cuda", 0)
 
@@ -108,7 +203,7 @@ def main() -> None:
     cfg = C.kitti()
     K_np = default_intrinsics(cfg)
     K = torch.from_numpy(K_np).to(dev)
-    inv_K = torch.linalg.inv(K)
+    inv_K = inverse(K)
     gen = torch.Generator(device=dev).manual_seed(SEED)
     results = {}
 
@@ -134,7 +229,10 @@ def main() -> None:
         fail(f"gather_levels: max abs error {err} > {GATHER_REL_TOL} x {scale}")
     ms = cuda_ms(lambda: gather_levels(levels, ix, iy))
     plain_ms = cuda_ms(lambda: gather_levels_plain(levels, ix, iy))
-    results["gather_levels"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+    # per point and channel: 6 multiplies and 3 adds
+    results["gather_levels"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                    **bound(nbytes(*levels, ix, iy, got), 9 * got.numel()),
+                                    library_ms=None)
     print(f"[2 kernel G] pyramid {[tuple(lv.shape) for lv in levels]} at "
           f"{ix.shape[1]} points -> {tuple(got.shape)}: max abs err {err:.3e} "
           f"(limit {GATHER_REL_TOL * scale:.3e}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
@@ -188,7 +286,11 @@ def main() -> None:
         fail(f"sort_composite argmin agrees on {same_argmin:.4%} of rays")
     ms = cuda_ms(lambda: sort_composite(sd, dv, dens, rgb))
     plain_ms = cuda_ms(lambda: sort_composite_plain(sd, dv, dens, rgb))
-    results["sort_composite"] = dict(max_abs_err=cerr, ms=ms, plain_ms=plain_ms)
+    # per sample: the 21-stage bitonic network's compares, ~20 arithmetic ops
+    results["sort_composite"] = dict(
+        max_abs_err=cerr, ms=ms, plain_ms=plain_ms,
+        **bound(nbytes(sd, dv, dens, rgb, *(ck[k] for k in ck)), 41 * sd.numel()),
+        library_ms=None)
     print(f"[3 kernel C] R={N_RAYS} P={N_PTS}: depth/color max abs err {cerr:.3e} "
           f"(rtol {COMPOSITE_RTOL}), argmin equal on {same_argmin:.4%} of rays; "
           f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
@@ -237,9 +339,9 @@ def main() -> None:
     dmin, dmax = float(depth.min()), float(depth.max())
     if not (0.0 <= dmin and dmax <= cfg.max_sample_depth):
         fail(f"sweep depth range [{dmin}, {dmax}] outside [0, {cfg.max_sample_depth}]")
-    for name, n in launches.items():
-        if n < 1:
-            fail(f"kernel {name} was not launched on the main path")
+    for name in SERVE_KERNELS:
+        if launches[name] < 1:
+            fail(f"kernel {name} was not launched on the serve path")
     n_rays = depth[0].numel()
     g0 = torch.Generator(device=dev).manual_seed(SEED)
     with build.plain_versions():
@@ -255,7 +357,7 @@ def main() -> None:
             fail(f"pose 0 {k}: kernel path agrees with the plain path on {shares[k]:.4%} of pixels")
     print(f"[5 serve] {SWEEP_POSES} poses x {tuple(depth.shape[1:])} = {n_rays} rays/pose, "
           f"chunk {CHUNK}: finite, depth in [{dmin:.3f}, {dmax:.3f}]; main-path launches "
-          f"{launches}; pose 0 vs plain path within rtol {SERVE_RTOL}: depth "
+          f"{ {k: launches[k] for k in SERVE_KERNELS} }; pose 0 vs plain path within rtol {SERVE_RTOL}: depth "
           f"{shares['depth']:.4%}, color {shares['color']:.4%} of pixels")
 
     # ---- 6. numbers ------------------------------------------------------
@@ -277,13 +379,333 @@ def main() -> None:
           f"{n_rays / warm_pose_ms * 1e3:.0f} rays/s; peak device memory "
           f"{peak / 2**30:.2f} GiB (encode + sweep)")
 
-    sources = {"gather_levels": ("scenerf_tpu_torch/ops/csrc/gather.cu",
-                                 "scenerf_tpu/geometry.py:106"),
-               "sort_composite": ("scenerf_tpu_torch/ops/csrc/composite.cu",
-                                  "scenerf_tpu/rendering.py:102")}
+    serve_launches = launches
+    del lv, pyramid, sweep, depth, color, ref
+    torch.cuda.empty_cache()
+
+    # ---- 7. kernel G-bwd -------------------------------------------------
+    n_train = cfg.n_rays
+    levels = [torch.randn(*pyramid_level_size(cfg.sphere, s), c, generator=gen, device=dev)
+              for s, c in zip(SCALES, widths)]
+    pts_t, _, _, _ = S.sample_rays_uniform(gen, pix[:n_train], inv_K, pose, N_PTS,
+                                           cfg.min_sample_depth, cfg.max_sample_depth)
+    ix, iy = pyramid_coords(pts_t.reshape(-1, 3), K, inv_K, cfg.sphere,
+                            [lv.shape[:2] for lv in levels])
+    need = [True] * len(levels)
+
+    def check_gather_bwd(idx: torch.Tensor) -> dict:
+        """G-bwd at the points `idx` against autograd of the plain gather;
+        its time is the wrapper's, zeroing the level gradients included."""
+        ix_n, iy_n = ix[:, idx].contiguous(), iy[:, idx].contiguous()
+        n = idx.numel()
+        d_n = torch.randn(n, sum(widths), generator=gen, device=dev)
+        got_lv, _, _ = gather_levels_backward(levels, ix_n, iy_n, d_n, need, False)
+        leaves = [lv.clone().requires_grad_(True) for lv in levels]
+        plain_out = gather_levels_plain(leaves, ix_n, iy_n)
+        want_lv = torch.autograd.grad(plain_out, leaves, d_n, retain_graph=True)
+        torch.cuda.synchronize()
+        limit = GATHER_BWD_REL_TOL * max(float(b.abs().max()) for b in want_lv)
+        err = max(float((a - b).abs().max()) for a, b in zip(got_lv, want_lv))
+        if not err <= limit:
+            fail(f"gather_levels_bwd at {n} points: max abs error {err} > {limit}")
+        del got_lv, want_lv
+        ms = cuda_ms(lambda: gather_levels_backward(levels, ix_n, iy_n, d_n, need, False))
+        plain_ms = cuda_ms(lambda: torch.autograd.grad(plain_out, leaves, d_n, retain_graph=True))
+        # per point and channel: 2 multiplies for the row pair, 4 weighted atomic adds
+        return dict(shape=list(d_n.shape), max_abs_err=err, limit=limit, ms=ms,
+                    plain_ms=plain_ms, **bound(nbytes(d_n, ix_n, iy_n, *levels), 10 * d_n.numel()))
+
+    # the training path launches G-bwd per render chunk: the chunk's samples
+    # and its Gaussian anchors (here 4 spread samples of each of its rays);
+    # one source's samples at once for comparison
+    chunk_pts = torch.arange(cfg.ray_chunk * N_PTS, device=dev)
+    anchor_pts = chunk_pts.view(cfg.ray_chunk, N_PTS)[:, ::N_PTS // cfg.n_gaussians]
+    bwd_runs = [check_gather_bwd(idx.reshape(-1)) for idx in (
+        chunk_pts, anchor_pts, torch.arange(n_train * N_PTS, device=dev))]
+    torch.cuda.empty_cache()
+    d_out = torch.randn(ix.shape[1], sum(widths), generator=gen, device=dev)
+    cols = [0]
+    for c in widths:
+        cols.append(cols[-1] + c)
+    level_ms = []
+    for i in range(len(levels)):
+        d_i = d_out[:, cols[i]:cols[i + 1]].contiguous()
+        level_ms.append(cuda_ms(lambda: gather_levels_backward(
+            [levels[i]], ix[i:i + 1], iy[i:i + 1], d_i, [True], False)))
+        del d_i
+    main_run = {k: v for k, v in bwd_runs[0].items() if k != "limit"}
+    results["gather_levels_bwd"] = dict(
+        **main_run, library_ms=None,
+        other_shapes=[{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms")}
+                      for r in bwd_runs[1:]])
+    runs_text = "; ".join(
+        f"{tuple(r['shape'])}: max abs err {r['max_abs_err']:.3e} (limit {r['limit']:.3e}), "
+        f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms"
+        for r in bwd_runs)
+    print(f"[7 kernel G-bwd] cotangents into the pyramid ({nbytes(*levels) / 1e6:.0f} MB of "
+          f"level gradients zeroed per call, in the kernel times) at a training chunk's "
+          f"samples, its anchors, and one source's samples: {runs_text}; each level alone "
+          f"at {tuple(d_out.shape)} (1_1 .. 1_16) {['%.3f' % t for t in level_ms]} ms")
+    del d_out
+    torch.cuda.empty_cache()
+
+    img = torch.rand(H, W, 3, generator=gen, device=dev)
+    span = torch.tensor([W + 40.0, H + 40.0], device=dev)
+    pix_img = torch.rand(n_train, 2, generator=gen, device=dev) * span - 20.0  # some off the image
+    pix_x, pix_y = geo.pix_feature_coords(pix_img, H, W)
+    d_col = torch.randn(n_train, 3, generator=gen, device=dev)
+    _, gx, gy = gather_levels_backward([img], pix_x[None], pix_y[None], d_col, [False], True)
+    cx, cy = pix_x[None].clone().requires_grad_(True), pix_y[None].clone().requires_grad_(True)
+    wx, wy = torch.autograd.grad(gather_levels_plain([img], cx, cy), (cx, cy), d_col)
+    torch.cuda.synchronize()
+    xy_scale = max(float(wx.abs().max()), float(wy.abs().max()))
+    xy_err = max(float((gx - wx).abs().max()), float((gy - wy).abs().max()))
+    if not xy_err <= COORD_GRAD_REL_TOL * xy_scale:
+        fail(f"gather_levels_bwd coords: max abs error {xy_err} > {COORD_GRAD_REL_TOL} x {xy_scale}")
+    xy_ms = cuda_ms(lambda: gather_levels_backward([img], pix_x[None], pix_y[None], d_col,
+                                                   [False], True))
+    print(f"[7 kernel G-bwd] reprojection gather {tuple(img.shape)} at {n_train} pixels with "
+          f"d_ix/d_iy: max abs err {xy_err:.3e} (limit {COORD_GRAD_REL_TOL * xy_scale:.3e}); "
+          f"kernel {xy_ms:.3f} ms")
+
+    h2, w2 = -(-H // 2), -(-W // 2)
+    tap = torch.randn(h2, w2, 32, generator=gen, device=dev)
+    rix, riy = sphere_map_coords(torch.from_numpy(sphere_maps[2]).to(dev), h2, w2)
+    out_hw = sphere_maps[2].shape[:2]
+    grid = torch.stack([(2 * rix + 1) / w2 - 1, (2 * riy + 1) / h2 - 1], -1).view(1, *out_hw, 2)
+    tap_nchw = tap.permute(2, 0, 1)[None].contiguous().requires_grad_(True)
+    lib_out = F.grid_sample(tap_nchw, grid, mode="bilinear", padding_mode="zeros",
+                            align_corners=False)
+    ours = gather_levels([tap], rix[None], riy[None])
+    g_res = torch.randn_like(ours)
+    lib_err = float((lib_out[0].detach().permute(1, 2, 0).reshape(-1, 32) - ours).abs().max())
+    lib_fwd = cuda_ms(lambda: F.grid_sample(tap_nchw.detach(), grid, mode="bilinear",
+                                            padding_mode="zeros", align_corners=False))
+    g_nchw = g_res.view(*out_hw, 32).permute(2, 0, 1)[None].contiguous()
+    lib_bwd = cuda_ms(lambda: torch.autograd.grad(lib_out, tap_nchw, g_nchw, retain_graph=True))
+    our_fwd = cuda_ms(lambda: gather_levels([tap], rix[None], riy[None]))
+    our_bwd = cuda_ms(lambda: gather_levels_backward([tap], rix[None], riy[None], g_res,
+                                                     [True], False))
+    print(f"[7 library] s2 sphere resample {tuple(tap.shape)} -> {out_hw}x32: F.grid_sample "
+          f"forward {lib_fwd:.3f} ms, backward {lib_bwd:.3f} ms (max |diff| to kernel G "
+          f"{lib_err:.2e}); kernels G {our_fwd:.3f} ms, G-bwd {our_bwd:.3f} ms")
+    # no library call gathers the five-level pyramid; on one sphere resample
+    # level F.grid_sample computes the same function
+    resample = f"s2 sphere resample {list(tap.shape)} -> {list(out_hw)} x 32"
+    results["gather_levels"]["library_at"] = dict(shape=resample, ms=our_fwd,
+                                                  library_ms=lib_fwd)
+    results["gather_levels_bwd"]["library_at"] = dict(shape=resample, ms=our_bwd,
+                                                      library_ms=lib_bwd)
+    del levels, ix, iy, tap_nchw, lib_out, ours
+    torch.cuda.empty_cache()
+
+    # ---- 8. kernel C-bwd -------------------------------------------------
+    hot = torch.rand(N_RAYS, N_PTS, generator=gen, device=dev) < 0.2
+    dens_sat = torch.where(hot, dens * 100 + 50, dens)  # saturated alphas
+    ins = [sd, dv, dens_sat, rgb]
+    fwd_outs, order = sort_composite_forward(*ins, with_order=True)
+    n_saturated = int((fwd_outs[2] == 1.0).sum())
+    g_depth = torch.randn(N_RAYS, generator=gen, device=dev)
+    g_color = torch.randn(N_RAYS, 3, generator=gen, device=dev)
+    bwd = lambda: sort_composite_backward(fwd_outs[0], fwd_outs[1], order, dens_sat, rgb,
+                                          g_depth, g_color)
+    got_c = bwd()
+    leaves = [t.clone().requires_grad_(True) for t in ins]
+    pc = sort_composite_plain(*leaves)
+    plain_bwd = lambda: torch.autograd.grad([pc["depth"], pc["color"]], leaves,
+                                            [g_depth, g_color], retain_graph=True)
+    want_c = plain_bwd()
+    torch.cuda.synchronize()
+    cb_err = 0.0
+    for name, a, b in zip(("d_sd", "d_dv", "d_density", "d_rgb"), got_c, want_c):
+        if not bool(torch.isfinite(a).all()):
+            fail(f"sort_composite_bwd {name} is not finite")
+        lim = 1e-5 * float(b.abs().max())
+        ok = (a - b).abs() <= COMPOSITE_BWD_RTOL * b.abs() + lim
+        if not bool(ok.all()):
+            fail(f"sort_composite_bwd {name}: {int((~ok).sum())} values beyond rtol "
+                 f"{COMPOSITE_BWD_RTOL}")
+        cb_err = max(cb_err, float((a - b).abs().max()))
+    ms = cuda_ms(bwd)
+    plain_ms = cuda_ms(plain_bwd)
+    # device time alone: inputs read from HBM (copies cycled past the L2),
+    # and with one copy, whose inputs stay in the L2 between launches
+    bwd_copies = hbm_copies((fwd_outs[0], fwd_outs[1], order, dens_sat, rgb, g_depth, g_color))
+    dev_ms = graph_ms([lambda c=c: sort_composite_backward(*c) for c in bwd_copies])
+    dev_ms_l2 = graph_ms(bwd)
+    fwd_copies = hbm_copies((sd, dv, dens, rgb))
+    c_dev_ms = graph_ms([lambda c=c: sort_composite_forward(*c) for c in fwd_copies])
+    c_dev_ms_l2 = graph_ms(lambda: sort_composite_forward(sd, dv, dens, rgb))
+    n_copies = (len(bwd_copies), len(fwd_copies))
+    del bwd_copies, fwd_copies
+    results["sort_composite"].update(device_ms=c_dev_ms, device_ms_l2=c_dev_ms_l2)
+    results["sort_composite_bwd"] = dict(
+        max_abs_err=cb_err, ms=ms, plain_ms=plain_ms, device_ms=dev_ms, device_ms_l2=dev_ms_l2,
+        **bound(nbytes(fwd_outs[0], fwd_outs[1], order, dens_sat, rgb, g_depth, g_color,
+                       *got_c), 60 * sd.numel()), library_ms=None)
+    print(f"[8 kernel C-bwd] R={N_RAYS} P={N_PTS}, {n_saturated} saturated alphas: max abs "
+          f"err {cb_err:.3e} (rtol {COMPOSITE_BWD_RTOL}); kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms; device time alone (graph of {GRAPH_REPS}), inputs from HBM "
+          f"({n_copies[0]} / {n_copies[1]} copies cycled) / L2-resident: C-bwd "
+          f"{dev_ms * 1e3:.1f} / {dev_ms_l2 * 1e3:.1f} us, C {c_dev_ms * 1e3:.1f} / "
+          f"{c_dev_ms_l2 * 1e3:.1f} us")
+    del leaves, pc, want_c
+
+    # ---- 9. kernel S -----------------------------------------------------
+    R_s = cfg.ray_chunk
+    anchors = S.gaussian_anchor_distances(cfg.n_gaussians, cfg.max_sample_depth, device=dev)
+    offs = torch.randn(R_s, cfg.n_gaussians, 2, generator=gen, device=dev) * 5.0
+    g_means, g_stds = gaussian_params_from_offsets(offs, anchors, cfg.std, cfg.mean_std_floor)
+    s_sd, s_alpha = fwd_outs[0][:R_s].contiguous(), fwd_outs[2][:R_s].contiguous()
+    som_args = (g_means, g_stds, s_sd, s_alpha, cfg.som_sigma, cfg.som_mask_threshold)
+    got_s = som_em(*som_args)
+    want_s = som_em_plain(*som_args)
+    torch.cuda.synchronize()
+    agree = torch.ones(R_s, dtype=torch.bool, device=dev)
+    for a, b in zip(got_s[:2], want_s[:2]):
+        agree &= torch.isclose(a, b, rtol=SOM_RTOL, atol=SOM_RTOL).all(dim=1)
+    agree &= (got_s[2] == want_s[2]).all(dim=1)
+    share = float(agree.float().mean())
+    if share < SOM_MIN_SHARE:
+        fail(f"ray_som: kernel agrees with the plain version on {share:.4%} of rays")
+    s_err = max(float((a - b).abs().max()) for a, b in zip(got_s, want_s))
+    ms = cuda_ms(lambda: som_em(*som_args))
+    plain_ms = cuda_ms(lambda: som_em_plain(*som_args))
+    # L2-resident: on the training path S reads the chunk kernel C has just written
+    dev_ms = graph_ms(lambda: som_em(*som_args))
+    C_ = cfg.n_gaussians
+    results["ray_som"] = dict(
+        max_abs_err=s_err, ms=ms, plain_ms=plain_ms, device_ms_l2=dev_ms,
+        # per sample: C^2 products and sums for p(z|c2), ~12 C for p(z|c1) and the weights
+        **bound(nbytes(g_means, g_stds, s_sd, s_alpha, *got_s),
+                s_sd.numel() * (2 * C_ * C_ + 12 * C_)), library_ms=None)
+    print(f"[9 kernel S] R={R_s} C={C_} P={N_PTS}: agrees within rtol {SOM_RTOL} (mask equal) "
+          f"on {share:.4%} of rays, max abs err {s_err:.3e}; kernel {ms:.3f} ms, plain "
+          f"{plain_ms:.3f} ms, device time alone (L2-resident) {dev_ms * 1e3:.1f} us")
+    del fwd_outs, order, got_c
+    torch.cuda.empty_cache()
+
+    # ---- 10. train -------------------------------------------------------
+    batch = make_batch(cfg, seed=SEED)
+    trainer = Trainer(cfg, device=dev, model=model)
+    params = dict(model.named_parameters())
+    noises = [model.draw_noise(1, cfg.n_sources, gen, dev) for _ in range(TRAIN_STEPS)]
+    start_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    seen_nonzero = {n: False for n in params}
+    step_ms, losses = [], []
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    for i in range(TRAIN_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = trainer.train_step(batch, noise=noises[i])
+        torch.cuda.synchronize()
+        step_ms.append((time.perf_counter() - t0) * 1e3)
+        gmax = torch.stack([p.grad.abs().max() for p in params.values()]).cpu()
+        if not (bool(torch.isfinite(gmax).all()) and bool(torch.isfinite(metrics["total_loss"]))):
+            fail(f"train step {i}: loss or gradients not finite")
+        for n, m in zip(params, gmax.tolist()):
+            seen_nonzero[n] |= m > 0
+        losses.append(float(metrics["total_loss"]))
+        if i == 0:
+            metrics0 = {k: float(v) for k, v in metrics.items()}
+            grads0 = {n: p.grad.detach().clone() for n, p in params.items()}
+            # the first AdamW step moves each weight by -lr g / (|g| + eps)
+            # (zero weight decay): held per element within 0.05 lr plus one
+            # f32 spacing of the weight (the rounding of the update)
+            excess, moved_by = [], []
+            for n, p in params.items():
+                p0, g = start_state[n], grads0[n]
+                delta = p.detach() - p0
+                spacing = torch.nextafter(p0.abs(), torch.full_like(p0, float("inf"))) - p0.abs()
+                err = (delta + cfg.lr * g / (g.abs() + ADAM_EPS)).abs() - spacing
+                excess.append(err.max())
+                moved_by.append(delta.abs().max())
+            excess = torch.stack(excess).cpu() / cfg.lr
+            moved_by = torch.stack(moved_by).cpu() / cfg.lr
+            if not float(excess.max()) <= ADAM_STEP_TOL:
+                fail(f"train step 0: AdamW moved a weight {float(excess.max()):.3f} lr away "
+                     f"from -lr g / (|g| + eps)")
+            has_grad = gmax > 0
+            if not bool((moved_by[has_grad] > 0).all()):
+                fail("train step 0: a parameter with a nonzero gradient did not move")
+            adam_text = (f"AdamW step 0 moved all {int(has_grad.sum())} parameters with a nonzero "
+                         f"gradient, each element by -lr g / (|g| + eps) within "
+                         f"{max(float(excess.max()), 0.0):.2e} lr + one f32 spacing (limit "
+                         f"{ADAM_STEP_TOL} lr); largest move per parameter "
+                         f"{float(moved_by[has_grad].min()):.3f} .. "
+                         f"{float(moved_by.max()):.3f} lr")
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    for name, n in launches.items():
+        if n < 1:
+            fail(f"kernel {name} was not launched on the training path")
+    # a conv bias that feeds a train-mode batch norm is subtracted again: zero gradient
+    zero = [n for n, seen in seen_nonzero.items()
+            if not seen and not re.search(r"conv_block[12]\.0\.bias$", n)]
+    if zero:
+        fail(f"{len(zero)} parameters never got a nonzero gradient, e.g. {zero[:3]}")
+    state = model.state_dict()
+    stats = [k for k in state if k.endswith(("running_mean", "running_var"))]
+    moved = sum(not torch.equal(state[k], start_state[k]) for k in stats)
+    if moved != len(stats):
+        fail(f"{len(stats) - moved} of {len(stats)} BN running statistics did not move")
+    warm = statistics.median(step_ms[1:])
+    print(f"[10 train] {TRAIN_STEPS} steps, {cfg.n_sources} sources x {cfg.n_rays} rays x "
+          f"{cfg.n_pts_per_ray} samples, f32: loss {['%.5f' % v for v in losses]}; finite; "
+          f"{len(params)} parameter tensors, all with nonzero gradients; {moved} BN running "
+          f"statistics moved; main-path launches {launches}")
+    print(f"[10 train] {adam_text}")
+
+    model.load_state_dict(start_state)
+    plain_trainer = Trainer(cfg, device=dev, model=model)
+    with build.plain_versions():
+        metrics_p = plain_trainer.train_step(batch, noise=noises[0])
+    torch.cuda.synchronize()
+    loss_k, loss_p = metrics0["total_loss"], float(metrics_p["total_loss"])
+    if not abs(loss_k - loss_p) <= TRAIN_LOSS_RTOL * abs(loss_p):
+        fail(f"train step 0: kernel-path loss {loss_k} vs plain {loss_p}")
+    norms = {n: float(g.norm()) for n, g in grads0.items()}
+    gscale = max(norms.values())
+    worst, worst_name = 0.0, ""
+    for n, p in params.items():
+        diff = float((grads0[n] - p.grad).norm())
+        if norms[n] <= 1e-6 * gscale:  # zero up to rounding on both paths
+            if diff > 1e-5 * gscale:
+                fail(f"train step 0: gradient {n} differs by {diff} (scale {gscale})")
+            continue
+        rel = diff / norms[n]
+        if rel > worst:
+            worst, worst_name = rel, n
+    if worst > TRAIN_GRAD_REL_L2:
+        fail(f"train step 0: gradient {worst_name} relative L2 {worst:.3e} > {TRAIN_GRAD_REL_L2}")
+    metric_err = max(abs(metrics0[k] - float(v)) / max(abs(float(v)), 1e-12)
+                     for k, v in metrics_p.items())
+    print(f"[10 train] step 0 on the plain versions from the same weights and draws: loss "
+          f"{loss_p:.6f} vs kernel path {loss_k:.6f}; worst metric relative difference "
+          f"{metric_err:.2e}; worst gradient leaf relative L2 {worst:.3e} ({worst_name}; "
+          f"limit {TRAIN_GRAD_REL_L2})")
+    n_step_rays = cfg.n_sources * cfg.n_rays
+    print(f"[10 numbers] on {card}: {warm:.1f} ms per step (median of steps "
+          f"{list(range(1, TRAIN_STEPS))}; step 0 {step_ms[0]:.1f} ms), "
+          f"{n_step_rays / warm * 1e3:.0f} rays/s, peak device memory {peak / 2**30:.2f} GiB "
+          f"(the {TRAIN_STEPS} kernel-path steps)")
+
+    sources = {
+        "gather_levels": ("scenerf_tpu_torch/ops/csrc/gather.cu", "scenerf_tpu/geometry.py:106"),
+        "gather_levels_bwd": ("scenerf_tpu_torch/ops/csrc/gather_bwd.cu",
+                              "scenerf_tpu/ops/gather_scatter.py:141"),
+        "sort_composite": ("scenerf_tpu_torch/ops/csrc/composite.cu",
+                           "scenerf_tpu/rendering.py:102"),
+        "sort_composite_bwd": ("scenerf_tpu_torch/ops/csrc/composite_bwd.cu",
+                               "scenerf_tpu/rendering.py:102"),
+        "ray_som": ("scenerf_tpu_torch/ops/csrc/som.cu", "scenerf_tpu/som.py:37"),
+    }
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name], **results[name]}
+         "launches": launches[name],
+         "launches_by_path": {"serve": serve_launches.get(name, 0), "train": launches[name]},
+         **results[name]}
         for name, (src, rep) in sources.items()]}))
     print(f"card: {card}")
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

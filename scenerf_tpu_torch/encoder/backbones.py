@@ -1,4 +1,4 @@
-"""Image backbones for the spherical U-Net encoder (eval path).
+"""Image backbones for the spherical U-Net encoder.
 
 Counterpart of `scenerf_tpu/encoder/backbones.py`. The decoder consumes the
 taps
@@ -7,7 +7,9 @@ taps
   "s4"  = stage-1 output (stride 4) "s32" = conv_head output, before its BN
 all channel-last [B, H, W, C]. EfficientNet uses timm's parameter names
 (conv_stem, bn1, blocks.{s}.{b}.*, conv_head) so a reference checkpoint loads
-as it is; convs use TF-SAME padding like the `tf_` timm variants.
+as it is; convs use TF-SAME padding like the `tf_` timm variants. The batch
+norms use batch statistics in train mode, with `bn_momentum` (flax's
+convention, `config.bn_momentum`) for their running averages.
 """
 from __future__ import annotations
 
@@ -122,7 +124,8 @@ class MBConv(nn.Module):
     conv_dw/bn1, se, conv_pw/bn2."""
 
     def __init__(self, c_in: int, c_out: int, expand_ratio: int, kernel: int,
-                 stride: int, se_ratio: float = 0.25, bn_eps: float = 1e-3):
+                 stride: int, se_ratio: float = 0.25, bn_eps: float = 1e-3,
+                 bn_momentum: float = 0.99):
         super().__init__()
         c_mid = c_in * expand_ratio
         self.expand = expand_ratio != 1
@@ -132,18 +135,18 @@ class MBConv(nn.Module):
         se = SqueezeExcite(c_mid, max(1, int(c_in * se_ratio)))
         if self.expand:
             self.conv_pw = Conv2dCL(c_in, c_mid, 1, bias=False)
-            self.bn1 = FusedBatchNorm(c_mid, bn_eps)
+            self.bn1 = FusedBatchNorm(c_mid, bn_eps, bn_momentum)
             self.conv_dw = dw
-            self.bn2 = FusedBatchNorm(c_mid, bn_eps)
+            self.bn2 = FusedBatchNorm(c_mid, bn_eps, bn_momentum)
             self.se = se
             self.conv_pwl = Conv2dCL(c_mid, c_out, 1, bias=False)
-            self.bn3 = FusedBatchNorm(c_out, bn_eps)
+            self.bn3 = FusedBatchNorm(c_out, bn_eps, bn_momentum)
         else:
             self.conv_dw = dw
-            self.bn1 = FusedBatchNorm(c_mid, bn_eps)
+            self.bn1 = FusedBatchNorm(c_mid, bn_eps, bn_momentum)
             self.se = se
             self.conv_pw = Conv2dCL(c_mid, c_out, 1, bias=False)
-            self.bn2 = FusedBatchNorm(c_out, bn_eps)
+            self.bn2 = FusedBatchNorm(c_out, bn_eps, bn_momentum)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if self.expand:
@@ -161,11 +164,12 @@ class EfficientNet(nn.Module):
     `num_features` is the conv_head width (2560 for B7)."""
 
     def __init__(self, width: float = 2.0, depth: float = 3.1,
-                 num_features: int = 2560, bn_eps: float = 1e-3):
+                 num_features: int = 2560, bn_eps: float = 1e-3,
+                 bn_momentum: float = 0.99):
         super().__init__()
         stem = round_filters(32, width)
         self.conv_stem = Conv2dCL(3, stem, 3, stride=2, bias=False, same=True)
-        self.bn1 = FusedBatchNorm(stem, bn_eps)
+        self.bn1 = FusedBatchNorm(stem, bn_eps, bn_momentum)
         c_in = stem
         stages = []
         self.tap_channels = {"s1": 3}
@@ -174,7 +178,8 @@ class EfficientNet(nn.Module):
             blocks = []
             for bi in range(round_repeats(base_r, depth)):
                 blocks.append(MBConv(c_in, f_out, expand, kernel,
-                                     stride if bi == 0 else 1, bn_eps=bn_eps))
+                                     stride if bi == 0 else 1, bn_eps=bn_eps,
+                                     bn_momentum=bn_momentum))
                 c_in = f_out
             stages.append(nn.ModuleList(blocks))
             if si in TAP_STAGES:
@@ -222,12 +227,14 @@ class TinyBackbone(nn.Module):
         return taps
 
 
-def make_backbone(name: str, num_features: int | None = None) -> nn.Module:
+def make_backbone(name: str, num_features: int | None = None,
+                  bn_momentum: float = 0.99) -> nn.Module:
     """Build a backbone by config name: 'effnet-b{0..7}' or 'tiny'."""
     if name == "tiny":
         return TinyBackbone(num_features=num_features or 64)
     if name.startswith("effnet-"):
         width, depth = VARIANTS[name.split("-", 1)[1]]
         return EfficientNet(width=width, depth=depth,
-                            num_features=num_features or round_filters(1280, width))
+                            num_features=num_features or round_filters(1280, width),
+                            bn_momentum=bn_momentum)
     raise ValueError(f"unknown backbone: {name}")

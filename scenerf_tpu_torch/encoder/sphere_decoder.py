@@ -1,11 +1,14 @@
-"""Spherical-grid U-Net decoder (eval path).
+"""Spherical-grid U-Net decoder.
 
 Counterpart of `scenerf_tpu/encoder/sphere_decoder.py`. Every encoder tap is
 resampled onto the equirectangular sphere grid through an inverse map
 sphere_cell -> source pixel (sentinel -10 marks out-of-FOV cells, which
 sample zeros), then upsampled through the pyramid. The map depends only on
 the intrinsics and is built once on the host in numpy; the resampling is the
-gather kernel (`ops/gather.py`). Tensors are channel-last [B, H, W, C].
+gather kernel (`ops/gather.py`), whose backward carries the gradient into
+the taps. Tensors are channel-last [B, H, W, C]. The decoder's batch norms
+move their running averages with momentum 0.9 (flax's convention), as
+`scenerf_tpu/encoder/sphere_decoder.py:143` sets.
 Parameter names follow the reference: conv2, up{16,8,4,2,1}._net.0 (conv)
 and _net.{1,2,3}.conv_block{1,2}.{0,1} (BasicBlocks).
 """
@@ -29,6 +32,7 @@ Levels = Dict[str, torch.Tensor]
 SCALES = (1, 2, 4, 8, 16, 32)
 LEAKY_SLOPE = 0.01
 DECODER_BN_EPS = 1e-5
+DECODER_BN_MOMENTUM = 0.9
 
 
 def level_hw(sphere: SphereConfig, scale: int) -> Tuple[int, int]:
@@ -110,10 +114,10 @@ class BasicBlock(nn.Module):
         d = dilation
         self.conv_block1 = nn.Sequential(
             Conv2dCL(channels, channels, 3, padding=d, dilation=d),
-            FusedBatchNorm(channels, DECODER_BN_EPS))
+            FusedBatchNorm(channels, DECODER_BN_EPS, DECODER_BN_MOMENTUM))
         self.conv_block2 = nn.Sequential(
             Conv2dCL(channels, channels, 3, padding=d, dilation=d),
-            FusedBatchNorm(channels, DECODER_BN_EPS))
+            FusedBatchNorm(channels, DECODER_BN_EPS, DECODER_BN_MOMENTUM))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         h = F.leaky_relu(self.conv_block1(x), LEAKY_SLOPE)

@@ -19,9 +19,11 @@ class _EncoderWrapper(nn.Module):
 
 
 class UNet2DSphere(nn.Module):
-    def __init__(self, backbone_name: str = "effnet-b7", num_features: int = 2560):
+    def __init__(self, backbone_name: str = "effnet-b7", num_features: int = 2560,
+                 bn_momentum: float = 0.99):
         super().__init__()
-        backbone = make_backbone(backbone_name, num_features=num_features)
+        backbone = make_backbone(backbone_name, num_features=num_features,
+                                 bn_momentum=bn_momentum)
         self.encoder = _EncoderWrapper(backbone)
         self.decoder = DecoderSphere(num_features, backbone.tap_channels)
         self.d_latent = decoder_latent_dim(num_features)

@@ -112,6 +112,26 @@ def unnormalize_coords(grid_xy: torch.Tensor, H: int, W: int) -> Tuple[torch.Ten
     return ix, iy
 
 
+def sample_pix_features(pix: torch.Tensor, img: torch.Tensor) -> torch.Tensor:
+    """Bilinearly sample image colors img [H, W, C] at pixel coords pix [N, 2]
+    -> [N, C], normalizing by (size - 1) as the JAX package's
+    `geometry.py:179 sample_pix_features` does (the effective sample point is
+    pix * size / (size - 1) - 0.5). Runs the gather kernel, whose backward
+    carries a gradient into `pix` where it requires one."""
+    from scenerf_tpu_torch.ops.gather import gather_levels
+
+    ix, iy = pix_feature_coords(pix, img.shape[0], img.shape[1])
+    return gather_levels([img], ix[None], iy[None])
+
+
+def pix_feature_coords(pix: torch.Tensor, H: int, W: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The continuous sample coords (ix, iy) [N] of `sample_pix_features` on
+    an H x W image."""
+    gx = (pix[:, 0] / (W - 1) - 0.5) * 2.0
+    gy = (pix[:, 1] / (H - 1) - 0.5) * 2.0
+    return unnormalize_coords(torch.stack([gx, gy], dim=-1), H, W)
+
+
 def normalize_pix(pix: torch.Tensor, norm_wh: Tuple[int, int]) -> torch.Tensor:
     """Pixel coords [N, 2] -> normalized [-1, 1] coords by a caller-provided
     nominal (W, H), which can differ by one pixel from the map sampled."""

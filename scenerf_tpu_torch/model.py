@@ -1,7 +1,9 @@
 """The SceneRF model in PyTorch: spherical U-Net image encoder + two
-conditioned ResnetFC heads + the ray renderer (serve path: encode one frame,
-render depth and color at a sweep of poses). Counterpart of
-`scenerf_tpu/model.py`; the training forward and losses are not ported yet.
+conditioned ResnetFC heads + the ray renderer, with the self-supervised loss
+stack. Counterpart of `scenerf_tpu/model.py`: the serve path (encode one
+frame, render depth and color at a sweep of poses) and the training forward
+(`SceneRF.forward`: per-item and per-source renders, losses and the GT-depth
+metrics).
 
 Submodule names follow the reference Lightning layout (net_rgb, mlp,
 mlp_gaussian), so a reference `state_dict` loads through
@@ -9,25 +11,34 @@ mlp_gaussian), so a reference `state_dict` loads through
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
 from torch import nn
 
 from scenerf_tpu_torch import geometry as geo
+from scenerf_tpu_torch import losses as L
 from scenerf_tpu_torch import rendering as R
+from scenerf_tpu_torch import sampling as S
 from scenerf_tpu_torch.config import SceneRFConfig
 from scenerf_tpu_torch.encoder.sphere_decoder import build_sphere_maps
 from scenerf_tpu_torch.encoder.unet_sphere import UNet2DSphere
 from scenerf_tpu_torch.fields import ResnetFC
 
 LEVEL_KEYS = ("1_1", "1_2", "1_4", "1_8", "1_16")
+LOSS_KEYS = ("loss_reprojection", "loss_color", "loss_kl", "loss_dist2closest_gauss")
+LOG_KEYS = ("min_som_vars", "min_stds", "closest_pts_to_depth", "weights_at_depth")
+NOISE_KEYS = ("pixels", "uni", "gauss", "reproj", "gt_uni", "gt_gauss")
+
+Noise = Dict[str, torch.Tensor]  # NOISE_KEYS -> [B, S, ...] draws of one step
 
 
 def compute_sphere_maps(cfg: SceneRFConfig, cam_K) -> Dict[int, np.ndarray]:
     """Sphere inverse maps {scale: [out_H, out_W, 2]} of a camera's full
     pixel grid, built on the host in f32."""
+    if isinstance(cam_K, torch.Tensor):
+        cam_K = cam_K.detach().cpu()
     inv_K = torch.linalg.inv(torch.as_tensor(np.asarray(cam_K), dtype=torch.float32))
     pix, pix_sphere, _ = geo.sphere_coords_from_pixels(inv_K, cfg.sphere,
                                                        img_size=cfg.img_size)
@@ -41,7 +52,7 @@ class SceneRF(nn.Module):
             raise NotImplementedError("the port runs in float32 only so far "
                                       f"(compute_dtype={cfg.compute_dtype!r})")
         self.cfg = cfg
-        self.net_rgb = UNet2DSphere(cfg.encoder, cfg.encoder_features)
+        self.net_rgb = UNet2DSphere(cfg.encoder, cfg.encoder_features, cfg.bn_momentum)
         self.d_latent = self.net_rgb.d_latent
         self.mlp = ResnetFC(cfg.d_in, 4, self.d_latent, cfg.n_blocks, cfg.d_hidden)
         self.mlp_gaussian = ResnetFC(cfg.d_in, 2, self.d_latent, cfg.n_blocks,
@@ -55,11 +66,15 @@ class SceneRF(nn.Module):
     def encode(self, img: torch.Tensor, cam_K,
                sphere_maps: Optional[Dict[int, np.ndarray]] = None) -> Dict[str, torch.Tensor]:
         """img [B, H, W, 3] on the model's device -> levels dict
-        {"1_1".."1_16": [B, H_s, W_s, C_s]} (eval mode, no grad)."""
+        {"1_1".."1_16": [B, H_s, W_s, C_s]}. In eval mode (the serve path) it
+        runs without autograd on the BN running statistics; in train mode the
+        BNs use batch statistics and update their running averages, and the
+        levels carry gradients. `sphere_maps` (numpy or device tensors) skip
+        the host-side map build."""
         if sphere_maps is None:
             sphere_maps = self.compute_sphere_maps(cam_K)
-        maps = {s: torch.tensor(m, device=img.device) for s, m in sphere_maps.items()}
-        with torch.no_grad():
+        maps = {s: torch.as_tensor(m, device=img.device) for s, m in sphere_maps.items()}
+        with torch.set_grad_enabled(self.training and torch.is_grad_enabled()):
             return self.net_rgb(img.to(self.cfg.dtype), maps)
 
     @staticmethod
@@ -83,10 +98,8 @@ class SceneRF(nn.Module):
 
     def _strided_pixels(self, stride: int, device) -> tuple:
         W, H = self.cfg.img_size
-        xs = torch.arange(0, W, stride, dtype=torch.float32, device=device)
-        ys = torch.arange(0, H, stride, dtype=torch.float32, device=device)
-        gy, gx = torch.meshgrid(ys, xs, indexing="ij")
-        return torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=-1), (len(ys), len(xs))
+        pixels = S.grid_pixels(0, W, 0, H, stride, device=device, x_fastest=True)
+        return pixels, (-(-H // stride), -(-W // stride))
 
     def render_image(self, pyramid: R.Pyramid, cam_K: torch.Tensor,
                      T_source2infer: torch.Tensor, generator: torch.Generator,
@@ -114,3 +127,114 @@ class SceneRF(nn.Module):
             depths.append(out["depth"])
             colors.append(out["color"])
         return {"depth": torch.stack(depths), "color": torch.stack(colors)}
+
+    # --------------------------------------------------------------- forward
+    def draw_noise(self, n_items: int, n_sources: int, generator: torch.Generator,
+                   device) -> Noise:
+        """Every random draw of one training forward, [B, S, ...] per key:
+        the training pixels (`sampling.random_grid_pixels`), the render's
+        U(0, 1) / N(0, 1) sample noise, the reprojection tie-break N(0, 1)
+        and the GT-depth render's noise."""
+        cfg = self.cfg
+        W, H = cfg.img_size
+        R_, G = cfg.n_rays, cfg.n_gt_depth
+        pixels = torch.stack([torch.stack([
+            S.random_grid_pixels(generator, R_, W, H, stride=cfg.pixel_stride,
+                                 grid_size=cfg.sample_grid_size, device=device)
+            for _ in range(n_sources)]) for _ in range(n_items)])
+        lead = (n_items, n_sources)
+        kw = dict(generator=generator, device=device)
+        return {
+            "pixels": pixels,
+            "uni": torch.rand(*lead, R_, cfg.n_pts_uni, **kw),
+            "gauss": torch.randn(*lead, R_, cfg.n_pts_gauss, **kw),
+            "reproj": torch.randn(*lead, R_, **kw),
+            "gt_uni": torch.rand(*lead, G, cfg.n_pts_uni, **kw),
+            "gt_gauss": torch.randn(*lead, G, cfg.n_pts_gauss, **kw),
+        }
+
+    def _per_source(self, pyramid: R.Pyramid, item_K: torch.Tensor, item_inv_K: torch.Tensor,
+                    src: Dict[str, torch.Tensor], noise: Noise) -> Dict[str, torch.Tensor]:
+        """Losses and logs of one (item, source) pair."""
+        cfg = self.cfg
+        pix = noise["pixels"]
+        out = self.render_rays(pyramid, item_K, src["T_source2infer"], pix,
+                               noise_uni=noise["uni"], noise_gauss=noise["gauss"],
+                               with_som=True)
+        color_src = geo.sample_pix_features(pix, src["img_source"])
+        d2g = L.dist2closest_gaussian(out["gaussian_means"], out["gaussian_stds"],
+                                      out["som_vars"], out["depth"])
+        loss_reproj, valid = L.reprojection_loss(
+            noise["reproj"], pix, color_src, out["depth"], src["img_target"], item_inv_K,
+            item_K, src["T_source2target"])
+        res = {
+            "loss_reprojection": L.masked_mean(loss_reproj, valid),
+            "loss_color": torch.abs(out["color"] - color_src).mean(),
+            "loss_kl": out["loss_kl"].mean(),
+            "loss_dist2closest_gauss": d2g["loss_dist2closest_gauss"].mean(),
+            "min_som_vars": d2g["min_som_vars"].mean(),
+            "min_stds": d2g["min_stds"].mean(),
+            "closest_pts_to_depth": out["closest_pts_to_depth"].mean(),
+            "weights_at_depth": out["weights_at_depth"].mean(),
+        }
+        # depth metrics at the GT pixels: logs only, no gradient
+        with torch.no_grad():
+            ev = self.render_rays([lv.detach() for lv in pyramid], item_K,
+                                  src["T_source2infer"], src["gt_pix"],
+                                  ray_chunk=cfg.eval_ray_chunk, noise_uni=noise["gt_uni"],
+                                  noise_gauss=noise["gt_gauss"])
+            dm = L.depth_metrics(src["gt_depth"], ev["depth"], mask=src["gt_mask"] > 0,
+                                 max_depth=cfg.eval_depth)
+        res.update({f"depth/{k}": v for k, v in dm.items()})
+        return res
+
+    def forward(self, batch: Dict[str, torch.Tensor], noise: Noise, train: bool = True,
+                sphere_maps: Optional[Dict[int, torch.Tensor]] = None
+                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The training (train=True) or validation forward over a batch of
+        device tensors (see data/synthetic.py for the contract) with every
+        random draw given in `noise` (`draw_noise`). Puts the model in train
+        or eval mode. Returns (total_loss, metrics): losses summed over the
+        valid sources and divided by the batch size, logs as masked means over
+        the sources; the metric names are the JAX package's. Nothing here
+        waits for the device."""
+        cfg = self.cfg
+        self.train(train)
+        B, S_n = batch["T_source2infer"].shape[:2]
+        levels = self.encode(batch["img_input"], batch["cam_K"][0], sphere_maps=sphere_maps)
+
+        sums: Dict[str, torch.Tensor] = {}
+        for b in range(B):
+            pyramid = self.pyramid_for_item(levels, b)
+            item_K = batch["cam_K"][b]
+            item_inv_K = R.inverse(item_K)
+            for s in range(S_n):
+                src = {
+                    "T_source2infer": batch["T_source2infer"][b, s],
+                    "T_source2target": batch["T_source2target"][b, s],
+                    "img_source": batch["img_sources"][b, s],
+                    "img_target": batch["img_targets"][b, s],
+                    "gt_pix": batch["gt_pix"][b, s],
+                    "gt_depth": batch["gt_depth"][b, s],
+                    "gt_mask": batch["gt_mask"][b, s],
+                }
+                res = self._per_source(pyramid, item_K, item_inv_K, src,
+                                       {k: v[b, s] for k, v in noise.items()})
+                m = batch["source_mask"][b, s]
+                for k, v in res.items():
+                    sums[k] = sums[k] + m * v if k in sums else m * v
+
+        totals = {k: sums[k] / B for k in LOSS_KEYS}
+        total_loss = totals["loss_kl"] + totals["loss_dist2closest_gauss"] * cfg.dist2closest_weight
+        if cfg.use_reprojection:
+            total_loss = total_loss + totals["loss_reprojection"] * cfg.reprojection_weight
+        if cfg.use_color:
+            total_loss = total_loss + totals["loss_color"]
+        metrics = dict(totals)
+        metrics["loss_som_kl"] = metrics.pop("loss_kl")
+        denom = torch.clamp(batch["source_mask"].sum(), min=1.0)
+        for k in sums:
+            if k not in LOSS_KEYS:
+                metrics[k] = sums[k] / denom
+        metrics["total_loss"] = total_loss
+        return total_loss, metrics

@@ -1,10 +1,11 @@
 """Build the package's CUDA kernels at first use and load them with ctypes.
 
 The sources under `csrc/` have a plain C interface, so `nvcc` compiles them in
-seconds into one shared library under `build/kernels/` at the repository
-root, named by a hash of the sources and flags (an unchanged checkout reuses
-it). Nothing is built or loaded at import time: the CPU path never needs the
-library, and a failed build raises.
+seconds: one `nvcc -c` per source, all started together, then one link into
+a shared library under `build/kernels/` at the repository root, named by a
+hash of the sources and flags (an unchanged checkout reuses it). Nothing is
+built or loaded at import time: the CPU path never needs the library, and a
+failed build raises.
 
 Every kernel wrapper counts its launches in `LAUNCHES`, so a run can show that
 its main path went through the kernels.
@@ -21,11 +22,12 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("gather.cu", "composite.cu")
+SOURCES = ("gather.cu", "gather_bwd.cu", "composite.cu", "composite_bwd.cu", "som.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas=-v")
+              "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
-LAUNCHES = {"gather_levels": 0, "sort_composite": 0}
+LAUNCHES = {"gather_levels": 0, "gather_levels_bwd": 0, "sort_composite": 0,
+            "sort_composite_bwd": 0, "ray_som": 0}
 
 _lib = None
 _force_plain = False
@@ -74,13 +76,29 @@ def _build() -> Path:
         return target
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC / s) for s in SOURCES)]
+    nvcc = _nvcc()
     t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
+    objs = [tmp.with_name(f"{tmp.name}.{Path(src).stem}.o") for src in SOURCES]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(CSRC / src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for src, obj in zip(SOURCES, objs)]
+    log = []
+    for src, proc in zip(SOURCES, procs):
+        out, _ = proc.communicate()
+        log.append(out)
+        if proc.returncode != 0:
+            for other in procs:
+                other.kill()
+                other.wait()
+            raise RuntimeError(f"nvcc failed on {src} ({proc.returncode}):\n{out}")
+    res = subprocess.run([nvcc, "-shared", "-o", str(tmp), *map(str, objs)],
+                         capture_output=True, text=True)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
     if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({res.returncode}):\n{res.stderr}")
+        raise RuntimeError(f"nvcc link failed ({res.returncode}):\n{res.stderr}")
     build_seconds = time.perf_counter() - t0
-    target.with_suffix(".log").write_text(res.stdout + res.stderr)
+    target.with_suffix(".log").write_text("".join(log) + res.stdout + res.stderr)
     os.replace(tmp, target)
     return target
 
@@ -96,13 +114,22 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(_build()))
-        vp, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.scenerf_gather_levels_f32.argtypes = [
-            vp, vp, i32, vp, vp, i32, vp, i32, vp]
-        lib.scenerf_gather_levels_f32.restype = i32
-        lib.scenerf_sort_composite_f32.argtypes = [
-            vp, vp, vp, vp, i32, i32, vp, vp, vp, vp, vp, vp, vp, vp, vp, vp]
-        lib.scenerf_sort_composite_f32.restype = i32
+        vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        signatures = {
+            "scenerf_gather_levels_f32": [vp, vp, i32, vp, vp, i32, vp, i32, vp],
+            "scenerf_gather_levels_bwd_f32": [vp, vp, vp, i32, vp, vp, i32, vp, i32,
+                                              vp, vp, vp],
+            "scenerf_sort_composite_f32": [vp, vp, vp, vp, i32, i32, vp, vp, vp, vp,
+                                           vp, vp, vp, vp, vp, vp, vp],
+            "scenerf_sort_composite_bwd_f32": [vp, vp, vp, vp, vp, vp, vp, i32, i32,
+                                               vp, vp, vp, vp, vp],
+            "scenerf_ray_som_f32": [vp, vp, vp, vp, i32, i32, i32, f32, f32, f32,
+                                    vp, vp, vp, vp],
+        }
+        for name, argtypes in signatures.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = i32
         lib.scenerf_error_string.argtypes = [i32]
         lib.scenerf_error_string.restype = ctypes.c_char_p
         _lib = lib
@@ -120,3 +147,8 @@ def stream_handle(device) -> int:
     import torch
 
     return torch.cuda.current_stream(device).cuda_stream
+
+
+def ptr(t) -> int | None:
+    """A tensor's device pointer for ctypes (None for None: a null pointer)."""
+    return None if t is None else t.data_ptr()

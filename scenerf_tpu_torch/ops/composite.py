@@ -1,15 +1,21 @@
-"""Kernel C: per-ray sort + alpha composite, and its plain PyTorch version.
+"""Kernels C and C-bwd: per-ray sort + alpha composite and its backward, and
+their plain PyTorch version.
 
 `sort_composite(sd, dv, density, rgb)` takes the per-ray samples in the order
 they were drawn, sorts them by sensor distance and alpha-composites them. On
-a CUDA tensor it launches `csrc/composite.cu`; on a CPU tensor it runs
-`sort_composite_plain`. It replaces the TPU-shaped
-`scenerf_tpu/sampling.py:198 sort_samples_by_distance` +
-`rendering.py:102 composite` (see the kernel source).
+a CUDA tensor it launches `csrc/composite.cu`, and where autograd needs it,
+`csrc/composite_bwd.cu` for the gradient of depth and color; on a CPU tensor
+it runs `sort_composite_plain`, whose autograd is the backward's plain
+version. It replaces the TPU-shaped `scenerf_tpu/sampling.py:198
+sort_samples_by_distance` + `rendering.py:102 composite` (see the kernel
+sources).
 
 Both return a dict with the per-ray `depth` [R], `color` [R, 3],
 `weights_at_depth` [R], `closest_pts_to_depth` [R], `closest_idx` [R] and
 the sorted `sensor_distance`, `depth_volume`, `alphas`, `weights` [R, P].
+Only `depth` and `color` carry a gradient on the kernel path: the training
+step reads the sorted samples and alphas detached (the RaySOM) and the rest
+as logs.
 """
 from __future__ import annotations
 
@@ -68,6 +74,68 @@ def sort_composite_plain(sd: torch.Tensor, dv: torch.Tensor, density: torch.Tens
     return composite(dens_sorted, sd_sorted, dv_sorted, rgb_sorted)
 
 
+_OUT_KEYS = ("sensor_distance", "depth_volume", "alphas", "weights", "depth", "color",
+             "weights_at_depth", "closest_pts_to_depth", "closest_idx")
+
+
+def sort_composite_forward(sd, dv, density, rgb, with_order: bool = False):
+    """Kernel C on contiguous f32 inputs -> (outputs in `_OUT_KEYS` order,
+    order [R, P] int32 or None)."""
+    R, P = sd.shape
+    dev = sd.device
+    f32 = dict(dtype=torch.float32, device=dev)
+    outs = [torch.empty((R, P), **f32) for _ in range(4)]
+    outs += [torch.empty((R,), **f32), torch.empty((R, 3), **f32),
+             torch.empty((R,), **f32), torch.empty((R,), **f32),
+             torch.empty((R,), dtype=torch.int32, device=dev)]
+    order = torch.empty((R, P), dtype=torch.int32, device=dev) if with_order else None
+    status = build.library().scenerf_sort_composite_f32(
+        *(t.data_ptr() for t in (sd, dv, density, rgb)), R, P,
+        *(t.data_ptr() for t in outs), build.ptr(order), build.stream_handle(dev))
+    build.check(status, "sort_composite")
+    build.LAUNCHES["sort_composite"] += 1
+    return outs, order
+
+
+def sort_composite_backward(sd_sorted, dv_sorted, order, density, rgb, d_depth, d_color):
+    """Launch kernel C-bwd: (d_sd, d_dv, d_density, d_rgb) in drawn order for
+    the cotangents d_depth [R], d_color [R, 3] of kernel C's depth and color."""
+    R, P = sd_sorted.shape
+    d_depth = d_depth.to(torch.float32).contiguous()
+    d_color = d_color.to(torch.float32).contiguous()
+    d_sd, d_dv, d_density = (torch.empty_like(sd_sorted) for _ in range(3))
+    d_rgb = torch.empty_like(rgb)
+    status = build.library().scenerf_sort_composite_bwd_f32(
+        *(t.data_ptr() for t in (sd_sorted, dv_sorted, order, density, rgb,
+                                 d_depth, d_color)), R, P,
+        *(t.data_ptr() for t in (d_sd, d_dv, d_density, d_rgb)),
+        build.stream_handle(sd_sorted.device))
+    build.check(status, "sort_composite_bwd")
+    build.LAUNCHES["sort_composite_bwd"] += 1
+    return d_sd, d_dv, d_density, d_rgb
+
+
+class _SortComposite(torch.autograd.Function):
+    """Kernel C forward (writing the sort order), kernel C-bwd backward."""
+
+    @staticmethod
+    def forward(ctx, sd, dv, density, rgb):
+        outs, order = sort_composite_forward(sd, dv, density, rgb, with_order=True)
+        ctx.save_for_backward(outs[0], outs[1], density, rgb)
+        ctx.order = order  # an intermediate, not an input or output
+        ctx.mark_non_differentiable(*(t for k, t in zip(_OUT_KEYS, outs)
+                                      if k not in ("depth", "color")))
+        return tuple(outs)
+
+    @staticmethod
+    def backward(ctx, *grads):
+        sd_sorted, dv_sorted, density, rgb = ctx.saved_tensors
+        d_depth, d_color = grads[_OUT_KEYS.index("depth")], grads[_OUT_KEYS.index("color")]
+        d = sort_composite_backward(sd_sorted, dv_sorted, ctx.order, density, rgb,
+                                    d_depth, d_color)
+        return tuple(g if need else None for g, need in zip(d, ctx.needs_input_grad))
+
+
 def sort_composite(sd: torch.Tensor, dv: torch.Tensor, density: torch.Tensor,
                    rgb: torch.Tensor) -> Dict[str, torch.Tensor]:
     """Sort each ray's samples by `sd` [R, P] and alpha-composite them."""
@@ -85,25 +153,8 @@ def sort_composite(sd: torch.Tensor, dv: torch.Tensor, density: torch.Tensor,
     for t in ins:
         if t.device != dev or t.dtype != torch.float32:
             raise ValueError("sort_composite kernel takes f32 tensors on one device")
-    f32 = dict(dtype=torch.float32, device=dev)
-    out = {
-        "sensor_distance": torch.empty((R, P), **f32),
-        "depth_volume": torch.empty((R, P), **f32),
-        "alphas": torch.empty((R, P), **f32),
-        "weights": torch.empty((R, P), **f32),
-        "depth": torch.empty((R,), **f32),
-        "color": torch.empty((R, 3), **f32),
-        "weights_at_depth": torch.empty((R,), **f32),
-        "closest_pts_to_depth": torch.empty((R,), **f32),
-        "closest_idx": torch.empty((R,), dtype=torch.int32, device=dev),
-    }
-    lib = build.library()
-    status = lib.scenerf_sort_composite_f32(
-        *(t.data_ptr() for t in ins), R, P,
-        *(out[k].data_ptr() for k in ("sensor_distance", "depth_volume", "alphas",
-                                      "weights", "depth", "color", "weights_at_depth",
-                                      "closest_pts_to_depth", "closest_idx")),
-        build.stream_handle(dev))
-    build.check(status, "sort_composite")
-    build.LAUNCHES["sort_composite"] += 1
-    return out
+    if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
+        outs = _SortComposite.apply(*ins)
+    else:
+        outs, _ = sort_composite_forward(*ins, with_order=False)
+    return dict(zip(_OUT_KEYS, outs))

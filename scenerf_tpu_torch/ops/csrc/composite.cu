@@ -24,6 +24,9 @@
 // is a shuffle scan; sums and the argmin are butterfly reductions. Positions
 // past P are padding: they sort last (key +inf, index >= P) and are masked
 // explicitly, since a sentinel distance alone would give inf * 0 = NaN.
+// When the caller needs a gradient it also passes `order`, which receives
+// each sorted slot's drawn index, so the backward (composite_bwd.cu) does not
+// sort again.
 #include <math.h>
 #include <stdint.h>
 
@@ -54,7 +57,7 @@ sort_composite_kernel(const float* __restrict__ sd, const float* __restrict__ dv
                       float* __restrict__ depth, float* __restrict__ color,
                       float* __restrict__ weights_at_depth,
                       float* __restrict__ closest_dist,
-                      int* __restrict__ closest_idx) {
+                      int* __restrict__ closest_idx, int* __restrict__ order) {
   const int lane = threadIdx.x & (kWarpSize - 1);
   const int64_t r = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
   if (r >= n_rays) return;
@@ -184,6 +187,7 @@ sort_composite_kernel(const float* __restrict__ sd, const float* __restrict__ dv
     dv_sorted[o] = dvs[s];
     alphas[o] = alpha[s];
     weights[o] = w[s];
+    if (order != nullptr) order[o] = idx[s];
   }
   if (lane == 0) {
     depth[r] = d;
@@ -202,12 +206,13 @@ sort_composite_kernel(const float* __restrict__ sd, const float* __restrict__ dv
 // sd, dv, density: [n_rays, P] f32; rgb: [n_rays, P, 3] f32, all contiguous.
 // Outputs: sd_sorted, dv_sorted, alphas, weights [n_rays, P]; depth,
 // weights_at_depth, closest_dist [n_rays]; color [n_rays, 3];
-// closest_idx [n_rays] int32 (position in the sorted order).
+// closest_idx [n_rays] int32 (position in the sorted order); order
+// [n_rays, P] int32 (drawn index of each sorted slot), or null.
 SCENERF_API int scenerf_sort_composite_f32(
     const float* sd, const float* dv, const float* density, const float* rgb,
     int n_rays, int P, float* sd_sorted, float* dv_sorted, float* alphas,
     float* weights, float* depth, float* color, float* weights_at_depth,
-    float* closest_dist, int* closest_idx, void* stream) {
+    float* closest_dist, int* closest_idx, int* order, void* stream) {
   using namespace scenerf;
   if (P < 1 || P > kMaxPts || n_rays < 0) return (int)cudaErrorInvalidValue;
   if (n_rays == 0) return (int)cudaSuccess;
@@ -215,6 +220,6 @@ SCENERF_API int scenerf_sort_composite_f32(
   sort_composite_kernel<<<(unsigned)blocks, kWarpsPerBlock * kWarpSize, 0,
                           static_cast<cudaStream_t>(stream)>>>(
       sd, dv, density, rgb, n_rays, P, sd_sorted, dv_sorted, alphas, weights,
-      depth, color, weights_at_depth, closest_dist, closest_idx);
+      depth, color, weights_at_depth, closest_dist, closest_idx, order);
   return (int)cudaGetLastError();
 }

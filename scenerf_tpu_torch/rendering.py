@@ -7,7 +7,10 @@ five pyramid levels in one gather-kernel launch. The field runs on the
 samples in the order they were drawn; the sort-composite kernel then sorts
 each ray by distance and composites it (the field is pointwise, so this is
 the JAX order of sort-then-evaluate). Rays render in a Python loop over
-chunks, with the noise drawn once for all rays and sliced.
+chunks, with the noise drawn once for all rays and sliced. Outside
+`torch.no_grad` the render carries gradients (the kernels' backwards are
+autograd Functions); `with_som=True`, the training render, adds the RaySOM
+(kernel S) and its KL.
 """
 from __future__ import annotations
 
@@ -27,6 +30,12 @@ from scenerf_tpu_torch.som import ray_som
 SCALES = (1, 2, 4, 8, 16)
 
 Pyramid = Sequence[torch.Tensor]  # five contiguous [H_s, W_s, C_s] levels
+
+
+def inverse(M: torch.Tensor) -> torch.Tensor:
+    """Matrix inverse without the singularity check of `torch.linalg.inv`,
+    which waits for the device on a CUDA tensor."""
+    return torch.linalg.inv_ex(M).inverse
 
 
 def pyramid_level_size(sphere: SphereConfig, scale: int) -> Tuple[int, int]:
@@ -169,7 +178,7 @@ def render_rays(
     all R rays from `generator` (or passed in as `noise_uni` [R, n_pts_uni],
     `noise_gauss` [R, G*Pg]) and sliced per chunk, so the result does not
     depend on the chunk size. The RaySOM (training only) runs if `with_som`."""
-    inv_K = torch.linalg.inv(cam_K)
+    inv_K = inverse(cam_K)
     chunk = ray_chunk or cfg.ray_chunk
     R = pixels.shape[0]
     if noise_uni is None:

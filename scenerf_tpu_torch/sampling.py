@@ -145,3 +145,46 @@ def gaussian_anchor_distances(n_gaussians: int, max_sample_depth: float,
     step = max_sample_depth / n_gaussians
     return torch.linspace(step / 2.0, max_sample_depth - step / 2.0, n_gaussians,
                           device=device)
+
+
+def grid_pixels(x0: int, x1: int, y0: int, y1: int, stride: int, device=None,
+                x_fastest: bool = False) -> torch.Tensor:
+    """The stride-subsampled pixels of [x0, x1) x [y0, y1) as [N, 2] (x, y),
+    y varying fastest (the order the training draws index), or x fastest
+    (image row-major order, for rendering a whole image)."""
+    xs = torch.arange(x0, x1, stride, dtype=torch.float32, device=device)
+    ys = torch.arange(y0, y1, stride, dtype=torch.float32, device=device)
+    if x_fastest:
+        gy, gx = torch.meshgrid(ys, xs, indexing="ij")
+    else:
+        gx, gy = torch.meshgrid(xs, ys, indexing="ij")
+    return torch.stack([gx.reshape(-1), gy.reshape(-1)], dim=-1)
+
+
+def random_grid_pixels(
+    generator: Optional[torch.Generator],
+    n_rays: int,
+    img_W: int,
+    img_H: int,
+    stride: int = 2,
+    grid_size: int = 1,
+    device=None,
+) -> torch.Tensor:
+    """n_rays training pixels [n_rays, 2] drawn without replacement from the
+    stride-subsampled image grid (`torch.randperm` on `generator`). With
+    grid_size > 1 (BundleFusion), n_rays / grid_size^2 pixels come from each
+    of grid_size x grid_size image cells, cells in row-major order."""
+    if grid_size <= 1:
+        cells = [(0, img_W, 0, img_H)]
+        n_per_cell = n_rays
+    else:
+        cw, ch = img_W // grid_size, img_H // grid_size
+        cells = [(cx * cw, (cx + 1) * cw, cy * ch, (cy + 1) * ch)
+                 for cy in range(grid_size) for cx in range(grid_size)]
+        n_per_cell = n_rays // (grid_size * grid_size)
+    out = []
+    for x0, x1, y0, y1 in cells:
+        pixels = grid_pixels(x0, x1, y0, y1, stride, device=device)
+        idx = torch.randperm(pixels.shape[0], generator=generator, device=device)[:n_per_cell]
+        out.append(pixels[idx])
+    return out[0] if len(out) == 1 else torch.cat(out)

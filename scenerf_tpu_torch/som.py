@@ -1,13 +1,22 @@
 """RaySOM: self-organizing-map EM update of the per-ray Gaussian mixture and
 the KL loss toward the re-estimated Gaussians. Counterpart of
-`scenerf_tpu/som.py` (plain PyTorch; every EM quantity is detached, only the
-final KL sees the predicted means/stds)."""
+`scenerf_tpu/som.py`.
+
+The EM half is detached: on a CUDA tensor it runs kernel S
+(`ops/csrc/som.cu`), on a CPU tensor `som_em_plain`, its plain version. The
+KL, the only part with a gradient, is plain PyTorch on [R, C] under autograd
+and sees the predicted means/stds.
+"""
 from __future__ import annotations
 
 import math
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
+
+from scenerf_tpu_torch.ops import build
+
+MAX_PROTOS = 8  # mixture components per ray the kernel holds
 
 
 class RaySOMResult(NamedTuple):
@@ -24,32 +33,54 @@ def kl_gauss(m1, m2, s1, s2, std_floor: float = 1.5):
     return std_err + mean_err - 0.5
 
 
-def ray_som(
-    gauss_means: torch.Tensor,       # [R, C]
-    gauss_stds: torch.Tensor,        # [R, C]
-    sensor_distances: torch.Tensor,  # [R, P] sorted sample distances
-    density: torch.Tensor,           # [R, P] per-sample alphas
-    som_sigma: float,
-    mask_threshold: float = 0.1,
-    std_floor: float = 1.5,
-) -> RaySOMResult:
-    m = gauss_means.detach()
-    s = gauss_stds.detach()
-    d = sensor_distances.detach()
-    dens = density.detach() + 1e-8
+def _sum_over_protos(t: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis (the C prototypes) left to right, as kernel S
+    adds them."""
+    acc = t[..., 0]
+    for c in range(1, t.shape[-1]):
+        acc = acc + t[..., c]
+    return acc
+
+
+def som_assign_plain(m: torch.Tensor, s: torch.Tensor, d: torch.Tensor, alphas: torch.Tensor,
+                     som_sigma: float):
+    """The E half of `som_em_plain`: (rel_w [R, C2, C1], p(z | c1)
+    [R, P, C1], the best prototype's p(z | c2) and its index [R, P]).
+
+    A sample far from every prototype has its likelihood at the 1e-5 floor
+    for all of them, and its best prototype is then decided by the rounding
+    of p(z | c2); so the sums over prototypes run left to right and every
+    division is a true division, in the kernel's order (the JAX package's
+    einsum rounds such samples its own way)."""
+    m, s, d = m.detach(), s.detach(), d.detach()
+    dens = alphas.detach() + 1e-8
 
     dist = torch.abs(m[:, None, :] - d[:, :, None])                      # [R, P, C]
-    rel_w = torch.exp(-((m[:, :, None] - m[:, None, :]) ** 2) / (2.0 * som_sigma ** 2))
-    p_c1_given_c2 = rel_w / torch.sum(rel_w, dim=2, keepdim=True)
+    dm = m[:, :, None] - m[:, None, :]
+    rel_w = torch.exp(-(dm * dm) / torch.full_like(dm, 2.0 * som_sigma ** 2))  # [R, C2, C1]
+    p_c1_given_c2 = rel_w / _sum_over_protos(rel_w)[..., None]
 
-    var = s ** 2
-    p_z_c1 = (torch.exp(-(dist ** 2) / (2.0 * var[:, None, :]))
+    p_z_c1 = (torch.exp(-(dist * dist) / (2.0 * (s * s)[:, None, :]))
               / (math.sqrt(2.0 * math.pi) * s[:, None, :]) + 1e-5)
     p_z_c1 = p_z_c1 * dens[:, :, None] + 1e-8                             # [R, P, C1]
 
     n_protos = m.shape[1]
-    p_z_c2 = torch.einsum("rpc,rkc->rpk", p_z_c1, p_c1_given_c2) + n_protos * 1e-8
+    p_z_c2 = _sum_over_protos(p_z_c1[:, :, None, :] * p_c1_given_c2[:, None, :, :]
+                              ) + n_protos * 1e-8                         # [R, P, C2]
     p_best, best = torch.max(p_z_c2, dim=2)                               # [R, P]
+    return rel_w, p_z_c1, p_best, best
+
+
+def som_em_plain(m: torch.Tensor, s: torch.Tensor, d: torch.Tensor, alphas: torch.Tensor,
+                 som_sigma: float, mask_threshold: float
+                 ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """One EM step of the mixture means m and stds s [R, C] toward the sorted
+    samples d [R, P] weighted by their alphas -> (new_means, new_vars, mask)
+    [R, C]; the plain version of kernel S (inputs detached)."""
+    rel_w, p_z_c1, p_best, best = som_assign_plain(m, s, d, alphas, som_sigma)
+    m, s, d = m.detach(), s.detach(), d.detach()
+    var = s * s
+    n_protos = m.shape[1]
 
     # w_rel[r, c, p] = rel_w[r, c, best[r, p]]
     w_rel = torch.gather(rel_w, 2, best[:, None, :].expand(-1, n_protos, -1))
@@ -62,9 +93,43 @@ def ray_som(
     var_diffs = torch.abs(torch.sqrt(var) - torch.sqrt(new_vars))
     mean_mask = (mean_diffs > mask_threshold) & (new_vars > 0)
     var_mask = (var_diffs > mask_threshold) & (new_vars > 0)
-    mask = (mean_mask & var_mask).to(gauss_means.dtype)
+    return new_means, new_vars, (mean_mask & var_mask).to(m.dtype)
 
+
+def som_em(m: torch.Tensor, s: torch.Tensor, d: torch.Tensor, alphas: torch.Tensor,
+           som_sigma: float, mask_threshold: float
+           ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The EM step of `som_em_plain`: kernel S on a CUDA tensor."""
+    if not build.use_kernel(d):
+        return som_em_plain(m, s, d, alphas, som_sigma, mask_threshold)
+    (R, C), P = m.shape, d.shape[1]
+    if not 1 <= C <= MAX_PROTOS or P > 64:
+        raise ValueError(f"ray_som kernel takes at most {MAX_PROTOS} components and "
+                         f"64 samples per ray, got {C} and {P}")
+    ins = [t.detach().to(torch.float32).contiguous() for t in (m, s, d, alphas)]
+    if any(t.device != d.device for t in ins) or s.shape != (R, C) or alphas.shape != (R, P):
+        raise ValueError("ray_som kernel takes [R, C] means/stds and [R, P] samples on one device")
+    outs = [torch.empty((R, C), dtype=torch.float32, device=d.device) for _ in range(3)]
+    status = build.library().scenerf_ray_som_f32(
+        *(t.data_ptr() for t in ins), R, C, P, 2.0 * som_sigma ** 2, C * 1e-8,
+        mask_threshold, *(t.data_ptr() for t in outs), build.stream_handle(d.device))
+    build.check(status, "ray_som")
+    build.LAUNCHES["ray_som"] += 1
+    return tuple(outs)
+
+
+def ray_som(
+    gauss_means: torch.Tensor,       # [R, C]
+    gauss_stds: torch.Tensor,        # [R, C]
+    sensor_distances: torch.Tensor,  # [R, P] sorted sample distances
+    density: torch.Tensor,           # [R, P] per-sample alphas
+    som_sigma: float,
+    mask_threshold: float = 0.1,
+    std_floor: float = 1.5,
+) -> RaySOMResult:
+    new_means, new_vars, mask = som_em(gauss_means, gauss_stds, sensor_distances, density,
+                                       som_sigma, mask_threshold)
     new_stds = torch.sqrt(new_vars)
-    loss = kl_gauss(gauss_means, new_means.detach(), gauss_stds, new_stds.detach(), std_floor)
-    loss_kl = torch.mean(loss * mask, dim=1)
+    loss = kl_gauss(gauss_means, new_means, gauss_stds, new_stds, std_floor)
+    loss_kl = torch.mean(loss * mask.to(gauss_means.dtype), dim=1)
     return RaySOMResult(loss_kl=loss_kl, new_means=new_means, new_vars=new_vars)

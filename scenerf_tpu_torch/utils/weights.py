@@ -8,6 +8,12 @@ dense kernel [in, out] -> weight [out, in]; conv HWIO -> OIHW (a depthwise
 [kh, kw, 1, C] becomes [C, 1, kh, kw]); BN scale/bias -> weight/bias and
 mean/var -> running_mean/running_var.
 
+The mapping is only transposes and reshapes, so it is linear and maps a
+gradient as it maps a weight: `numpy_grads_from_jax` renames a JAX gradient
+tree (or any params-shaped tree) to the port's parameter names, and a
+variables tree with updated `batch_stats` gives the port's running
+statistics through `numpy_state_dict_from_jax_variables`.
+
 `load_reference_state_dict` loads a reference Lightning `state_dict` and
 skips exactly what the reference forward never uses (and
 port_reference_state_dict never reads): the encoder's bn2 and classifier,
@@ -16,7 +22,7 @@ the decoder's resize_* convs, and BN batch counters.
 from __future__ import annotations
 
 import re
-from typing import Any, Dict, Mapping
+from typing import Any, Dict, Mapping, Optional
 
 import numpy as np
 import torch
@@ -39,54 +45,60 @@ def _linear(out: Dict, prefix: str, p: Tree) -> None:
     out[f"{prefix}.bias"] = np.asarray(p["bias"])
 
 
-def _bn(out: Dict, prefix: str, p: Tree, s: Tree) -> None:
+def _sub(s: Optional[Tree], key: str) -> Optional[Tree]:
+    """A batch_stats subtree, None all the way down when there are none."""
+    return None if s is None else s[key]
+
+
+def _bn(out: Dict, prefix: str, p: Tree, s: Optional[Tree]) -> None:
     out[f"{prefix}.weight"] = np.asarray(p["scale"])
     out[f"{prefix}.bias"] = np.asarray(p["bias"])
-    out[f"{prefix}.running_mean"] = np.asarray(s["mean"])
-    out[f"{prefix}.running_var"] = np.asarray(s["var"])
+    if s is not None:
+        out[f"{prefix}.running_mean"] = np.asarray(s["mean"])
+        out[f"{prefix}.running_var"] = np.asarray(s["var"])
 
 
-def _backbone(out: Dict, p: Tree, s: Tree) -> None:
+def _backbone(out: Dict, p: Tree, s: Optional[Tree]) -> None:
     if "conv_stem" not in p:  # TinyBackbone keeps the JAX names
         for name, leaf in p.items():
             _conv(out, f"{ENCODER}.{name}", leaf)
         return
     _conv(out, f"{ENCODER}.conv_stem", p["conv_stem"])
-    _bn(out, f"{ENCODER}.bn1", p["bn1"], s["bn1"])
+    _bn(out, f"{ENCODER}.bn1", p["bn1"], _sub(s, "bn1"))
     for name in p:
         m = re.fullmatch(r"stage(\d+)_block(\d+)", name)
         if m is None:
             continue
         t = f"{ENCODER}.blocks.{m.group(1)}.{m.group(2)}"
-        bp, bs = p[name], s[name]
+        bp, bs = p[name], _sub(s, name)
         if "expand_conv" in bp:
             _conv(out, f"{t}.conv_pw", bp["expand_conv"])
-            _bn(out, f"{t}.bn1", bp["expand_bn"], bs["expand_bn"])
+            _bn(out, f"{t}.bn1", bp["expand_bn"], _sub(bs, "expand_bn"))
             _conv(out, f"{t}.conv_dw", bp["dw_conv"])
-            _bn(out, f"{t}.bn2", bp["dw_bn"], bs["dw_bn"])
+            _bn(out, f"{t}.bn2", bp["dw_bn"], _sub(bs, "dw_bn"))
             proj, proj_bn = "conv_pwl", "bn3"
         else:
             _conv(out, f"{t}.conv_dw", bp["dw_conv"])
-            _bn(out, f"{t}.bn1", bp["dw_bn"], bs["dw_bn"])
+            _bn(out, f"{t}.bn1", bp["dw_bn"], _sub(bs, "dw_bn"))
             proj, proj_bn = "conv_pw", "bn2"
         _conv(out, f"{t}.se.conv_reduce", bp["se_reduce"])
         _conv(out, f"{t}.se.conv_expand", bp["se_expand"])
         _conv(out, f"{t}.{proj}", bp["project_conv"])
-        _bn(out, f"{t}.{proj_bn}", bp["project_bn"], bs["project_bn"])
+        _bn(out, f"{t}.{proj_bn}", bp["project_bn"], _sub(bs, "project_bn"))
     _conv(out, f"{ENCODER}.conv_head", p["conv_head"])
 
 
-def _decoder(out: Dict, p: Tree, s: Tree) -> None:
+def _decoder(out: Dict, p: Tree, s: Optional[Tree]) -> None:
     _conv(out, f"{DECODER}.conv2", p["conv2"])
     for up in ("up16", "up8", "up4", "up2", "up1"):
         _conv(out, f"{DECODER}.{up}._net.0", p[up]["conv"])
         for i in range(3):
-            bp, bs = p[up][f"block{i}"], s[up][f"block{i}"]
+            bp, bs = p[up][f"block{i}"], _sub(_sub(s, up), f"block{i}")
             b = f"{DECODER}.{up}._net.{i + 1}"
             _conv(out, f"{b}.conv_block1.0", bp["conv1"])
-            _bn(out, f"{b}.conv_block1.1", bp["bn1"], bs["bn1"])
+            _bn(out, f"{b}.conv_block1.1", bp["bn1"], _sub(bs, "bn1"))
             _conv(out, f"{b}.conv_block2.0", bp["conv2"])
-            _bn(out, f"{b}.conv_block2.1", bp["bn2"], bs["bn2"])
+            _bn(out, f"{b}.conv_block2.1", bp["bn2"], _sub(bs, "bn2"))
 
 
 def _resnetfc(out: Dict, prefix: str, p: Tree) -> None:
@@ -102,14 +114,23 @@ def _resnetfc(out: Dict, prefix: str, p: Tree) -> None:
 
 def numpy_state_dict_from_jax_variables(variables: Tree) -> Dict[str, np.ndarray]:
     """JAX variables tree -> {port state_dict key: numpy array (a transposed
-    view, nothing copied)}."""
+    view, nothing copied)}. Without net_rgb's "batch_stats" only the
+    parameters are mapped."""
     out: Dict[str, np.ndarray] = {}
     net = variables["net_rgb"]
-    _backbone(out, net["params"]["backbone"], net["batch_stats"].get("backbone", {}))
-    _decoder(out, net["params"]["decoder"], net["batch_stats"]["decoder"])
+    stats = net.get("batch_stats")
+    _backbone(out, net["params"]["backbone"],
+              None if stats is None else stats.get("backbone", {}))
+    _decoder(out, net["params"]["decoder"], _sub(stats, "decoder"))
     _resnetfc(out, "mlp", variables["mlp"]["params"])
     _resnetfc(out, "mlp_gaussian", variables["mlp_gaussian"]["params"])
     return out
+
+
+def numpy_grads_from_jax(grads: Tree) -> Dict[str, np.ndarray]:
+    """A params-shaped JAX tree {"net_rgb", "mlp", "mlp_gaussian"} (e.g. the
+    gradient of a loss over the params) -> {port parameter name: array}."""
+    return numpy_state_dict_from_jax_variables({k: {"params": v} for k, v in grads.items()})
 
 
 def state_dict_from_jax_variables(variables: Tree) -> Dict[str, torch.Tensor]:

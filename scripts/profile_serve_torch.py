@@ -1,30 +1,54 @@
-"""Where the time of the PyTorch port's serve path goes on one NVIDIA GPU.
+"""Where the time of the PyTorch port's serve path, or of its training step,
+goes on one NVIDIA GPU.
 
     python3 scripts/profile_serve_torch.py [--poses 1] [--out build/profile/serve_trace.json]
+    python3 scripts/profile_serve_torch.py --train [--out build/profile/train_trace.json]
 
 Builds SceneRF(kitti()) with seeded random weights (f32, TF32 off, as
-chip_smoke.py does), encodes one synthetic frame and renders one warm-up
-pose, then profiles one encode and `--poses` poses of the stride-2 sweep
-with torch.profiler. Prints the device time by kernel (top 25), the device
+chip_smoke.py does). Serve: encodes one synthetic frame and renders one
+warm-up pose, then profiles one encode and `--poses` poses of the stride-2
+sweep. Train: takes one warm-up step of `Trainer` on `make_batch` (4 sources
+x 1200 rays), then profiles one step. Prints the device time by kernel (top
+25), by kind (GEMM, convolution, the port's kernels, the rest), the device
 busy share of the profiled window, and the card's name and power limit;
 writes a chrome trace to `--out`.
 """
 from __future__ import annotations
 
 import argparse
+import re
 import subprocess
 import sys
 import time
+from collections import defaultdict
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parents[1]
+
+KINDS = (  # first match wins, on the device kernel's name; cuDNN's convolutions
+    # run as implicit GEMMs (fprop/dgrad/wgrad), so they are matched before GEMMs
+    ("port kernels (G, G-bwd, C, C-bwd, S)", r"gather_levels|sort_composite|ray_som"),
+    ("convolution (cuDNN)", r"conv|fprop|dgrad|wgrad|implicit|winograd|fft|cudnn"),
+    ("GEMM (cuBLAS)", r"gemm|cutlass|splitK"),
+    ("reduction", r"reduce|norm|softmax|cumprod|cumsum|scan|sort|radix"),
+    ("index / gather / scatter", r"index|gather|scatter|embedding"),
+)
+
+
+def kind_of(name: str) -> str:
+    for kind, pattern in KINDS:
+        if re.search(pattern, name, re.IGNORECASE):
+            return kind
+    return "elementwise and other"
 
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--poses", type=int, default=1)
-    ap.add_argument("--out", default="build/profile/serve_trace.json")
+    ap.add_argument("--train", action="store_true", help="profile one training step")
+    ap.add_argument("--out", default=None)
     args = ap.parse_args()
+    out = args.out or f"build/profile/{'train' if args.train else 'serve'}_trace.json"
     sys.path.insert(0, str(ROOT))
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -33,8 +57,9 @@ def main() -> None:
         sys.exit("needs a CUDA device")
     from scenerf_tpu_torch import config as C
     from scenerf_tpu_torch import geometry as geo
-    from scenerf_tpu_torch.data.synthetic import default_intrinsics, input_frame
+    from scenerf_tpu_torch.data.synthetic import default_intrinsics, input_frame, make_batch
     from scenerf_tpu_torch.model import SceneRF
+    from scenerf_tpu_torch.train import Trainer
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True, text=True,
@@ -46,34 +71,73 @@ def main() -> None:
     torch.manual_seed(0)
     with torch.device(dev):
         model = SceneRF(cfg).eval()
-    K_np = default_intrinsics(cfg)
-    K = torch.from_numpy(K_np).to(dev)
-    img = torch.from_numpy(input_frame(cfg)).to(dev)
-    maps = model.compute_sphere_maps(K_np)
-    poses = torch.from_numpy(geo.rel_pose_stack(geo.sample_rel_poses(
-        cfg.sweep_step, cfg.sweep_angle, cfg.sweep_max_distance))).to(dev)
 
-    pyramid = model.pyramid_for_item(model.encode(img, K_np, sphere_maps=maps), 0)
-    model.render_pose_sweep(pyramid, K, poses[:1], stride=2, ray_chunk=5000)  # warm-up
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
+    if args.train:
+        trainer = Trainer(cfg, device=dev, model=model)
+        batch = make_batch(cfg)
+        gen = torch.Generator(device=dev).manual_seed(0)
+        trainer.train_step(batch, gen)  # warm-up (also builds the sphere maps)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            trainer.train_step(batch, gen)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        window = f"1 training step {1e3 * (t2 - t0):.1f} ms"
+    else:
+        K_np = default_intrinsics(cfg)
+        K = torch.from_numpy(K_np).to(dev)
+        img = torch.from_numpy(input_frame(cfg)).to(dev)
+        maps = model.compute_sphere_maps(K_np)
+        poses = torch.from_numpy(geo.rel_pose_stack(geo.sample_rel_poses(
+            cfg.sweep_step, cfg.sweep_angle, cfg.sweep_max_distance))).to(dev)
         pyramid = model.pyramid_for_item(model.encode(img, K_np, sphere_maps=maps), 0)
+        model.render_pose_sweep(pyramid, K, poses[:1], stride=2, ray_chunk=5000)  # warm-up
         torch.cuda.synchronize()
-        t1 = time.perf_counter()
-        model.render_pose_sweep(pyramid, K, poses[:args.poses], stride=2, ray_chunk=5000)
-        torch.cuda.synchronize()
-        t2 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            pyramid = model.pyramid_for_item(model.encode(img, K_np, sphere_maps=maps), 0)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            model.render_pose_sweep(pyramid, K, poses[:args.poses], stride=2, ray_chunk=5000)
+            torch.cuda.synchronize()
+            t2 = time.perf_counter()
+        window = (f"encode {1e3 * (t1 - t0):.1f} ms + {args.poses} pose(s) "
+                  f"{1e3 * (t2 - t1):.1f} ms")
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.device_time for e in events) / 1e3
     wall_ms = (t2 - t0) * 1e3
     print(f"card: {card}")
-    print(f"profiled window: encode {1e3 * (t1 - t0):.1f} ms + {args.poses} pose(s) "
-          f"{1e3 * (t2 - t1):.1f} ms = {wall_ms:.1f} ms wall (under the profiler); "
+    print(f"profiled window: {window} = {wall_ms:.1f} ms wall (under the profiler); "
           f"device kernel time {busy_ms:.1f} ms, busy share {busy_ms / wall_ms:.1%}")
+    by_kind, count = defaultdict(float), defaultdict(int)
+    for e in events:
+        by_kind[kind_of(e.name)] += e.device_time / 1e3
+        count[kind_of(e.name)] += 1
+    for kind, ms in sorted(by_kind.items(), key=lambda kv: -kv[1]):
+        print(f"  {kind:40s} {ms:10.1f} ms {ms / busy_ms:6.1%} ({count[kind]} kernels)")
+    port_ms, port_n = defaultdict(float), defaultdict(int)
+    for e in events:
+        m = re.search(r"(gather_levels(?:_bwd)?|sort_composite(?:_bwd)?|ray_som)_kernel", e.name)
+        if m:
+            port_ms[m.group(1)] += e.device_time / 1e3
+            port_n[m.group(1)] += 1
+    for name in sorted(port_ms):
+        print(f"  port kernel {name:30s} {port_ms[name]:10.3f} ms in {port_n[name]} launches")
+    # G-bwd's autograd node: the kernel and its wrapper's zeroing of the level
+    # gradients; the engine's evaluation of the node adds the summing of its
+    # outputs into the gradients already accumulated for the same levels
+    for label, op in (("G-bwd node (kernel + zeroing)", "_GatherLevelsBackward"),
+                      ("G-bwd node evaluated (+ gradient accumulation)",
+                       "autograd::engine::evaluate_function: _GatherLevelsBackward")):
+        node = [e for e in prof.events() if e.name == op]
+        if node:
+            total = sum(getattr(e, "device_time_total", None) or e.cuda_time_total
+                        for e in node) / 1e3
+            print(f"  {label:48s} {total:10.3f} ms device time in {len(node)} calls")
     print(prof.key_averages().table(sort_by="device_time_total", row_limit=25))
-    Path(args.out).parent.mkdir(parents=True, exist_ok=True)
-    prof.export_chrome_trace(args.out)
+    Path(out).parent.mkdir(parents=True, exist_ok=True)
+    prof.export_chrome_trace(out)
 
 
 if __name__ == "__main__":

@@ -2,7 +2,11 @@
 at the edge cases the KITTI-shaped smoke run does not reach: the scalar
 channel loop (the `tiny` levels, a misaligned level), out-of-bounds coords,
 fewer than 64 samples per ray, tied distances, and the `tiny` serve path on
-the card against the same path on the CPU.
+the card against the same path on the CPU. The backward kernels (G-bwd,
+C-bwd) against autograd of the plain versions: a misaligned level, corners
+off the map, a small level every point lands on (atomic contention), saturated
+alphas; kernel S with argmax ties; outputs that carry a `grad_fn` on the card;
+and the `tiny` training step on the card against the CPU.
 
 Marked `cuda`: skipped where no CUDA device is present (a CUDA kernel has no
 CPU mode). The package under test imports no JAX, and neither does this
@@ -16,10 +20,13 @@ import torch
 from scenerf_tpu_torch import config as C
 from scenerf_tpu_torch import geometry as geo
 from scenerf_tpu_torch.data.synthetic import default_intrinsics, input_frame
+from scenerf_tpu_torch.data.synthetic import make_batch
 from scenerf_tpu_torch.model import SceneRF
 from scenerf_tpu_torch.ops import build
 from scenerf_tpu_torch.ops.composite import sort_composite, sort_composite_plain
 from scenerf_tpu_torch.ops.gather import gather_levels, gather_levels_plain
+from scenerf_tpu_torch.som import som_em, som_em_plain
+from scenerf_tpu_torch.train import Trainer
 
 pytestmark = pytest.mark.cuda
 
@@ -89,11 +96,14 @@ def test_launch_counts_and_plain_versions(dev):
     build.reset_launch_counts()
     gather_levels([lv], xy, xy)
     sort_composite(sd, sd, sd, torch.rand(3, 8, 3, device=dev))
-    assert build.LAUNCHES == {"gather_levels": 1, "sort_composite": 1}
+    want = {k: 0 for k in build.LAUNCHES}
+    want.update(gather_levels=1, sort_composite=1)
+    assert build.LAUNCHES == want
     with build.plain_versions():
         gather_levels([lv], xy, xy)
         sort_composite(sd, sd, sd, torch.rand(3, 8, 3, device=dev))
-    assert build.LAUNCHES == {"gather_levels": 1, "sort_composite": 1}
+        som_em(sd[:, :2], sd[:, :2] + 1, sd, sd, 2.0, 0.1)
+    assert build.LAUNCHES == want
     with pytest.raises(ValueError, match="at most 64"):
         sort_composite(torch.rand(2, 65, device=dev), torch.rand(2, 65, device=dev),
                        torch.rand(2, 65, device=dev), torch.rand(2, 65, 3, device=dev))
@@ -131,3 +141,149 @@ def test_tiny_serve_on_card_matches_cpu(dev):
     for k in ("1_1", "1_16"):
         torch.testing.assert_close(lv[k].cpu(), cpu_lv[k], rtol=1e-4, atol=1e-4)
     assert build.LAUNCHES["gather_levels"] > 0 and build.LAUNCHES["sort_composite"] > 0
+
+
+# ------------------------------------------------------------- backwards
+
+
+def _gather_grads(levels, ix, iy, d_out, plain: bool):
+    lvs = [lv.detach().clone().requires_grad_(True) for lv in levels]
+    x = ix.detach().clone().requires_grad_(True)
+    y = iy.detach().clone().requires_grad_(True)
+    out = (gather_levels_plain if plain else gather_levels)(lvs, x, y)
+    out.backward(d_out)
+    return [lv.grad for lv in lvs], x.grad, y.grad, out
+
+
+@pytest.mark.parametrize("case", ["pyramid", "tiny", "image", "contended"])
+def test_gather_bwd_kernel_matches_plain(dev, case):
+    """d_levels (atomics: compared by tolerance) and, where the coords need
+    them, d_ix/d_iy, against autograd of the plain version."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    widths = {"pyramid": (80, 160, 320, 640, 1280), "tiny": (2, 4, 8, 16, 32),
+              "image": (3,), "contended": (1280,)}[case]
+    if case == "contended":  # a 3x4 level that all 20000 points land on
+        levels = [torch.randn(3, 4, 1280, generator=g, device=dev)]
+        n = 20000
+    else:
+        levels = [torch.randn(9 + i, 13 + 2 * i, c, generator=g, device=dev)
+                  for i, c in enumerate(widths)]
+        n = 1500
+    ix, iy = _coords(g, levels, n, dev)
+    d_out = torch.randn(n, sum(widths), generator=g, device=dev)
+    build.reset_launch_counts()
+    got_lv, got_x, got_y, got_out = _gather_grads(levels, ix, iy, d_out, plain=False)
+    want_lv, want_x, want_y, want_out = _gather_grads(levels, ix, iy, d_out, plain=True)
+    torch.cuda.synchronize()
+    assert got_out.grad_fn is not None
+    assert build.LAUNCHES["gather_levels_bwd"] == 1
+    for a, b in zip(got_lv, want_lv):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * float(b.abs().max()))
+    for a, b in ((got_x, want_x), (got_y, want_y)):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * float(b.abs().max()))
+
+
+def test_gather_bwd_misaligned_level_and_no_coord_grad(dev):
+    g = torch.Generator(device=dev).manual_seed(3)
+    buf = torch.randn(1 + 6 * 7 * 8, generator=g, device=dev)
+    ix, iy = _coords(g, [buf[1:].view(6, 7, 8)], 400, dev)
+    d_out = torch.randn(400, 8, generator=g, device=dev)
+    grads = []
+    for fn in (gather_levels, gather_levels_plain):
+        # contiguous, but 4 bytes off 16-byte alignment
+        x = buf[1:].view(6, 7, 8).detach().requires_grad_(True)
+        fn([x], ix, iy).backward(d_out)
+        grads.append(x.grad)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-6)
+    assert ix.grad is None and iy.grad is None
+
+
+def _composite_inputs(g, R, P, dev, saturate: bool):
+    sd = torch.clamp(torch.rand(R, P, generator=g, device=dev) * 120 - 20, min=0.1)  # ties
+    dv = sd * 0.9
+    dens = torch.rand(R, P, generator=g, device=dev) * 2
+    if saturate:  # alpha rounds to 1 on about a third of the samples
+        hot = torch.rand(R, P, generator=g, device=dev) < 0.33
+        dens = torch.where(hot, dens * 100 + 50, dens)
+    rgb = torch.rand(R, P, 3, generator=g, device=dev)
+    return [sd, dv, dens, rgb]
+
+
+@pytest.mark.parametrize("P", [1, 20, 33, 64])
+@pytest.mark.parametrize("saturate", [False, True])
+def test_sort_composite_bwd_kernel_matches_plain(dev, P, saturate):
+    g = torch.Generator(device=dev).manual_seed(P)
+    R = 777
+    ins = _composite_inputs(g, R, P, dev, saturate)
+    gd = torch.randn(R, generator=g, device=dev)
+    gc = torch.randn(R, 3, generator=g, device=dev)
+    grads = []
+    for fn in (sort_composite, sort_composite_plain):
+        leaves = [t.detach().clone().requires_grad_(True) for t in ins]
+        out = fn(*leaves)
+        torch.autograd.backward([out["depth"], out["color"]], [gd, gc])
+        grads.append([t.grad for t in leaves])
+        if fn is sort_composite:
+            assert out["depth"].grad_fn is not None and out["color"].grad_fn is not None
+            assert out["alphas"].grad_fn is None
+    torch.cuda.synchronize()
+    for name, a, b in zip(("d_sd", "d_dv", "d_density", "d_rgb"), *grads):
+        assert bool(torch.isfinite(a).all()), name
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * max(float(b.abs().max()), 1e-6),
+                                   msg=name)
+
+
+def test_ray_som_kernel_matches_plain_with_ties(dev):
+    g = torch.Generator(device=dev).manual_seed(5)
+    R, C_, P = 2000, 4, 64
+    means = torch.sort(torch.rand(R, C_, generator=g, device=dev) * 100, dim=1).values
+    means[:200, 1] = means[:200, 0]  # equal prototypes: exact argmax ties
+    stds = torch.rand(R, C_, generator=g, device=dev) * 4 + 1.5
+    sd = torch.sort(torch.rand(R, P, generator=g, device=dev) * 100, dim=1).values
+    alphas = torch.rand(R, P, generator=g, device=dev)
+    build.reset_launch_counts()
+    got = som_em(means, stds, sd, alphas, 2.0, 0.1)
+    want = som_em_plain(means, stds, sd, alphas, 2.0, 0.1)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["ray_som"] == 1
+    close = torch.ones(R, dtype=torch.bool, device=dev)
+    for a, b in zip(got[:2], want[:2]):
+        close &= torch.isclose(a, b, rtol=1e-4, atol=1e-4).all(dim=1)
+    close &= (got[2] == want[2]).all(dim=1)
+    assert float(close.float().mean()) >= 0.999, float(close.float().mean())
+
+
+def test_tiny_train_step_on_card_matches_cpu(dev):
+    """One training step of the `tiny` model on the card (all five kernels)
+    against the same step on the CPU (the plain versions): loss and metrics
+    rtol 1e-3, every gradient relative L2 <= 1e-2 (leaves that are zero up to
+    rounding: absolute, against the largest leaf); the gradient reaches the
+    pyramid (the decoder) and the Gaussian heads."""
+    cfg = C.tiny()
+    torch.manual_seed(0)
+    model = SceneRF(cfg)
+    cpu = Trainer(cfg, device="cpu", model=model)
+    card = Trainer(cfg, device=dev, model=SceneRF(cfg))
+    card.model.load_state_dict(model.state_dict())
+    batch = make_batch(cfg, seed=1)
+    noise = model.draw_noise(1, cfg.n_sources, torch.Generator().manual_seed(4), "cpu")
+    build.reset_launch_counts()
+    got = card.train_step(batch, noise={k: v.to(dev) for k, v in noise.items()})
+    torch.cuda.synchronize()
+    assert all(n >= 1 for n in build.LAUNCHES.values()), build.LAUNCHES
+    want = cpu.train_step(batch, noise=noise)
+    for k in want:
+        torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-3, atol=1e-5, msg=k)
+    card_grads = dict(card.model.named_parameters())
+    scale = max(float(p.grad.norm()) for p in cpu.model.parameters())
+    for name, p in cpu.model.named_parameters():
+        a, b = card_grads[name].grad.cpu(), p.grad
+        diff = float((a - b).norm())
+        if float(b.norm()) <= 1e-6 * scale:  # zero up to rounding (conv bias before a BN)
+            assert diff <= 1e-5 * scale, (name, diff, scale)
+        else:
+            assert diff <= 1e-2 * float(b.norm()), (name, diff / float(b.norm()))
+    for prefix in ("net_rgb.decoder.up1", "mlp_gaussian.lin_in", "mlp_gaussian.lin_z.0"):
+        assert any(float(p.grad.abs().max()) > 0 for n, p in card.model.named_parameters()
+                   if n.startswith(prefix)), prefix
