@@ -36,6 +36,14 @@ Phases (each prints one line and raises on failure):
      every kernel launches; step 0 again on the plain versions from the same
      weights and draws, loss and every gradient leaf held to the kernel
      path's; ms per step, rays/s, peak device memory
+ 11. reconstruction: the phase-4 weights encode the synthetic frame with
+     KITTI's calibration, render the CLI's full default sweep (63 poses) at
+     stride 2, chunk 5000 (kernels G, C), upsample it to 1220x370, quantize
+     the colors as the CLI's PNGs and fuse it into the 256x256x32 KITTI TSDF
+     grid with kernel T; observed voxels, weight <= 63; T against its plain
+     version in both modes (bit-equal but for pixel-rounding ties) and the
+     kernel's occupancy scored against the plain version's (SSCMetrics);
+     s per frame, fuse ms, T's time (events, fresh volume; alone) and bound
 Then one JSON line of per-kernel results, the card line, and the last line
 {"ok": true, "device": {...}}. It exits non-zero, printing no result, when no
 CUDA device is present or any phase fails. Imports torch, numpy and the port
@@ -64,6 +72,9 @@ ARGMIN_MIN_SHARE = 0.999
 SERVE_RTOL = 1e-3
 SERVE_MIN_SHARE = 0.99
 SERVE_KERNELS = ("gather_levels", "sort_composite")  # the serve path runs no backward
+TRAIN_KERNELS = ("gather_levels", "gather_levels_bwd", "sort_composite", "sort_composite_bwd",
+                 "ray_som")
+RECON_KERNELS = ("gather_levels", "sort_composite", "tsdf_integrate")
 GATHER_BWD_REL_TOL = 1e-5  # max abs error <= this x max|d_level| (f32 atomics)
 COORD_GRAD_REL_TOL = 1e-4  # d_ix, d_iy: sums over channels in another order
 COMPOSITE_BWD_RTOL = 1e-4  # the plain cumprod backward divides by 1 - alpha + 1e-10
@@ -74,6 +85,9 @@ TRAIN_LOSS_RTOL = 1e-3
 TRAIN_GRAD_REL_L2 = 1e-2   # per gradient leaf, kernel path vs plain path
 ADAM_EPS = 1e-8
 ADAM_STEP_TOL = 0.05       # lr: a weight's first AdamW move against -lr g / (|g| + eps)
+TSDF_MIN_EQUAL = 0.9999    # share of voxels where T and its plain version are bit-equal
+TIE_PX = 1e-4              # a projection this close to a .5 boundary is a rounding tie
+RECON_MIN_IOU = 0.9999     # kernel-vs-plain occupancy IoU
 GRAPH_REPS = 50
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
 L2_BYTES = 50 * 2**20      # H100 SXM L2 cache
@@ -162,6 +176,7 @@ def main() -> None:
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA device")
 
+    import numpy as np
     import torch.nn.functional as F
 
     from scenerf_tpu_torch import config as C
@@ -637,8 +652,8 @@ def main() -> None:
                          f"{float(moved_by.max()):.3f} lr")
     launches = dict(build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
-    for name, n in launches.items():
-        if n < 1:
+    for name in TRAIN_KERNELS:
+        if launches[name] < 1:
             fail(f"kernel {name} was not launched on the training path")
     # a conv bias that feeds a train-mode batch norm is subtracted again: zero gradient
     zero = [n for n, seen in seen_nonzero.items()
@@ -691,6 +706,158 @@ def main() -> None:
           f"{n_step_rays / warm * 1e3:.0f} rays/s, peak device memory {peak / 2**30:.2f} GiB "
           f"(the {TRAIN_STEPS} kernel-path steps)")
 
+    # ---- 11. reconstruction ----------------------------------------------
+    from scenerf_tpu_torch import reconstruction as recon
+    from scenerf_tpu_torch.data.synthetic import kitti_calibration
+    from scenerf_tpu_torch.fusion.tsdf import pack_colors, tsdf2occ
+    from scenerf_tpu_torch.ops.tsdf import integrate, integrate_plain, pixel_ties
+    from scenerf_tpu_torch.utils.ssc_metrics import SSCMetrics
+
+    del trainer, plain_trainer, batch, noises, grads0
+    model.load_state_dict(start_state)
+    model.eval()
+    torch.cuda.empty_cache()
+    K_kitti, T_velo_2_cam = kitti_calibration()
+    K11 = torch.from_numpy(K_kitti).to(dev)
+    maps11 = compute_sphere_maps(cfg, K_kitti)
+    rel_poses = geo.rel_pose_stack(geo.sample_rel_poses(
+        cfg.sweep_step, cfg.sweep_angle, cfg.sweep_max_distance))
+    n_poses = rel_poses.shape[0]
+    frame = torch.from_numpy(input_frame(cfg, seed=SEED)).to(dev)
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lv = model.encode(frame, K_kitti, sphere_maps=maps11)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    sweep = recon.render_sweep_full_res(model, model.pyramid_for_item(lv, 0), K11,
+                                        torch.from_numpy(rel_poses).to(dev), stride=STRIDE,
+                                        chunk=CHUNK, seed=SEED)
+    depths, colors = sweep["depth"], recon.quantize_colors(sweep["color"])
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    vol = recon.fuse_kitti_sweep(depths, colors, K_kitti, T_velo_2_cam, rel_poses)
+    torch.cuda.synchronize()
+    t3 = time.perf_counter()
+    recon_launches = dict(build.LAUNCHES)
+    recon_peak = torch.cuda.max_memory_allocated()
+    encode11_ms, sweep_s, fuse_ms = (t1 - t0) * 1e3, t2 - t1, (t3 - t2) * 1e3
+    for name in RECON_KERNELS:
+        if recon_launches[name] < 1:
+            fail(f"kernel {name} was not launched on the reconstruction path")
+    if tuple(depths.shape) != (n_poses, H, W) or tuple(colors.shape) != (n_poses, H, W, 3):
+        fail(f"full-res sweep {tuple(depths.shape)}, {tuple(colors.shape)}")
+    if not bool(torch.isfinite(depths).all()):
+        fail("full-res sweep depth is not finite")
+    observed = int((vol.weight > 0).sum())
+    max_weight = float(vol.weight.max())
+    if vol.shape != (256, 256, 32) or observed == 0 or max_weight > n_poses:
+        fail(f"TSDF {vol.shape}: {observed} observed voxels, max weight {max_weight}")
+    if not bool(torch.isfinite(vol.tsdf).all()):
+        fail("TSDF not finite")
+    print(f"[11 reconstruction] encode {encode11_ms:.1f} ms + {n_poses}-pose sweep at stride "
+          f"{STRIDE} upsampled to {W}x{H} {sweep_s:.2f} s + fuse {fuse_ms:.2f} ms per frame; "
+          f"TSDF {vol.shape}: {observed} voxels observed ({observed / vol.tsdf.numel():.2%}), "
+          f"max weight {max_weight:.0f}; main-path launches "
+          f"{ {k: recon_launches[k] for k in RECON_KERNELS} }; peak device memory "
+          f"{recon_peak / 2**30:.2f} GiB")
+
+    # kernel T against its plain version on the same arrays, both modes
+    cam_poses = np.stack([np.linalg.inv(T_velo_2_cam) @ p for p in rel_poses])
+    w2cs = torch.from_numpy(np.stack([np.linalg.inv(p) for p in cam_poses])
+                            .astype(np.float32)).to(dev)
+    intrs = torch.from_numpy(np.tile(K_kitti[None], (n_poses, 1, 1))).to(dev)
+    packed = pack_colors(colors)
+    t_args = (depths, packed, intrs, w2cs, vol._vol_origin, vol._voxel_size,
+              vol._trunc_margin, 1.0)
+    ties = pixel_ties(vol.shape, vol._vol_origin, vol._voxel_size, intrs, w2cs, tol=TIE_PX)
+
+    def fresh():
+        return [torch.full(vol.shape, 255.0, device=dev), torch.zeros(vol.shape, device=dev),
+                torch.zeros(vol.shape, device=dev)]
+
+    t_text = []
+    t_err = 0.0
+    for mode in ("closest", "average"):
+        if mode == "closest":
+            got_v = [vol.tsdf, vol.weight, vol.color]  # the main path's volume
+        else:
+            got_v = fresh()
+            integrate(*got_v, *t_args, mode=mode)
+        want_v = fresh()
+        integrate_plain(*want_v, *t_args, mode=mode)
+        torch.cuda.synchronize()
+        differs = torch.zeros(vol.shape, dtype=torch.bool, device=dev)
+        for a, b in zip(got_v, want_v):
+            differs |= a != b
+        equal = 1.0 - float(differs.float().mean())
+        untied = int((differs & ~ties).sum())
+        if equal < TSDF_MIN_EQUAL or untied:
+            fail(f"tsdf_integrate {mode}: bit-equal on {equal:.6%} of voxels, {untied} "
+                 f"differing voxels with no pixel-rounding tie")
+        err = max(float((a - b).abs().max()) for a, b in zip(got_v, want_v))
+        t_err = max(t_err, err)
+        t_text.append(f"{mode}: bit-equal on {equal:.6%} of voxels ({int(differs.sum())} differ, "
+                      f"each at a pixel-rounding tie; {int(ties.sum())} voxels have one), max "
+                      f"abs err {err:.3e}")
+        if mode == "closest":
+            occ_k = tsdf2occ(got_v[0].cpu().numpy(), 0.25, 6.0)
+            occ_p = tsdf2occ(want_v[0].cpu().numpy(), 0.25, 6.0)
+            occ_metric = SSCMetrics(2)
+            occ_metric.add_batch(occ_k[None], occ_p[None])
+            occ_stats = occ_metric.get_stats()
+            if occ_p.sum() == 0 or occ_stats["iou"] < RECON_MIN_IOU:
+                fail(f"occupancy: {int(occ_p.sum())} plain voxels occupied, kernel-vs-plain "
+                     f"IoU {occ_stats['iou']}")
+            n_valid = float(want_v[1].sum())  # valid voxel-frames: the weights, obs 1
+        del got_v, want_v
+
+    work = fresh()
+
+    def timed_on_fresh(fn, runs=TIMING_RUNS):
+        """Median CUDA-event time of fn on a volume reset before each run."""
+        times = []
+        for i in range(runs + 1):
+            work[0].fill_(255.0)
+            work[1].zero_()
+            work[2].zero_()
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            if i:  # the first run warms up
+                times.append(start.elapsed_time(end))
+        return statistics.median(times)
+
+    t_ms = timed_on_fresh(lambda: integrate(*work, *t_args))
+    t_plain_ms = timed_on_fresh(lambda: integrate_plain(*work, *t_args))
+    # alone: 50 launches in one CUDA graph on the same (no longer fresh)
+    # volume; each reads the volume and its frames' pixels from HBM (278 MB)
+    t_dev_ms = graph_ms(lambda: integrate(*work, *t_args))
+    del work
+    # each voxel and frame: the camera point (9 mul + 9 add), the pixel
+    # (2 x mul, div, add, rint), z select and 5 range tests = 32; each valid
+    # voxel-frame: sub, 2 tests, 2 abs, compare, add = 7
+    n_vox = vol.tsdf.numel()
+    t_bound = bound(2 * nbytes(vol.tsdf, vol.weight, vol.color) + nbytes(depths, packed, intrs, w2cs),
+                    32 * n_vox * n_poses + 7 * n_valid)
+    results["tsdf_integrate"] = dict(
+        max_abs_err=t_err, ms=t_ms, plain_ms=t_plain_ms, device_ms=t_dev_ms, **t_bound,
+        library_ms=None, shape=[*vol.shape, n_poses, H, W])
+    print(f"[11 kernel T] {n_poses} frames of {W}x{H} into {vol.shape}: " + "; ".join(t_text)
+          + f"; kernel-vs-plain occupancy IoU {occ_stats['iou']:.6f} "
+          f"({int(occ_p.sum())} plain voxels occupied)")
+    print(f"[11 numbers] on {card}: {sweep_s / n_poses * 1e3:.1f} ms/pose, {sweep_s:.2f} s "
+          f"sweep + {encode11_ms:.1f} ms encode + {fuse_ms:.2f} ms fuse per frame; kernel T "
+          f"{t_ms:.3f} ms (events, fresh volume, median of {TIMING_RUNS}), alone "
+          f"{t_dev_ms:.3f} ms (graph of {GRAPH_REPS}), bound {t_bound['bound_ms']:.3f} ms "
+          f"({t_bound['bound_by']}); plain {t_plain_ms:.3f} ms")
+    del lv, sweep, depths, colors, packed, vol, ties
+    torch.cuda.empty_cache()
+
     sources = {
         "gather_levels": ("scenerf_tpu_torch/ops/csrc/gather.cu", "scenerf_tpu/geometry.py:106"),
         "gather_levels_bwd": ("scenerf_tpu_torch/ops/csrc/gather_bwd.cu",
@@ -700,11 +867,16 @@ def main() -> None:
         "sort_composite_bwd": ("scenerf_tpu_torch/ops/csrc/composite_bwd.cu",
                                "scenerf_tpu/rendering.py:102"),
         "ray_som": ("scenerf_tpu_torch/ops/csrc/som.cu", "scenerf_tpu/som.py:37"),
+        "tsdf_integrate": ("scenerf_tpu_torch/ops/csrc/tsdf.cu",
+                           "scenerf_tpu/fusion/tsdf.py:44"),
     }
+    # launches: on the training path, or for T the reconstruction path's
+    main_launches = {**launches, "tsdf_integrate": recon_launches["tsdf_integrate"]}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
-         "launches": launches[name],
-         "launches_by_path": {"serve": serve_launches.get(name, 0), "train": launches[name]},
+         "launches": main_launches[name],
+         "launches_by_path": {"serve": serve_launches.get(name, 0), "train": launches[name],
+                              "reconstruction": recon_launches[name]},
          **results[name]}
         for name, (src, rep) in sources.items()]}))
     print(f"card: {card}")

@@ -1,6 +1,7 @@
 """Synthetic scans in numpy matching the training batch contract: the
 port's own copy of `scenerf_tpu/data/synthetic.py` (which imports JAX through
-`scenerf_tpu.config`), with the same values for the same config and seed.
+`scenerf_tpu.config`), with the same values for the same config and seed;
+and KITTI's odometry calibration for runs without a KITTI tree.
 
 Batch contract (all fixed-shape numpy arrays):
   img_input       [B, H, W, 3]     cam_K            [B, 3, 3]
@@ -15,6 +16,28 @@ from typing import Dict
 import numpy as np
 
 from scenerf_tpu_torch.config import SceneRFConfig
+
+
+# KITTI odometry calibration (camera 2 projection P2, LiDAR -> camera 0 Tr),
+# the values scripts/make_fake_kitti.py writes into calib.txt
+KITTI_P2 = np.array([[707.0912, 0, 601.8873, 45.758],
+                     [0, 707.0912, 183.1104, -0.345],
+                     [0, 0, 1, 0.005]], np.float64)
+KITTI_TR = np.array([[2e-4, -0.9999, -0.0106, -0.0028],
+                     [0.0104, 0.0106, -0.9999, -0.0753],
+                     [0.9999, 1e-4, 0.0105, -0.2721]], np.float64)
+
+
+def kitti_calibration():
+    """(cam_K [3, 3], T_velo_2_cam [4, 4]) in f32 from KITTI_P2 / KITTI_TR, as
+    the KITTI reader derives them: T_velo_2_cam = T_cam0_2_cam2 @ Tr, with
+    the stereo baseline P2[0, 3] / P2[0, 0] as the only offset of camera 2."""
+    Tr = np.eye(4)
+    Tr[:3, :4] = KITTI_TR
+    T_cam0_2_cam2 = np.eye(4)
+    T_cam0_2_cam2[0, 3] = KITTI_P2[0, 3] / KITTI_P2[0, 0]
+    return (KITTI_P2[:3, :3].astype(np.float32),
+            (T_cam0_2_cam2 @ Tr).astype(np.float32))
 
 
 def default_intrinsics(cfg: SceneRFConfig) -> np.ndarray:

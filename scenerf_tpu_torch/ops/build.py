@@ -22,12 +22,13 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
-SOURCES = ("gather.cu", "gather_bwd.cu", "composite.cu", "composite_bwd.cu", "som.cu")
+SOURCES = ("gather.cu", "gather_bwd.cu", "composite.cu", "composite_bwd.cu", "som.cu",
+           "tsdf.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 LAUNCHES = {"gather_levels": 0, "gather_levels_bwd": 0, "sort_composite": 0,
-            "sort_composite_bwd": 0, "ray_som": 0}
+            "sort_composite_bwd": 0, "ray_som": 0, "tsdf_integrate": 0}
 
 _lib = None
 _force_plain = False
@@ -125,6 +126,7 @@ def library() -> ctypes.CDLL:
                                                vp, vp, vp, vp, vp],
             "scenerf_ray_som_f32": [vp, vp, vp, vp, i32, i32, i32, f32, f32, f32,
                                     vp, vp, vp, vp],
+            "scenerf_tsdf_integrate_f32": [vp] * 7 + [i32] * 6 + [f32] * 6 + [i32, vp],
         }
         for name, argtypes in signatures.items():
             fn = getattr(lib, name)

@@ -6,7 +6,11 @@ the card against the same path on the CPU. The backward kernels (G-bwd,
 C-bwd) against autograd of the plain versions: a misaligned level, corners
 off the map, a small level every point lands on (atomic contention), saturated
 alphas; kernel S with argmax ties; outputs that carry a `grad_fn` on the card;
-and the `tiny` training step on the card against the CPU.
+and the `tiny` training step on the card against the CPU. Kernel T (TSDF
+integrate) in both modes: one frame, ties on `>=`, voxels behind the camera
+and on its z = 0 plane, pixels at the image border and on .5 boundaries, and
+63 frames at the KITTI grid; bit-equal to the plain version but for voxels
+at a pixel-rounding tie (at most 0.01% of the grid).
 
 Marked `cuda`: skipped where no CUDA device is present (a CUDA kernel has no
 CPU mode). The package under test imports no JAX, and neither does this
@@ -14,6 +18,9 @@ file, so it runs on a machine without JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
+import math
+
+import numpy as np
 import pytest
 import torch
 
@@ -25,6 +32,7 @@ from scenerf_tpu_torch.model import SceneRF
 from scenerf_tpu_torch.ops import build
 from scenerf_tpu_torch.ops.composite import sort_composite, sort_composite_plain
 from scenerf_tpu_torch.ops.gather import gather_levels, gather_levels_plain
+from scenerf_tpu_torch.ops.tsdf import integrate, integrate_plain, pixel_ties
 from scenerf_tpu_torch.som import som_em, som_em_plain
 from scenerf_tpu_torch.train import Trainer
 
@@ -271,7 +279,9 @@ def test_tiny_train_step_on_card_matches_cpu(dev):
     build.reset_launch_counts()
     got = card.train_step(batch, noise={k: v.to(dev) for k, v in noise.items()})
     torch.cuda.synchronize()
-    assert all(n >= 1 for n in build.LAUNCHES.values()), build.LAUNCHES
+    train_kernels = ("gather_levels", "gather_levels_bwd", "sort_composite",
+                     "sort_composite_bwd", "ray_som")
+    assert all(build.LAUNCHES[k] >= 1 for k in train_kernels), build.LAUNCHES
     want = cpu.train_step(batch, noise=noise)
     for k in want:
         torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-3, atol=1e-5, msg=k)
@@ -287,3 +297,111 @@ def test_tiny_train_step_on_card_matches_cpu(dev):
     for prefix in ("net_rgb.decoder.up1", "mlp_gaussian.lin_in", "mlp_gaussian.lin_z.0"):
         assert any(float(p.grad.abs().max()) > 0 for n, p in card.model.named_parameters()
                    if n.startswith(prefix)), prefix
+
+
+# ---------------------------------------------------------------- kernel T
+
+TSDF_MIN_EQUAL = 0.9999
+
+
+def _tsdf_check(dev, shape, depths, colors, intrs, w2cs, origin, voxel, trunc, mode,
+                init=None):
+    """Kernel T and its plain version from the same volume (fresh unless
+    `init`): every voxel bit-equal but those at a pixel-rounding tie, and
+    these at most 1 - TSDF_MIN_EQUAL of the grid. Returns the kernel's."""
+    if init is None:
+        init = [torch.full(shape, 255.0, device=dev), torch.zeros(shape, device=dev),
+                torch.zeros(shape, device=dev)]
+    got = [v.clone() for v in init]
+    want = [v.clone() for v in init]
+    args = (depths, colors, intrs, w2cs, origin, voxel, trunc, 1.0)
+    build.reset_launch_counts()
+    integrate(*got, *args, mode=mode)
+    integrate_plain(*want, *args, mode=mode)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["tsdf_integrate"] == 1
+    differs = torch.zeros(shape, dtype=torch.bool, device=dev)
+    for a, b in zip(got, want):
+        differs |= a != b
+    ties = pixel_ties(shape, origin, voxel, intrs, w2cs)
+    assert not bool((differs & ~ties).any()), int((differs & ~ties).sum())
+    assert float(differs.float().mean()) <= 1 - TSDF_MIN_EQUAL
+    return got
+
+
+def _look_at_grid(dev, F, rng_seed=0):
+    """F cameras 1-3 m in front of (and some inside) a 30x24x20 grid of
+    0.25 m voxels, looking down +z with small yaws; random depths with a
+    zero-depth band, and packed colors."""
+    g = torch.Generator(device=dev).manual_seed(rng_seed)
+    H, W = 40, 56
+    K = torch.tensor([[45.0, 0, 27.7], [0, 45.0, 19.3], [0, 0, 1]], device=dev)
+    w2cs = []
+    for f in range(F):
+        a = 0.1 * f - 0.2
+        c2w = torch.eye(4, dtype=torch.float64)
+        c2w[0, 0], c2w[0, 2], c2w[2, 0], c2w[2, 2] = math.cos(a), math.sin(a), -math.sin(a), math.cos(a)
+        c2w[:3, 3] = torch.tensor([3.5 + 0.3 * f, 3.0, -1.5 + 1.2 * f], dtype=torch.float64)
+        w2cs.append(torch.linalg.inv(c2w).float())
+    depths = torch.rand(F, H, W, generator=g, device=dev) * 7 + 0.3
+    depths[:, 5:8] = 0.0
+    rgb = torch.floor(torch.rand(F, H, W, 3, generator=g, device=dev) * 256)
+    colors = rgb[..., 2] * 65536.0 + rgb[..., 1] * 256.0 + rgb[..., 0]
+    return (30, 24, 20), depths, colors, K.expand(F, 3, 3).contiguous(), torch.stack(w2cs).to(dev)
+
+
+@pytest.mark.parametrize("mode", ["closest", "average"])
+@pytest.mark.parametrize("n_frames", [1, 5])
+def test_tsdf_kernel_matches_plain(dev, mode, n_frames):
+    """One frame and a 5-frame sweep; cameras inside the grid put voxels
+    behind them (c_z < 0), and "average" also runs from a filled volume."""
+    shape, depths, colors, K, w2cs = _look_at_grid(dev, n_frames)
+    got = _tsdf_check(dev, shape, depths, colors, K, w2cs, (0.0, 0.0, 0.0), 0.25, 0.8, mode)
+    assert bool((got[1] > 0).any()) and bool((got[1] == 0).any())
+    if mode == "average":
+        _tsdf_check(dev, shape, depths, colors, K, w2cs, (0.0, 0.0, 0.0), 0.25, 0.8, mode,
+                    init=got)
+
+
+@pytest.mark.parametrize("mode", ["closest", "average"])
+def test_tsdf_kernel_ties_border_and_z_plane(dev, mode):
+    """A grid-aligned wall seen by a camera on the grid: projections land
+    exactly on .5 boundaries (both round half to even) and on the first and
+    last pixel columns and rows; the camera's z = 0 plane runs through a
+    voxel layer (z == 0: out of view). The frame is given twice with another
+    color: with `>=`, "closest" takes the second frame's color."""
+    H, W = 48, 64
+    K = torch.tensor([[50.0, 0, 32.0], [0, 50.0, 24.0], [0, 0, 1]], device=dev)
+    depth = torch.full((H, W), 2.0, device=dev)
+    colors = torch.stack([torch.full((H, W), 200.0, device=dev),
+                          torch.full((H, W), 7.0 * 65536 + 3.0, device=dev)])
+    w2c = torch.eye(4, device=dev).expand(2, 4, 4).contiguous()
+    shape = (31, 25, 40)
+    origin = (-1.875, -1.5, -1.25)  # exact in binary: voxel layer 10 is at z = 0
+    got = _tsdf_check(dev, shape, depth.expand(2, H, W).contiguous(), colors,
+                      K.expand(2, 3, 3).contiguous(), w2c, origin, 0.125, 10.0, mode)
+    assert not bool((got[1][:, :, :11] > 0).any())  # z <= 0: never observed
+    if mode == "closest":
+        taken = got[0] != 255
+        assert bool(taken.any()) and bool((got[2][taken] == 7.0 * 65536 + 3.0).all())
+
+
+@pytest.mark.parametrize("mode", ["closest", "average"])
+def test_tsdf_kernel_kitti_grid_63_frames(dev, mode):
+    """The reconstruction chain's shapes: 63 frames of 1220x370 (the CLI's
+    default sweep, KITTI calibration) into the 256x256x32 grid."""
+    from scenerf_tpu_torch.data.synthetic import kitti_calibration
+    from scenerf_tpu_torch.reconstruction import KITTI_VOX_ORIGIN, kitti_volume
+
+    K, T_velo_2_cam = kitti_calibration()
+    rel = geo.rel_pose_stack(geo.sample_rel_poses(0.5, 10.0, 10.1))
+    w2cs = torch.from_numpy(np.stack([np.linalg.inv(np.linalg.inv(T_velo_2_cam) @ p)
+                                      for p in rel]).astype(np.float32)).to(dev)
+    g = torch.Generator(device=dev).manual_seed(63)
+    depths = torch.rand(63, 370, 1220, generator=g, device=dev) * 40 + 1.0
+    colors = torch.floor(torch.rand(63, 370, 1220, generator=g, device=dev) * 2**24)
+    shape = kitti_volume("cpu").shape
+    got = _tsdf_check(dev, shape, depths, colors,
+                      torch.from_numpy(np.tile(K[None], (63, 1, 1))).to(dev), w2cs,
+                      KITTI_VOX_ORIGIN, 0.2, 10.0, mode)
+    assert float(got[1].max()) <= 63 and bool((got[1] > 0).any())

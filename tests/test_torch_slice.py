@@ -105,3 +105,45 @@ def test_slice_ray_som_matches(slice_run):
         close = np.isclose(out[k].numpy(), want, rtol=1e-3, atol=1e-3 * np.abs(want).max())
         close = close.reshape(close.shape[0], -1).all(axis=1)
         assert 1.0 - close.mean() <= MAX_BAD_SHARE, (k, 1.0 - close.mean())
+
+
+def test_slice_reconstruction_matches(slice_run):
+    """The slice's render, upsampled 4x to the image size (`jax.image.resize`
+    / `reconstruction.upsample_to`), colors quantized as the CLI's PNGs, and
+    fused from its pose into a 40x20x60 grid of 1 m voxels by each package's
+    TSDFVolume: the TSDF within atol 1e-4 on >= 99% of the voxels either
+    observes, occupancy (tsdf2occ) IoU >= 0.99 between the two."""
+    from scenerf_tpu.fusion.tsdf import TSDFVolume as JaxTSDFVolume
+    from scenerf_tpu.fusion.tsdf import tsdf2occ as jax_tsdf2occ
+    from scenerf_tpu_torch.fusion.tsdf import TSDFVolume, tsdf2occ
+    from scenerf_tpu_torch.reconstruction import quantize_colors, upsample_to
+    from scenerf_tpu_torch.utils.ssc_metrics import SSCMetrics
+
+    _, _, jout, out = slice_run
+    cfg = C.tiny()
+    W, H = cfg.img_size
+    h, w = -(-H // STRIDE), -(-W // STRIDE)
+    K = default_intrinsics(cfg)
+    T = np.eye(4)
+    T[2, 3] = 0.5
+    bnds = np.array([[-20.0, 20.0], [-10.0, 10.0], [0.0, 60.0]])
+    jd = np.asarray(jax.image.resize(jnp.asarray(jout["depth"]).reshape(h, w), (H, W),
+                                     method="bilinear"))
+    jc = np.asarray(jax.image.resize(jnp.asarray(jout["color"]).reshape(h, w, 3), (H, W, 3),
+                                     method="bilinear"))
+    jvol = JaxTSDFVolume(bnds, voxel_size=1.0)
+    jvol.integrate((np.clip(jc, 0, 1) * 255).astype(np.uint8).astype(np.float32), jd, K, T)
+    vol = TSDFVolume(bnds, voxel_size=1.0)
+    vol.integrate(quantize_colors(upsample_to(out["color"].reshape(h, w, 3), (H, W))),
+                  upsample_to(out["depth"].reshape(h, w), (H, W)), K, T)
+
+    want, got = jvol.get_volume()[0], vol.get_volume()[0]
+    observed = (want != 255) | (got != 255)
+    assert observed.sum() > 100
+    share = np.isclose(got, want, rtol=0, atol=1e-4)[observed].mean()
+    print(f"TSDF within 1e-4 on {share:.4%} of {observed.sum()} observed voxels")
+    assert share >= 0.99, share
+    m = SSCMetrics(2)
+    m.add_batch(tsdf2occ(got, 0.25, 6.0, voxel_size=1.0)[None],
+                jax_tsdf2occ(want, 0.25, 6.0, voxel_size=1.0)[None])
+    assert m.get_stats()["iou"] >= 0.99, m.get_stats()
