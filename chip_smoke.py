@@ -6,9 +6,11 @@ hand-written kernels.
 
 Phases (each prints one line and raises on failure):
   1. device: card name and power limit, versions, TF32 off, kernel build
-  2. kernel G (multi-level bilinear gather) against its plain PyTorch version
-     at KITTI shapes: the five-level pyramid at the projected coords of
-     5000 rays x 64 samples, and the s1/s2 sphere resample
+  2. kernel G (multi-level bilinear gather) bit-equal to its plain PyTorch
+     version at KITTI shapes: the five-level pyramid at the projected coords
+     of 5000 rays x 64 samples, every sphere resample of the B7 encoder
+     (s1 .. s32 at its tap widths) and the 1200-pixel reprojection gather,
+     each beside F.grid_sample on the same tap and coords (events, alone)
   3. kernel C (per-ray sort + composite) against its plain version, R=5000, P=64
   4. encode: SceneRF(kitti()) with seeded random weights (EfficientNet-B7
      spherical U-Net) on one synthetic 1220x370 frame
@@ -18,11 +20,13 @@ Phases (each prints one line and raises on failure):
   7. kernel G-bwd against autograd of the plain gather into the KITTI
      pyramid, at the cotangents the training path launches it with (a
      render chunk's [19200, 2480] samples and [1200, 2480] anchors) and at
-     one source's [76800, 2480], its time including the zeroing of the
-     level gradients; each level alone (atomic contention at 1_16), the
-     3-channel reprojection gather with coordinate gradients, and
-     F.grid_sample forward + backward on the s2 sphere resample as the
-     library yardstick
+     one source's [76800, 2480], timed alone (it adds into gradient buffers
+     the caller zeroes once per step; the zeroing timed apart); each level
+     alone; one step's 32 chunk gathers through the pyramid's shared
+     buffers against the plain gathers summed, its backward timed beside
+     the same gathers each zeroing its own gradient; the 3-channel
+     reprojection gather with coordinate gradients; every sphere resample's
+     backward beside grid_sample's
   8. kernel C-bwd against autograd of the plain sort + composite, R=5000,
      P=64 with saturated alphas and clamped ties; the device time of kernels
      C and C-bwd alone (CUDA-graph replay of 50 launches), with the inputs
@@ -66,7 +70,6 @@ SWEEP_POSES = 3
 STRIDE = 2
 CHUNK = 5000
 TIMING_RUNS = 20
-GATHER_REL_TOL = 1e-5     # max abs error <= this x max|level|
 COMPOSITE_RTOL = 1e-5
 ARGMIN_MIN_SHARE = 0.999
 SERVE_RTOL = 1e-3
@@ -167,6 +170,26 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def touched_row_bytes(levels, ix, iy) -> int:
+    """Bytes of the level rows that bilinear corners at (ix, iy) [L, N] land
+    on, each row counted once: what a gather reads (or a scatter-add reads
+    and writes) of the levels at these coords, at the least."""
+    import torch
+
+    total = 0
+    for lv, x, y in zip(levels, ix, iy):
+        H, W, C = lv.shape
+        x0, y0 = torch.floor(x), torch.floor(y)
+        rows = []
+        for dx in (0, 1):
+            for dy in (0, 1):
+                cx, cy = x0 + dx, y0 + dy
+                inside = (cx >= 0) & (cx < W) & (cy >= 0) & (cy < H)
+                rows.append((cy[inside] * W + cx[inside]).long())
+        total += int(torch.unique(torch.cat(rows)).numel()) * C * lv.element_size()
+    return total
+
+
 def main() -> None:
     if not (ROOT / "scenerf_tpu_torch").is_dir():
         fail(f"the port package scenerf_tpu_torch is not beside {Path(__file__).name}")
@@ -190,7 +213,8 @@ def main() -> None:
     from scenerf_tpu_torch.ops.composite import (sort_composite, sort_composite_backward,
                                                  sort_composite_forward, sort_composite_plain)
     from scenerf_tpu_torch.ops.gather import (gather_levels, gather_levels_backward,
-                                              gather_levels_plain)
+                                              gather_levels_plain, lanes_per_point,
+                                              share_pyramid_grads)
     from scenerf_tpu_torch.rendering import (SCALES, inverse, pyramid_coords,
                                              pyramid_level_size)
     from scenerf_tpu_torch.som import som_em, som_em_plain
@@ -238,36 +262,74 @@ def main() -> None:
     got = gather_levels(levels, ix, iy)
     want = gather_levels_plain(levels, ix, iy)
     torch.cuda.synchronize()
-    scale = max(float(lv.abs().max()) for lv in levels)
-    err = float((got - want).abs().max())
-    if not err <= GATHER_REL_TOL * scale:
-        fail(f"gather_levels: max abs error {err} > {GATHER_REL_TOL} x {scale}")
+    if not torch.equal(got, want):
+        fail(f"gather_levels: not bit-equal to the plain version (max abs error "
+             f"{float((got - want).abs().max())})")
     ms = cuda_ms(lambda: gather_levels(levels, ix, iy))
     plain_ms = cuda_ms(lambda: gather_levels_plain(levels, ix, iy))
+    touched = touched_row_bytes(levels, ix, iy)
     # per point and channel: 6 multiplies and 3 adds
-    results["gather_levels"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                    **bound(nbytes(*levels, ix, iy, got), 9 * got.numel()),
-                                    library_ms=None)
+    results["gather_levels"] = dict(max_abs_err=0.0, ms=ms, plain_ms=plain_ms,
+                                    **bound(touched + nbytes(ix, iy, got), 9 * got.numel()),
+                                    library_ms=None,
+                                    lanes=lanes_per_point([lv.shape[2] for lv in levels], ix.shape[1]))
     print(f"[2 kernel G] pyramid {[tuple(lv.shape) for lv in levels]} at "
-          f"{ix.shape[1]} points -> {tuple(got.shape)}: max abs err {err:.3e} "
-          f"(limit {GATHER_REL_TOL * scale:.3e}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
+          f"{ix.shape[1]} points -> {tuple(got.shape)}: bit-equal to the plain version; "
+          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
+          f"{results['gather_levels']['bound_ms']:.3f} ms ({touched / 1e6:.0f} MB of level "
+          f"rows touched; all levels {nbytes(*levels) / 1e6:.0f} MB)")
 
+    def check_g(what: str, lvs, gx, gy) -> dict:
+        """One-level kernel G bit-equal to its plain version, and its time
+        beside F.grid_sample on the same tap and coords (NCHW, zeros,
+        align_corners=False): events and alone (graph), and the bound."""
+        lv = lvs[0]
+        h, w, c = lv.shape
+        g1 = gather_levels(lvs, gx, gy)
+        g0 = gather_levels_plain(lvs, gx, gy)
+        grid = torch.stack([(2 * gx[0] + 1) / w - 1, (2 * gy[0] + 1) / h - 1], -1)
+        grid = grid.view(1, 1, -1, 2)
+        nchw = lv.permute(2, 0, 1)[None].contiguous()
+        lib = lambda: F.grid_sample(nchw, grid, mode="bilinear", padding_mode="zeros",  # noqa: E731
+                                    align_corners=False)
+        lib_diff = float((lib()[0, :, 0].t() - g1).abs().max())
+        torch.cuda.synchronize()
+        if not torch.equal(g1, g0):
+            fail(f"gather_levels at {what}: not bit-equal to the plain version (max abs "
+                 f"error {float((g1 - g0).abs().max())})")
+        run = lambda: gather_levels(lvs, gx, gy)  # noqa: E731
+        return dict(shape=what, ms=cuda_ms(run), device_ms=graph_ms(run),
+                    plain_ms=cuda_ms(lambda: gather_levels_plain(lvs, gx, gy)),
+                    library_ms=cuda_ms(lib), library_device_ms=graph_ms(lib),
+                    library_max_abs_diff=lib_diff, lanes=lanes_per_point([c], gx.shape[1]),
+                    **bound(touched_row_bytes(lvs, gx, gy) + nbytes(gx, gy, g1), 9 * g1.numel()))
+
+    # every sphere resample of the B7 encoder (tap widths of the backbone; s32
+    # resamples the decoder's conv2 output) and the reprojection gather
+    with torch.device("meta"):
+        tap_ch = SceneRF(cfg).net_rgb.encoder.original_model.tap_channels
+    tap_widths = {s: (tap_ch[f"s{s}"] if s < 32 else cfg.encoder_features)
+                  for s in (1, 2, 4, 8, 16, 32)}
     sphere_maps = compute_sphere_maps(cfg, K_np)
-    for s, c in ((1, 3), (2, 32)):
+    one_level = []
+    for s, c in tap_widths.items():
         tap = torch.randn(-(-H // s), -(-W // s), c, generator=gen, device=dev)
         m = torch.from_numpy(sphere_maps[s]).to(dev)
         rix, riy = sphere_map_coords(m, tap.shape[0], tap.shape[1])
-        g1 = gather_levels([tap], rix[None], riy[None])
-        g0 = gather_levels_plain([tap], rix[None], riy[None])
-        torch.cuda.synchronize()
-        rerr = float((g1 - g0).abs().max())
-        if not rerr <= GATHER_REL_TOL * float(tap.abs().max()):
-            fail(f"sphere resample s{s}: max abs error {rerr}")
-        rms = cuda_ms(lambda: gather_levels([tap], rix[None], riy[None]))
-        rplain = cuda_ms(lambda: gather_levels_plain([tap], rix[None], riy[None]))
-        print(f"[2 kernel G] sphere resample s{s} {tuple(tap.shape)} -> "
-              f"{tuple(m.shape[:2])}x{c}: max abs err {rerr:.3e}; kernel {rms:.3f} ms, "
-              f"plain {rplain:.3f} ms")
+        one_level.append(check_g(f"s{s} sphere resample {list(tap.shape)} -> "
+                                 f"{list(m.shape[:2])}", [tap], rix[None], riy[None]))
+    rimg = torch.rand(H, W, 3, generator=gen, device=dev)
+    span = torch.tensor([W + 40.0, H + 40.0], device=dev)
+    pix_img = torch.rand(cfg.n_rays, 2, generator=gen, device=dev) * span - 20.0  # some off
+    pix_x, pix_y = geo.pix_feature_coords(pix_img, H, W)
+    one_level.append(check_g(f"reprojection {list(rimg.shape)} at {cfg.n_rays} pixels", [rimg],
+                             pix_x[None].contiguous(), pix_y[None].contiguous()))
+    results["gather_levels"]["library_at"] = one_level
+    for r in one_level:
+        print(f"[2 kernel G] {r['shape']} ({r['lanes']} lanes per point): bit-equal; kernel "
+              f"{r['ms']:.4f} ms, alone {r['device_ms']:.4f} ms; F.grid_sample {r['library_ms']:.4f}"
+              f" ms, alone {r['library_device_ms']:.4f} ms (max |diff| {r['library_max_abs_diff']:.1e});"
+              f" plain {r['plain_ms']:.3f} ms; bound {r['bound_ms']:.4f} ms")
 
     # ---- 3. kernel C -----------------------------------------------------
     n_uni = cfg.n_pts_uni
@@ -406,37 +468,47 @@ def main() -> None:
                                            cfg.min_sample_depth, cfg.max_sample_depth)
     ix, iy = pyramid_coords(pts_t.reshape(-1, 3), K, inv_K, cfg.sphere,
                             [lv.shape[:2] for lv in levels])
-    need = [True] * len(levels)
+    # the pyramid's gradient buffers: G-bwd adds into them; a step zeroes them once
+    bufs = [torch.zeros_like(lv) for lv in levels]
 
     def check_gather_bwd(idx: torch.Tensor) -> dict:
         """G-bwd at the points `idx` against autograd of the plain gather;
-        its time is the wrapper's, zeroing the level gradients included."""
+        its time is the kernel's: it adds into the buffers (no zeroing)."""
         ix_n, iy_n = ix[:, idx].contiguous(), iy[:, idx].contiguous()
         n = idx.numel()
         d_n = torch.randn(n, sum(widths), generator=gen, device=dev)
-        got_lv, _, _ = gather_levels_backward(levels, ix_n, iy_n, d_n, need, False)
+        for b in bufs:
+            b.zero_()
+        gather_levels_backward(levels, ix_n, iy_n, d_n, bufs, False)
         leaves = [lv.clone().requires_grad_(True) for lv in levels]
         plain_out = gather_levels_plain(leaves, ix_n, iy_n)
         want_lv = torch.autograd.grad(plain_out, leaves, d_n, retain_graph=True)
         torch.cuda.synchronize()
         limit = GATHER_BWD_REL_TOL * max(float(b.abs().max()) for b in want_lv)
-        err = max(float((a - b).abs().max()) for a, b in zip(got_lv, want_lv))
+        err = max(float((a - b).abs().max()) for a, b in zip(bufs, want_lv))
         if not err <= limit:
             fail(f"gather_levels_bwd at {n} points: max abs error {err} > {limit}")
-        del got_lv, want_lv
-        ms = cuda_ms(lambda: gather_levels_backward(levels, ix_n, iy_n, d_n, need, False))
+        del want_lv
+        run = lambda: gather_levels_backward(levels, ix_n, iy_n, d_n, bufs, False)  # noqa: E731
+        ms, dev_ms = cuda_ms(run), graph_ms(run)
         plain_ms = cuda_ms(lambda: torch.autograd.grad(plain_out, leaves, d_n, retain_graph=True))
-        # per point and channel: 2 multiplies for the row pair, 4 weighted atomic adds
+        # per point and channel: 2 multiplies for the row pair, 4 weighted adds;
+        # bytes: the cotangent, the coords, the touched gradient rows read and written
         return dict(shape=list(d_n.shape), max_abs_err=err, limit=limit, ms=ms,
-                    plain_ms=plain_ms, **bound(nbytes(d_n, ix_n, iy_n, *levels), 10 * d_n.numel()))
+                    device_ms=dev_ms, plain_ms=plain_ms,
+                    **bound(nbytes(d_n, ix_n, iy_n) + 2 * touched_row_bytes(levels, ix_n, iy_n),
+                            10 * d_n.numel()))
 
     # the training path launches G-bwd per render chunk: the chunk's samples
     # and its Gaussian anchors (here 4 spread samples of each of its rays);
     # one source's samples at once for comparison
     chunk_pts = torch.arange(cfg.ray_chunk * N_PTS, device=dev)
-    anchor_pts = chunk_pts.view(cfg.ray_chunk, N_PTS)[:, ::N_PTS // cfg.n_gaussians]
-    bwd_runs = [check_gather_bwd(idx.reshape(-1)) for idx in (
+    anchor_pts = chunk_pts.view(cfg.ray_chunk, N_PTS)[:, ::N_PTS // cfg.n_gaussians].reshape(-1)
+    bwd_runs = [check_gather_bwd(idx) for idx in (
         chunk_pts, anchor_pts, torch.arange(n_train * N_PTS, device=dev))]
+    zero_all = lambda: [b.zero_() for b in bufs]  # noqa: E731
+    zero_ms, zero_dev_ms = cuda_ms(zero_all), graph_ms(zero_all)
+    zero_bound = bound(nbytes(*bufs), 0)["bound_ms"]
     torch.cuda.empty_cache()
     d_out = torch.randn(ix.shape[1], sum(widths), generator=gen, device=dev)
     cols = [0]
@@ -445,73 +517,142 @@ def main() -> None:
     level_ms = []
     for i in range(len(levels)):
         d_i = d_out[:, cols[i]:cols[i + 1]].contiguous()
-        level_ms.append(cuda_ms(lambda: gather_levels_backward(
-            [levels[i]], ix[i:i + 1], iy[i:i + 1], d_i, [True], False)))
+        level_ms.append(graph_ms(lambda: gather_levels_backward(
+            [levels[i]], ix[i:i + 1], iy[i:i + 1], d_i, [bufs[i]], False)))
         del d_i
-    main_run = {k: v for k, v in bwd_runs[0].items() if k != "limit"}
-    results["gather_levels_bwd"] = dict(
-        **main_run, library_ms=None,
-        other_shapes=[{k: r[k] for k in ("shape", "ms", "plain_ms", "bound_ms")}
-                      for r in bwd_runs[1:]])
+    del d_out
     runs_text = "; ".join(
         f"{tuple(r['shape'])}: max abs err {r['max_abs_err']:.3e} (limit {r['limit']:.3e}), "
-        f"kernel {r['ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, bound {r['bound_ms']:.3f} ms"
-        for r in bwd_runs)
-    print(f"[7 kernel G-bwd] cotangents into the pyramid ({nbytes(*levels) / 1e6:.0f} MB of "
-          f"level gradients zeroed per call, in the kernel times) at a training chunk's "
-          f"samples, its anchors, and one source's samples: {runs_text}; each level alone "
-          f"at {tuple(d_out.shape)} (1_1 .. 1_16) {['%.3f' % t for t in level_ms]} ms")
-    del d_out
+        f"kernel {r['ms']:.3f} ms, alone {r['device_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms, "
+        f"bound {r['bound_ms']:.3f} ms" for r in bwd_runs)
+    print(f"[7 kernel G-bwd] cotangents added into the pyramid's gradient buffers at a "
+          f"training chunk's samples, its anchors, and one source's samples: {runs_text}; "
+          f"each level alone at [{ix.shape[1]}, C] (1_1 .. 1_16) "
+          f"{['%.3f' % t for t in level_ms]} ms; zeroing the buffers once "
+          f"({nbytes(*bufs) / 1e6:.0f} MB) {zero_ms:.3f} ms, alone {zero_dev_ms:.3f} ms "
+          f"(bound {zero_bound:.3f} ms)")
+
+    # a training step's sequence on one pyramid: every source's chunks, each
+    # gathering its anchors and samples, then one backward; through the shared
+    # buffers (the training path), and with every gather zeroing its own full
+    # level gradients that autograd then sums; held to autograd of the plain
+    # gathers, summed
+    n_chunks = n_train // cfg.ray_chunk
+    seq_idx = []
+    for c in range(n_chunks):
+        samples = chunk_pts + c * cfg.ray_chunk * N_PTS
+        seq_idx += [anchor_pts + c * cfg.ray_chunk * N_PTS, samples]
+    seq_idx = seq_idx * cfg.n_sources
+    seq_xy = [(ix[:, i].contiguous(), iy[:, i].contiguous()) for i in seq_idx]
+    seq_cot = [torch.randn(i.numel(), sum(widths), generator=gen, device=dev) for i in seq_idx]
+
+    def step_backward(shared: bool):
+        """(level gradients, ms of the backward alone, launches)."""
+        leaves = [lv.detach().requires_grad_(True) for lv in levels]
+        pyramid, pgrads = share_pyramid_grads(leaves) if shared else (leaves, None)
+        outs = [gather_levels(pyramid, x, y, grads=pgrads) for x, y in seq_xy]
+        build.reset_launch_counts()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        torch.autograd.backward(outs, seq_cot)
+        end.record()
+        end.synchronize()
+        return [lv.grad for lv in leaves], start.elapsed_time(end), build.LAUNCHES["gather_levels_bwd"]
+
+    want_seq = [torch.zeros_like(lv) for lv in levels]
+    for (x, y), cot in zip(seq_xy, seq_cot):
+        leaves = [lv.detach().requires_grad_(True) for lv in levels]
+        for acc, g in zip(want_seq, torch.autograd.grad(gather_levels_plain(leaves, x, y),
+                                                        leaves, cot)):
+            acc.add_(g)
+    got_seq, _, seq_launches = step_backward(shared=True)
+    torch.cuda.synchronize()
+    seq_limit = GATHER_BWD_REL_TOL * max(float(b.abs().max()) for b in want_seq)
+    seq_err = max(float((a - b).abs().max()) for a, b in zip(got_seq, want_seq))
+    if not seq_err <= seq_limit or seq_launches != len(seq_idx):
+        fail(f"gather_levels_bwd step sequence: max abs error {seq_err} > {seq_limit} "
+             f"({seq_launches} launches)")
+    del got_seq, want_seq
+    seq_ms = {True: [], False: []}
+    for shared in (True, False, False, True, True, False):
+        seq_ms[shared].append(step_backward(shared)[1])
+    step_seq = dict(gathers=len(seq_idx), max_abs_err=seq_err, limit=seq_limit,
+                    shared_backward_ms=statistics.median(seq_ms[True]),
+                    per_gather_zeroing_backward_ms=statistics.median(seq_ms[False]))
+    print(f"[7 kernel G-bwd] one step's {len(seq_idx)} gathers on one pyramid ({cfg.n_sources} "
+          f"sources x {n_chunks} chunks x anchors + samples): level gradients within "
+          f"{seq_err:.3e} of the plain gathers' summed (limit {seq_limit:.3e}); backward "
+          f"{step_seq['shared_backward_ms']:.2f} ms through the shared buffers, "
+          f"{step_seq['per_gather_zeroing_backward_ms']:.2f} ms with a zeroed gradient per "
+          f"gather and autograd's sums (median of 3 each)")
+    del seq_xy, seq_cot, bufs
     torch.cuda.empty_cache()
 
-    img = torch.rand(H, W, 3, generator=gen, device=dev)
-    span = torch.tensor([W + 40.0, H + 40.0], device=dev)
-    pix_img = torch.rand(n_train, 2, generator=gen, device=dev) * span - 20.0  # some off the image
-    pix_x, pix_y = geo.pix_feature_coords(pix_img, H, W)
     d_col = torch.randn(n_train, 3, generator=gen, device=dev)
-    _, gx, gy = gather_levels_backward([img], pix_x[None], pix_y[None], d_col, [False], True)
-    cx, cy = pix_x[None].clone().requires_grad_(True), pix_y[None].clone().requires_grad_(True)
-    wx, wy = torch.autograd.grad(gather_levels_plain([img], cx, cy), (cx, cy), d_col)
+    img_x, img_y = pix_x[None].contiguous(), pix_y[None].contiguous()
+    gx, gy = gather_levels_backward([rimg], img_x, img_y, d_col, [None], True)
+    cx, cy = img_x.clone().requires_grad_(True), img_y.clone().requires_grad_(True)
+    wx, wy = torch.autograd.grad(gather_levels_plain([rimg], cx, cy), (cx, cy), d_col)
     torch.cuda.synchronize()
     xy_scale = max(float(wx.abs().max()), float(wy.abs().max()))
     xy_err = max(float((gx - wx).abs().max()), float((gy - wy).abs().max()))
     if not xy_err <= COORD_GRAD_REL_TOL * xy_scale:
         fail(f"gather_levels_bwd coords: max abs error {xy_err} > {COORD_GRAD_REL_TOL} x {xy_scale}")
-    xy_ms = cuda_ms(lambda: gather_levels_backward([img], pix_x[None], pix_y[None], d_col,
-                                                   [False], True))
-    print(f"[7 kernel G-bwd] reprojection gather {tuple(img.shape)} at {n_train} pixels with "
+    xy_run = lambda: gather_levels_backward([rimg], img_x, img_y, d_col, [None], True)  # noqa: E731
+    xy_ms, xy_dev_ms = cuda_ms(xy_run), graph_ms(xy_run)
+    print(f"[7 kernel G-bwd] reprojection gather {tuple(rimg.shape)} at {n_train} pixels with "
           f"d_ix/d_iy: max abs err {xy_err:.3e} (limit {COORD_GRAD_REL_TOL * xy_scale:.3e}); "
-          f"kernel {xy_ms:.3f} ms")
+          f"kernel {xy_ms:.4f} ms, alone {xy_dev_ms:.4f} ms")
 
-    h2, w2 = -(-H // 2), -(-W // 2)
-    tap = torch.randn(h2, w2, 32, generator=gen, device=dev)
-    rix, riy = sphere_map_coords(torch.from_numpy(sphere_maps[2]).to(dev), h2, w2)
-    out_hw = sphere_maps[2].shape[:2]
-    grid = torch.stack([(2 * rix + 1) / w2 - 1, (2 * riy + 1) / h2 - 1], -1).view(1, *out_hw, 2)
-    tap_nchw = tap.permute(2, 0, 1)[None].contiguous().requires_grad_(True)
-    lib_out = F.grid_sample(tap_nchw, grid, mode="bilinear", padding_mode="zeros",
-                            align_corners=False)
-    ours = gather_levels([tap], rix[None], riy[None])
-    g_res = torch.randn_like(ours)
-    lib_err = float((lib_out[0].detach().permute(1, 2, 0).reshape(-1, 32) - ours).abs().max())
-    lib_fwd = cuda_ms(lambda: F.grid_sample(tap_nchw.detach(), grid, mode="bilinear",
-                                            padding_mode="zeros", align_corners=False))
-    g_nchw = g_res.view(*out_hw, 32).permute(2, 0, 1)[None].contiguous()
-    lib_bwd = cuda_ms(lambda: torch.autograd.grad(lib_out, tap_nchw, g_nchw, retain_graph=True))
-    our_fwd = cuda_ms(lambda: gather_levels([tap], rix[None], riy[None]))
-    our_bwd = cuda_ms(lambda: gather_levels_backward([tap], rix[None], riy[None], g_res,
-                                                     [True], False))
-    print(f"[7 library] s2 sphere resample {tuple(tap.shape)} -> {out_hw}x32: F.grid_sample "
-          f"forward {lib_fwd:.3f} ms, backward {lib_bwd:.3f} ms (max |diff| to kernel G "
-          f"{lib_err:.2e}); kernels G {our_fwd:.3f} ms, G-bwd {our_bwd:.3f} ms")
-    # no library call gathers the five-level pyramid; on one sphere resample
-    # level F.grid_sample computes the same function
-    resample = f"s2 sphere resample {list(tap.shape)} -> {list(out_hw)} x 32"
-    results["gather_levels"]["library_at"] = dict(shape=resample, ms=our_fwd,
-                                                  library_ms=lib_fwd)
-    results["gather_levels_bwd"]["library_at"] = dict(shape=resample, ms=our_bwd,
-                                                      library_ms=lib_bwd)
-    del levels, ix, iy, tap_nchw, lib_out, ours
+    # every sphere resample's backward into its tap beside grid_sample's
+    # backward (one aten call: it allocates and zeroes the tap gradient);
+    # the encoder's resamples are not shared, so each zeroes its tap gradient
+    resample_bwd = []
+    for s, c in tap_widths.items():
+        h, w = -(-H // s), -(-W // s)
+        tap = torch.randn(h, w, c, generator=gen, device=dev)
+        rix, riy = sphere_map_coords(torch.from_numpy(sphere_maps[s]).to(dev), h, w)
+        rix, riy = rix[None].contiguous(), riy[None].contiguous()
+        g_res = torch.randn(rix.shape[1], c, generator=gen, device=dev)
+        d_tap = torch.zeros_like(tap)
+        gather_levels_backward([tap], rix, riy, g_res, [d_tap], False)
+        leaf = tap.clone().requires_grad_(True)
+        want_tap, = torch.autograd.grad(gather_levels_plain([leaf], rix, riy), leaf, g_res)
+        torch.cuda.synchronize()
+        r_err = float((d_tap - want_tap).abs().max())
+        if not r_err <= GATHER_BWD_REL_TOL * float(want_tap.abs().max()):
+            fail(f"gather_levels_bwd s{s} resample: max abs error {r_err}")
+        grid = torch.stack([(2 * rix[0] + 1) / w - 1, (2 * riy[0] + 1) / h - 1], -1)
+        grid = grid.view(1, 1, -1, 2)
+        nchw = tap.permute(2, 0, 1)[None].contiguous()
+        g_nchw = g_res.t().reshape(1, c, 1, -1).contiguous()
+        lib = lambda: torch.ops.aten.grid_sampler_2d_backward(  # noqa: E731
+            g_nchw, nchw, grid, 0, 0, False, [True, False])
+        run = lambda: gather_levels_backward([tap], rix, riy, g_res, [d_tap], False)  # noqa: E731
+        zeroed = lambda: gather_levels_backward(  # noqa: E731
+            [tap], rix, riy, g_res, [torch.zeros_like(tap)], False)
+        resample_bwd.append(dict(
+            shape=f"s{s} sphere resample {[h, w, c]} -> {list(sphere_maps[s].shape[:2])}",
+            max_abs_err=r_err, device_ms=graph_ms(run), zeroed_device_ms=graph_ms(zeroed),
+            library_ms=cuda_ms(lib), library_device_ms=graph_ms(lib),
+            **bound(nbytes(g_res, rix, riy) + 2 * touched_row_bytes([tap], rix, riy),
+                    10 * g_res.numel())))
+        del tap, d_tap, want_tap, leaf, nchw, g_nchw, g_res
+    for r in resample_bwd:
+        print(f"[7 library] {r['shape']}: G-bwd alone {r['device_ms']:.4f} ms "
+              f"({r['zeroed_device_ms']:.4f} ms with its zeroed tap gradient), grid_sample "
+              f"backward {r['library_ms']:.4f} ms, alone {r['library_device_ms']:.4f} ms; "
+              f"bound {r['bound_ms']:.4f} ms; max abs err {r['max_abs_err']:.2e}")
+    main_run = {k: v for k, v in bwd_runs[0].items() if k != "limit"}
+    results["gather_levels_bwd"] = dict(
+        **main_run, library_ms=None,
+        other_shapes=[{k: r[k] for k in ("shape", "ms", "device_ms", "plain_ms", "bound_ms")}
+                      for r in bwd_runs[1:]],
+        zeroing_ms=zero_ms, zeroing_device_ms=zero_dev_ms, step_sequence=step_seq,
+        reprojection_coords=dict(ms=xy_ms, device_ms=xy_dev_ms, max_abs_err=xy_err),
+        library_at=resample_bwd)
+    del levels, ix, iy
     torch.cuda.empty_cache()
 
     # ---- 8. kernel C-bwd -------------------------------------------------

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from scenerf_tpu_torch.ops import tsdf as T
+from scenerf_tpu_torch.ops.build import resolve_device
 
 COLOR_CONST = T.COLOR_CONST
 
@@ -38,11 +39,12 @@ def unpack_colors(packed: np.ndarray) -> np.ndarray:
 
 
 class TSDFVolume:
-    """A TSDF voxel volume on `device`, with the JAX package's grid, sentinel
-    and integration semantics."""
+    """A TSDF voxel volume on `device` (default cuda:0; raises without CUDA:
+    pass device="cpu" for the CPU), with the JAX package's grid, sentinel and
+    integration semantics."""
 
     def __init__(self, vol_bnds, voxel_size: float, trunc_margin: float = 10.0,
-                 mode: str = "closest", device="cpu"):
+                 mode: str = "closest", device=None):
         if mode not in T.MODES:
             raise ValueError(f"mode must be one of {T.MODES}, got {mode!r}")
         vol_bnds64 = np.asarray(vol_bnds, dtype=np.float64)
@@ -56,7 +58,7 @@ class TSDFVolume:
         self._vol_dim = np.ceil(
             (vol_bnds64[:, 1] - vol_bnds64[:, 0]) / self._voxel_size).astype(int)
         self._vol_origin = vol_bnds64[:, 0].astype(np.float32)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         shape = tuple(int(d) for d in self._vol_dim)
         f32 = dict(dtype=torch.float32, device=self.device)
         self.tsdf = torch.full(shape, 255.0, **f32)  # out-of-view sentinel

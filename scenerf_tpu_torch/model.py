@@ -25,6 +25,7 @@ from scenerf_tpu_torch.config import SceneRFConfig
 from scenerf_tpu_torch.encoder.sphere_decoder import build_sphere_maps
 from scenerf_tpu_torch.encoder.unet_sphere import UNet2DSphere
 from scenerf_tpu_torch.fields import ResnetFC
+from scenerf_tpu_torch.ops.gather import PyramidGrads, share_pyramid_grads
 
 LEVEL_KEYS = ("1_1", "1_2", "1_4", "1_8", "1_16")
 LOSS_KEYS = ("loss_reprojection", "loss_color", "loss_kl", "loss_dist2closest_gauss")
@@ -89,12 +90,14 @@ class SceneRF(nn.Module):
                     ray_chunk: Optional[int] = None,
                     noise_uni: Optional[torch.Tensor] = None,
                     noise_gauss: Optional[torch.Tensor] = None,
-                    with_som: bool = False) -> Dict[str, torch.Tensor]:
+                    with_som: bool = False,
+                    pyramid_grads: Optional[PyramidGrads] = None) -> Dict[str, torch.Tensor]:
         """Render a batch of rays (see rendering.render_rays)."""
         return R.render_rays(pixels, pyramid, cam_K, T_source2infer, self.mlp,
                              self.mlp_gaussian, self.cfg, generator=generator,
                              ray_chunk=ray_chunk, noise_uni=noise_uni,
-                             noise_gauss=noise_gauss, with_som=with_som)
+                             noise_gauss=noise_gauss, with_som=with_som,
+                             pyramid_grads=pyramid_grads)
 
     def _strided_pixels(self, stride: int, device) -> tuple:
         W, H = self.cfg.img_size
@@ -153,14 +156,15 @@ class SceneRF(nn.Module):
             "gt_gauss": torch.randn(*lead, G, cfg.n_pts_gauss, **kw),
         }
 
-    def _per_source(self, pyramid: R.Pyramid, item_K: torch.Tensor, item_inv_K: torch.Tensor,
+    def _per_source(self, pyramid: R.Pyramid, pyramid_grads: Optional[PyramidGrads],
+                    item_K: torch.Tensor, item_inv_K: torch.Tensor,
                     src: Dict[str, torch.Tensor], noise: Noise) -> Dict[str, torch.Tensor]:
         """Losses and logs of one (item, source) pair."""
         cfg = self.cfg
         pix = noise["pixels"]
         out = self.render_rays(pyramid, item_K, src["T_source2infer"], pix,
                                noise_uni=noise["uni"], noise_gauss=noise["gauss"],
-                               with_som=True)
+                               with_som=True, pyramid_grads=pyramid_grads)
         color_src = geo.sample_pix_features(pix, src["img_source"])
         d2g = L.dist2closest_gaussian(out["gaussian_means"], out["gaussian_stds"],
                                       out["som_vars"], out["depth"])
@@ -205,7 +209,9 @@ class SceneRF(nn.Module):
 
         sums: Dict[str, torch.Tensor] = {}
         for b in range(B):
-            pyramid = self.pyramid_for_item(levels, b)
+            # every gather on the item's pyramid adds into one gradient
+            # buffer per level (None: no gradient recorded)
+            pyramid, pyramid_grads = share_pyramid_grads(self.pyramid_for_item(levels, b))
             item_K = batch["cam_K"][b]
             item_inv_K = R.inverse(item_K)
             for s in range(S_n):
@@ -218,7 +224,7 @@ class SceneRF(nn.Module):
                     "gt_depth": batch["gt_depth"][b, s],
                     "gt_mask": batch["gt_mask"][b, s],
                 }
-                res = self._per_source(pyramid, item_K, item_inv_K, src,
+                res = self._per_source(pyramid, pyramid_grads, item_K, item_inv_K, src,
                                        {k: v[b, s] for k, v in noise.items()})
                 m = batch["source_mask"][b, s]
                 for k, v in res.items():

@@ -58,6 +58,18 @@ def use_kernel(t) -> bool:
     return t.is_cuda and not _force_plain
 
 
+def resolve_device(device=None):
+    """The entry points' device: `device`, or cuda:0 when None; raises when
+    CUDA is asked for and absent (the port has no silent CPU fallback: pass
+    device="cpu" for the CPU)."""
+    import torch
+
+    dev = torch.device("cuda", 0) if device is None else torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
+    return dev
+
+
 def _nvcc() -> str:
     from torch.utils.cpp_extension import CUDA_HOME
 
@@ -117,9 +129,10 @@ def library() -> ctypes.CDLL:
         lib = ctypes.CDLL(str(_build()))
         vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         signatures = {
-            "scenerf_gather_levels_f32": [vp, vp, i32, vp, vp, i32, vp, i32, vp],
+            "scenerf_gather_levels_f32": [vp, vp, i32, vp, vp, i32, vp, i32, i32, i32, i32,
+                                          vp],
             "scenerf_gather_levels_bwd_f32": [vp, vp, vp, i32, vp, vp, i32, vp, i32,
-                                              vp, vp, vp],
+                                              vp, vp, i32, i32, vp],
             "scenerf_sort_composite_f32": [vp, vp, vp, vp, i32, i32, vp, vp, vp, vp,
                                            vp, vp, vp, vp, vp, vp, vp],
             "scenerf_sort_composite_bwd_f32": [vp, vp, vp, vp, vp, vp, vp, i32, i32,

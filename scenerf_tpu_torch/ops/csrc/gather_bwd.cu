@@ -12,110 +12,156 @@
 //
 // For every point p and level l with a gradient buffer it adds the cotangent
 // slice dout[p, col_l : col_l + C_l] times the four corner weights of kernel
-// G into the channel-last level gradient d_level[l] [H_l * W_l, C_l] (f32,
-// zeroed by the caller); out-of-bounds corners are skipped. Where the caller
-// asks for coordinate gradients (d_ix, d_iy not null) it re-gathers the four
-// masked corner values and writes
+// G into the channel-last f32 level gradient d_level[l] [H_l * W_l, C_l];
+// out-of-bounds corners are skipped. The kernel only adds: the caller zeroes
+// the buffer once, and on the training path every gather on one pyramid
+// adds into the same buffers (ops/gather.py, PyramidGrads), so a step zeroes
+// each level once, not once per launch. Where the caller asks for coordinate
+// gradients (d_ix, d_iy not null) it re-gathers the four masked corner
+// values and writes
 //   d_ix[l, p] = sum_c g_c ((v10 - v00)(1 - wy) + (v11 - v01) wy)
 //   d_iy[l, p] = sum_c g_c ((v01 (1 - wx) + v11 wx) - (v00 (1 - wx) + v10 wx))
 // (the floor of a coordinate has zero derivative, as in autodiff of the
 // plain version).
 //
-// Bound: device-memory bytes. A point reads its cotangent row (2480 floats
-// at the KITTI widths) once and adds it, four times weighted, into up to four
-// rows of every level. Design: one warp per point, lanes across channels, so
-// a warp's 32 atomic adds hit 128 consecutive bytes of one row; f32
-// atomicAdd (red.global.add) accumulates in L2. Atomics make the summation
-// order, and so the last bits of d_level, depend on the schedule: compare by
-// tolerance. The corner weights are the plain version's autograd products,
-// (g * (1 - wy)) * (1 - wx) and so on, with explicitly rounded multiplies.
-#include <stdint.h>
-
-#include "common.cuh"
+// Bound: bytes. A point reads its cotangent row (2480 floats at the KITTI
+// widths) once and adds it, four times weighted, into up to four rows of
+// every level; the adds accumulate in L2, and their traffic into L2 (four
+// times the cotangent) is what bounds a mapping that issues them per point:
+// one warp's scalar atomics to a row already reach L2 as whole sectors, so
+// sm_90's vector atomics alone gained 7% at the training chunk. Design:
+// - Wide launches (32 lanes per point, aligned levels, no coordinate
+//   gradients, enough work: the pyramid's chunks and anchors) take the
+//   run-merging mapping below: a warp walks 32 consecutive points of one
+//   level and one 128-channel slice, sums the weighted cotangent in
+//   registers while the points stay in one cell, and issues the atomics
+//   when the cell changes (2.9x faster at the training chunk).
+// - The rest take the per-point mapping: the lane groups of kernel G (G
+//   lanes per point, the coordinate sums reduced over the group), the
+//   coordinates staged once per warp, the cotangent read as a stream
+//   (ld.global.cs: it is read once).
+// Both add 4 channels at a time with atomicAdd(float4*, float4)
+// (red.global.add.v4.f32) where the level gradient, the cotangent slice and
+// the level are 16-byte aligned; misaligned levels and the `tiny` widths
+// take scalar f32 atomics. Atomics make the summation order, and so the last
+// bits of d_level, depend on the schedule: compare by tolerance. The corner
+// weights are the plain version's autograd products, (g * (1 - wy)) * (1 -
+// wx) and so on, with explicitly rounded multiplies.
+#include "gather_common.cuh"
 
 namespace scenerf {
 namespace {
 
-constexpr int kMaxLevels = 8;
-constexpr int kWarpsPerBlock = 8;
+using namespace gather;
 
-struct LevelsBwd {
-  const float* val[kMaxLevels];  // level values; read only for coord grads
-  float* grad[kMaxLevels];       // level gradients; null: no gradient wanted
-  int H[kMaxLevels];
-  int W[kMaxLevels];
-  int C[kMaxLevels];
-  int col[kMaxLevels];
-  int n;
-};
+__device__ __forceinline__ float4 mul4(float4 a, float s) {
+  return make_float4(__fmul_rn(a.x, s), __fmul_rn(a.y, s), __fmul_rn(a.z, s),
+                     __fmul_rn(a.w, s));
+}
 
-__device__ __forceinline__ float warp_sum(float v) {
+__device__ __forceinline__ void red4(float* g, int64_t off, int c, float4 v) {
+  if (off >= 0) atomicAdd(reinterpret_cast<float4*>(g + off + c), v);
+}
+
+__device__ __forceinline__ void red1(float* g, int64_t off, int c, float v) {
+  if (off >= 0) atomicAdd(g + off + c, v);
+}
+
+// the (d_ix, d_iy) terms of one channel
+__device__ __forceinline__ void coord_terms(float go, float v00, float v10, float v01, float v11,
+                                            const Corners& k, float& sx, float& sy) {
+  const float gt = __fmul_rn(go, k.uy), gb = __fmul_rn(go, k.wy);
+  const float top = __fadd_rn(__fmul_rn(v00, k.ux), __fmul_rn(v10, k.wx));
+  const float bot = __fadd_rn(__fmul_rn(v01, k.ux), __fmul_rn(v11, k.wx));
+  sx = __fadd_rn(sx, __fadd_rn(__fmul_rn(gt, __fsub_rn(v10, v00)),
+                               __fmul_rn(gb, __fsub_rn(v11, v01))));
+  sy = __fadd_rn(sy, __fmul_rn(go, __fsub_rn(bot, top)));
+}
+
+template <typename T>
+__device__ __forceinline__ float4 corner4(const T* base, int64_t off, int c) {
+  return off >= 0 ? load4(base + off + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+}
+
+template <typename T>
+__device__ __forceinline__ float corner1(const T* base, int64_t off, int c) {
+  return off >= 0 ? load1(base + off + c) : 0.f;
+}
+
+template <int G>
+__device__ __forceinline__ float group_sum(float v) {
 #pragma unroll
-  for (int o = kWarpSize / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
+  for (int o = G / 2; o > 0; o >>= 1) v += __shfl_xor_sync(kFullMask, v, o);
   return v;
 }
 
-__global__ void __launch_bounds__(kWarpsPerBlock * kWarpSize)
-gather_levels_bwd_kernel(LevelsBwd lv, const float* __restrict__ ix,
+template <typename T, int G>
+__global__ void __launch_bounds__(kThreads)
+gather_levels_bwd_kernel(Levels<T> lv, const float* __restrict__ ix,
                          const float* __restrict__ iy, int n_points,
                          const float* __restrict__ dout, int out_cols,
                          float* __restrict__ d_ix, float* __restrict__ d_iy) {
-  const int lane = threadIdx.x & (kWarpSize - 1);
-  const int64_t p = (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
-  if (p >= n_points) return;
-  const float* grow = dout + p * (int64_t)out_cols;
+  const int lane = threadIdx.x % kWarpSize;
+  const int sub = lane % G, q = lane / G;
+  const int64_t first =
+      ((int64_t)blockIdx.x * (kThreads / kWarpSize) + threadIdx.x / kWarpSize) *
+      Lanes<G>::kPts;
+  if (first >= n_points) return;  // warp-uniform
+  TileCoords<G> tc;
+  tc.load(ix, iy, lv.n, n_points, first, lane);
+  const int64_t p = first + q;
+  const bool active = p < n_points;
+  const float* grow = dout + (active ? p : 0) * (int64_t)out_cols;
   const bool want_xy = d_ix != nullptr;
 
   for (int l = 0; l < lv.n; ++l) {
     float* g = lv.grad[l];
-    if (g == nullptr && !want_xy) continue;
-    const int H = lv.H[l], W = lv.W[l], C = lv.C[l];
-    const float x = ix[(int64_t)l * n_points + p];
-    const float y = iy[(int64_t)l * n_points + p];
-    const float x0 = floorf(x), y0 = floorf(y);
-    const float wx = __fsub_rn(x, x0), wy = __fsub_rn(y, y0);
-    const float ux = __fsub_rn(1.0f, wx), uy = __fsub_rn(1.0f, wy);
-    // the same corner bounds as kernel G: a huge or NaN coordinate is never cast
-    const bool x0in = x0 >= 0.0f && x0 < (float)W;
-    const bool x1in = x0 >= -1.0f && x0 < (float)(W - 1);
-    const bool y0in = y0 >= 0.0f && y0 < (float)H;
-    const bool y1in = y0 >= -1.0f && y0 < (float)(H - 1);
-    const int64_t xi = x0in || x1in ? (int64_t)x0 : 0;
-    const int64_t yi = y0in || y1in ? (int64_t)y0 : 0;
-    const int64_t o00 = x0in && y0in ? (yi * W + xi) * C : -1;
-    const int64_t o10 = x1in && y0in ? (yi * W + xi + 1) * C : -1;
-    const int64_t o01 = x0in && y1in ? ((yi + 1) * W + xi) * C : -1;
-    const int64_t o11 = x1in && y1in ? ((yi + 1) * W + xi + 1) * C : -1;
+    if (g == nullptr && !want_xy) continue;  // warp-uniform
+    const float2 xy = tc.at(l, q);          // every lane: it shuffles
+    const int C = lv.C[l];
+    const Corners k = corners(xy.x, xy.y, lv.H[l], lv.W[l], C);
     const float* gcol = grow + lv.col[l];
-    const float* v = lv.val[l];
-
+    const T* v = lv.val[l];
     float sx = 0.f, sy = 0.f;
-    for (int c = lane; c < C; c += kWarpSize) {
-      const float go = gcol[c];
-      const float gt = __fmul_rn(go, uy);  // cotangent of the top row pair
-      const float gb = __fmul_rn(go, wy);  // ... and of the bottom pair
-      if (g != nullptr) {
-        if (o00 >= 0) atomicAdd(g + o00 + c, __fmul_rn(gt, ux));
-        if (o10 >= 0) atomicAdd(g + o10 + c, __fmul_rn(gt, wx));
-        if (o01 >= 0) atomicAdd(g + o01 + c, __fmul_rn(gb, ux));
-        if (o11 >= 0) atomicAdd(g + o11 + c, __fmul_rn(gb, wx));
+    if (active && lv.vec[l]) {
+      for (int c = 4 * sub; c < C; c += 4 * G) {
+        const float4 go = __ldcs(reinterpret_cast<const float4*>(gcol + c));
+        if (g != nullptr) {
+          const float4 gt = mul4(go, k.uy), gb = mul4(go, k.wy);  // row pairs
+          red4(g, k.o00, c, mul4(gt, k.ux));
+          red4(g, k.o10, c, mul4(gt, k.wx));
+          red4(g, k.o01, c, mul4(gb, k.ux));
+          red4(g, k.o11, c, mul4(gb, k.wx));
+        }
+        if (want_xy) {
+          const float4 a = corner4(v, k.o00, c), b = corner4(v, k.o10, c);
+          const float4 e = corner4(v, k.o01, c), f = corner4(v, k.o11, c);
+          coord_terms(go.x, a.x, b.x, e.x, f.x, k, sx, sy);
+          coord_terms(go.y, a.y, b.y, e.y, f.y, k, sx, sy);
+          coord_terms(go.z, a.z, b.z, e.z, f.z, k, sx, sy);
+          coord_terms(go.w, a.w, b.w, e.w, f.w, k, sx, sy);
+        }
       }
-      if (want_xy) {
-        const float v00 = o00 >= 0 ? v[o00 + c] : 0.f;
-        const float v10 = o10 >= 0 ? v[o10 + c] : 0.f;
-        const float v01 = o01 >= 0 ? v[o01 + c] : 0.f;
-        const float v11 = o11 >= 0 ? v[o11 + c] : 0.f;
-        const float top = __fadd_rn(__fmul_rn(v00, ux), __fmul_rn(v10, wx));
-        const float bot = __fadd_rn(__fmul_rn(v01, ux), __fmul_rn(v11, wx));
-        sx = __fadd_rn(sx, __fadd_rn(__fmul_rn(gt, __fsub_rn(v10, v00)),
-                                     __fmul_rn(gb, __fsub_rn(v11, v01))));
-        sy = __fadd_rn(sy, __fmul_rn(go, __fsub_rn(bot, top)));
+    } else if (active) {
+      for (int c = sub; c < C; c += G) {
+        const float go = __ldcs(gcol + c);
+        if (g != nullptr) {
+          const float gt = __fmul_rn(go, k.uy), gb = __fmul_rn(go, k.wy);
+          red1(g, k.o00, c, __fmul_rn(gt, k.ux));
+          red1(g, k.o10, c, __fmul_rn(gt, k.wx));
+          red1(g, k.o01, c, __fmul_rn(gb, k.ux));
+          red1(g, k.o11, c, __fmul_rn(gb, k.wx));
+        }
+        if (want_xy) {
+          coord_terms(go, corner1(v, k.o00, c), corner1(v, k.o10, c), corner1(v, k.o01, c),
+                      corner1(v, k.o11, c), k, sx, sy);
+        }
       }
     }
     if (want_xy) {
-      sx = warp_sum(sx);
-      sy = warp_sum(sy);
-      if (lane == 0) {
+      sx = group_sum<G>(sx);
+      sy = group_sum<G>(sy);
+      if (active && sub == 0) {
         d_ix[(int64_t)l * n_points + p] = sx;
         d_iy[(int64_t)l * n_points + p] = sy;
       }
@@ -123,26 +169,133 @@ gather_levels_bwd_kernel(LevelsBwd lv, const float* __restrict__ ix,
   }
 }
 
+// The run-merging mapping, for launches of wide levels without coordinate
+// gradients (the pyramid, the s16/s32 resamples): a warp takes one work unit
+// (kTile consecutive points, one level, one chunk of 32 channel vectors) and
+// walks its points in order, adding each point's four weighted cotangent
+// vectors into registers while the points share a cell; it issues the four
+// atomics only when the cell changes. Consecutive points are the samples of
+// one ray, which at the coarse levels (2240 of the 2480 channels) land in the
+// same cell again and again: this cuts the atomic traffic into L2, which
+// bounds the per-point mapping (one warp's scalar or vector atomics to a
+// row reach L2 as the same sectors). kAhead cotangent vectors per lane are
+// loaded before their arithmetic.
+constexpr int kTile = 32;
+constexpr int kAhead = 8;
+// Fewer units than this leave the card idle while each warp walks its
+// points one after another: the single-level s8..s32 resamples (166-420
+// warps) run faster per point, a training chunk's anchors (798) merging.
+constexpr int64_t kRunsMinWarps = 512;
+
+struct Units {
+  int first[kMaxLevels + 1];  // a tile's first unit of each level; first[n]: units per tile
+};
+
+__device__ __forceinline__ float4 add4(float4 a, float4 b) {
+  return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
+                     __fadd_rn(a.w, b.w));
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+gather_levels_bwd_runs_kernel(Levels<T> lv, Units units, const float* __restrict__ ix,
+                              const float* __restrict__ iy, int n_points,
+                              const float* __restrict__ dout, int out_cols) {
+  const int lane = threadIdx.x % kWarpSize;
+  const int64_t unit = (int64_t)blockIdx.x * (kThreads / kWarpSize) + threadIdx.x / kWarpSize;
+  const int per_tile = units.first[lv.n];
+  const int64_t first = unit / per_tile * kTile;
+  if (first >= n_points) return;  // warp-uniform
+  const int r = (int)(unit % per_tile);
+  int l = 0;
+  while (r >= units.first[l + 1]) ++l;
+  const int C = lv.C[l];
+  const int c = 4 * ((r - units.first[l]) * kWarpSize + lane);  // this lane's 4 channels
+  const bool on = c < C;
+  float* g = lv.grad[l];
+  const int n_in = (int)min((int64_t)kTile, (int64_t)n_points - first);
+  const int64_t at = (int64_t)l * n_points + first + lane;
+  const float cx = lane < n_in ? __ldg(ix + at) : 0.f;
+  const float cy = lane < n_in ? __ldg(iy + at) : 0.f;
+  const float* drow = dout + first * (int64_t)out_cols + lv.col[l] + (on ? c : 0);
+  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+
+  float4 acc[4] = {zero, zero, zero, zero};
+  int64_t cur[4] = {-1, -1, -1, -1};
+  for (int t0 = 0; t0 < n_in; t0 += kAhead) {
+    float4 go[kAhead];
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) {
+      go[j] = on && t0 + j < n_in
+                  ? __ldcs(reinterpret_cast<const float4*>(drow + (int64_t)(t0 + j) * out_cols))
+                  : zero;
+    }
+#pragma unroll
+    for (int j = 0; j < kAhead; ++j) {
+      if (t0 + j >= n_in) break;  // warp-uniform
+      const Corners k = corners(__shfl_sync(kFullMask, cx, t0 + j),
+                                __shfl_sync(kFullMask, cy, t0 + j), lv.H[l], lv.W[l], C);
+      if (k.o00 != cur[0] || k.o10 != cur[1] || k.o01 != cur[2] || k.o11 != cur[3]) {
+        if (on) {  // the run ends: its sums go out
+#pragma unroll
+          for (int i = 0; i < 4; ++i) red4(g, cur[i], c, acc[i]);
+        }
+        cur[0] = k.o00;
+        cur[1] = k.o10;
+        cur[2] = k.o01;
+        cur[3] = k.o11;
+#pragma unroll
+        for (int i = 0; i < 4; ++i) acc[i] = zero;
+      }
+      const float4 gt = mul4(go[j], k.uy), gb = mul4(go[j], k.wy);  // row pairs
+      acc[0] = add4(acc[0], mul4(gt, k.ux));
+      acc[1] = add4(acc[1], mul4(gt, k.wx));
+      acc[2] = add4(acc[2], mul4(gb, k.ux));
+      acc[3] = add4(acc[3], mul4(gb, k.wx));
+    }
+  }
+  if (on) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i) red4(g, cur[i], c, acc[i]);
+  }
+}
+
+template <typename T, int G>
+cudaError_t launch(const Levels<T>& lv, const float* ix, const float* iy, int n_points,
+                   const float* dout, int out_cols, float* d_ix, float* d_iy,
+                   cudaStream_t stream) {
+  const int64_t warps = ((int64_t)n_points + Lanes<G>::kPts - 1) / Lanes<G>::kPts;
+  const int64_t blocks = (warps + kThreads / kWarpSize - 1) / (kThreads / kWarpSize);
+  gather_levels_bwd_kernel<T, G><<<(unsigned)blocks, kThreads, 0, stream>>>(
+      lv, ix, iy, n_points, dout, out_cols, d_ix, d_iy);
+  return cudaGetLastError();
+}
+
 }  // namespace
 }  // namespace scenerf
 
 // level_vals[l]: device pointer of the contiguous [H, W, C] f32 map l (read
-// only when d_ix is not null); level_grads[l]: its zeroed [H, W, C] f32
-// gradient, or null for a level that needs none; hwcc[4 * l ...]: H, W, C and
-// the column offset of level l in dout. ix, iy: [n_levels, n_points] f32;
-// dout: [n_points, out_cols] f32; d_ix, d_iy: [n_levels, n_points] f32, or
-// both null when the coordinates need no gradient.
+// only when d_ix is not null); level_grads[l]: its [H, W, C] f32 gradient,
+// added into, or null for a level that needs none; hwcc[4 * l ...]: H, W, C
+// and the column offset of level l in dout. ix, iy: [n_levels, n_points]
+// f32; dout: [n_points, out_cols] f32; d_ix, d_iy: [n_levels, n_points] f32,
+// or both null when the coordinates need no gradient. lanes: lanes per point
+// (1, 2, 4, ..., 32). The run-merging mapping serves launches of 32 lanes
+// per point, 16-byte aligned levels and no coordinate gradients that give it
+// at least kRunsMinWarps warps; the rest take the per-point mapping, and so
+// does every launch with per_point = 1 (to measure what merging buys).
 SCENERF_API int scenerf_gather_levels_bwd_f32(
-    const void* const* level_vals, void* const* level_grads, const int* hwcc,
-    int n_levels, const float* ix, const float* iy, int n_points,
-    const float* dout, int out_cols, float* d_ix, float* d_iy, void* stream) {
+    const void* const* level_vals, void* const* level_grads, const int* hwcc, int n_levels,
+    const float* ix, const float* iy, int n_points, const float* dout, int out_cols,
+    float* d_ix, float* d_iy, int lanes, int per_point, void* stream) {
   using namespace scenerf;
+  using namespace scenerf::gather;
   if (n_levels < 1 || n_levels > kMaxLevels || n_points < 0 ||
       ((d_ix == nullptr) != (d_iy == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_points == 0) return (int)cudaSuccess;
-  LevelsBwd lv;
+  Levels<float> lv = {};
   lv.n = n_levels;
   for (int l = 0; l < n_levels; ++l) {
     lv.val[l] = static_cast<const float*>(level_vals[l]);
@@ -152,10 +305,33 @@ SCENERF_API int scenerf_gather_levels_bwd_f32(
     lv.C[l] = hwcc[4 * l + 2];
     lv.col[l] = hwcc[4 * l + 3];
     if (d_ix != nullptr && lv.val[l] == nullptr) return (int)cudaErrorInvalidValue;
+    lv.vec[l] = (lv.C[l] % 4 == 0) && (lv.col[l] % 4 == 0) && (out_cols % 4 == 0) &&
+                (reinterpret_cast<uintptr_t>(dout) % 16 == 0) &&
+                (reinterpret_cast<uintptr_t>(lv.grad[l]) % 16 == 0) &&
+                (reinterpret_cast<uintptr_t>(lv.val[l]) % 16 == 0);
   }
-  const int64_t blocks = ((int64_t)n_points + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  gather_levels_bwd_kernel<<<(unsigned)blocks, kWarpsPerBlock * kWarpSize, 0,
-                             static_cast<cudaStream_t>(stream)>>>(
-      lv, ix, iy, n_points, dout, out_cols, d_ix, d_iy);
-  return (int)cudaGetLastError();
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  bool runs = !per_point && lanes == kWarpSize && d_ix == nullptr;
+  Units units = {};
+  for (int l = 0; l < n_levels; ++l) {
+    runs = runs && (lv.grad[l] == nullptr || lv.vec[l]);
+    const int chunks = lv.grad[l] == nullptr ? 0 : (lv.C[l] / 4 + kWarpSize - 1) / kWarpSize;
+    units.first[l + 1] = units.first[l] + chunks;
+  }
+  const int64_t warps = ((int64_t)n_points + kTile - 1) / kTile * units.first[n_levels];
+  if (runs && warps >= kRunsMinWarps) {
+    const int64_t blocks = (warps + kThreads / kWarpSize - 1) / (kThreads / kWarpSize);
+    gather_levels_bwd_runs_kernel<float><<<(unsigned)blocks, kThreads, 0, s>>>(
+        lv, units, ix, iy, n_points, dout, out_cols);
+    return (int)cudaGetLastError();
+  }
+  switch (lanes) {
+    case 1: return (int)launch<float, 1>(lv, ix, iy, n_points, dout, out_cols, d_ix, d_iy, s);
+    case 2: return (int)launch<float, 2>(lv, ix, iy, n_points, dout, out_cols, d_ix, d_iy, s);
+    case 4: return (int)launch<float, 4>(lv, ix, iy, n_points, dout, out_cols, d_ix, d_iy, s);
+    case 8: return (int)launch<float, 8>(lv, ix, iy, n_points, dout, out_cols, d_ix, d_iy, s);
+    case 16: return (int)launch<float, 16>(lv, ix, iy, n_points, dout, out_cols, d_ix, d_iy, s);
+    case 32: return (int)launch<float, 32>(lv, ix, iy, n_points, dout, out_cols, d_ix, d_iy, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }

@@ -10,11 +10,19 @@ on a CPU tensor it runs `gather_levels_plain`, whose autograd is the
 backward's plain version. It replaces the TPU-shaped row-gather sampling of
 `scenerf_tpu/geometry.py:106 bilinear_sample` and its custom VJPs in
 `scenerf_tpu/ops/gather_scatter.py` (see the kernel sources).
+
+Many gathers read one pyramid in a training step (every render chunk's
+samples and Gaussian anchors, for every source). `share_pyramid_grads` passes
+the pyramid through one autograd node and returns a `PyramidGrads` that the
+caller hands to each of those gathers: their backwards add into one f32
+gradient buffer per level, zeroed once, and the node gives the buffers to
+autograd once, so no backward launch zeroes a full level gradient and
+autograd sums none.
 """
 from __future__ import annotations
 
 import ctypes
-from typing import List, Optional, Sequence
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -29,24 +37,65 @@ def gather_levels_plain(levels: Sequence[torch.Tensor], ix: torch.Tensor,
                       for i, lv in enumerate(levels)], dim=-1)
 
 
-def _level_meta(levels: Sequence[torch.Tensor]):
-    """ctypes [H, W, C, column offset] per level, and the total width."""
+# a launch that would run fewer warps than this widens its lane groups
+MIN_WARPS = 1024
+
+
+def lanes_per_point(widths: Sequence[int], n_points: Optional[int] = None) -> int:
+    """Lanes of a warp that serve one point in kernels G and G-bwd: the next
+    power of two >= ceil(max width / 4) (each lane moves 4 channels), in
+    [1, 32]; for `n_points` so few that the launch would run fewer than
+    MIN_WARPS warps, doubled until it does not (or 32)."""
+    need = min(-(-max(widths) // 4), 32)
+    lanes = 1
+    while lanes < need:
+        lanes *= 2
+    while n_points is not None and lanes < 32 and n_points * lanes < MIN_WARPS * 32:
+        lanes *= 2
+    return lanes
+
+
+def rounds_per_warp(n_points: int, lanes: int) -> int:
+    """Point groups one warp of kernel G serves one after another: 4 where
+    the launch would run >= 131,072 warps (the serve chunk's 320,000
+    points), else 1. A warp's next points are the next samples of its ray,
+    whose corner rows at the coarse levels it has just read into L1; fewer
+    warps pay for it only where there are many."""
+    warps = -(-n_points * lanes // 32)
+    return 4 if warps >= 131072 else 1
+
+
+def _level_meta(levels: Sequence[torch.Tensor], n_points: int):
+    """ctypes [H, W, C, column offset] per level, the total width, and the
+    lanes per point."""
     meta, col = [], 0
     for lv in levels:
         meta += [lv.shape[0], lv.shape[1], lv.shape[2], col]
         col += lv.shape[2]
-    return (ctypes.c_int * len(meta))(*meta), col
+    lanes = lanes_per_point([lv.shape[2] for lv in levels], n_points)
+    return (ctypes.c_int * len(meta))(*meta), col, lanes
+
+
+def forward_launch_args(levels: Sequence[torch.Tensor], n_points: int):
+    """Kernel G's launch arguments after the level table: (hwcc, out_cols,
+    lanes, rounds, async_wide). The wide levels go through the kernel's
+    cp.async ring in launches of one round; the long launches' four rounds
+    reuse L1 instead, which the ring's 48 KB of shared memory per block
+    would take from them."""
+    hwcc, width, lanes = _level_meta(levels, n_points)
+    rounds = rounds_per_warp(n_points, lanes)
+    return hwcc, width, lanes, rounds, int(rounds == 1)
 
 
 def _launch_forward(levels: Sequence[torch.Tensor], ix: torch.Tensor,
                     iy: torch.Tensor) -> torch.Tensor:
     n_levels, n_points = ix.shape
-    hwcc, width = _level_meta(levels)
+    hwcc, width, lanes, rounds, async_wide = forward_launch_args(levels, n_points)
     out = torch.empty((n_points, width), dtype=torch.float32, device=ix.device)
     ptrs = (ctypes.c_void_p * n_levels)(*[lv.data_ptr() for lv in levels])
     status = build.library().scenerf_gather_levels_f32(
-        ptrs, hwcc, n_levels, ix.data_ptr(), iy.data_ptr(), n_points,
-        out.data_ptr(), width, build.stream_handle(ix.device))
+        ptrs, hwcc, n_levels, ix.data_ptr(), iy.data_ptr(), n_points, out.data_ptr(), width,
+        lanes, rounds, async_wide, build.stream_handle(ix.device))
     build.check(status, "gather_levels")
     build.LAUNCHES["gather_levels"] += 1
     return out
@@ -54,57 +103,169 @@ def _launch_forward(levels: Sequence[torch.Tensor], ix: torch.Tensor,
 
 def gather_levels_backward(levels: Sequence[torch.Tensor], ix: torch.Tensor,
                            iy: torch.Tensor, d_out: torch.Tensor,
-                           level_needs_grad: Sequence[bool], coords_need_grad: bool):
-    """Launch kernel G-bwd: (d_levels, d_ix, d_iy) for the cotangent `d_out`
-    [N, sum C_l] of `gather_levels(levels, ix, iy)`. A level whose flag is
-    False gets None; d_ix, d_iy are None unless `coords_need_grad`."""
+                           d_levels: Sequence[Optional[torch.Tensor]],
+                           coords_need_grad: bool):
+    """Launch kernel G-bwd for the cotangent `d_out` [N, sum C_l] of
+    `gather_levels(levels, ix, iy)`: add the level gradients into `d_levels`
+    (f32 buffers shaped as the levels; None for a level that needs none) and
+    return (d_ix, d_iy), both None unless `coords_need_grad`."""
     n_levels, n_points = ix.shape
-    hwcc, width = _level_meta(levels)
+    hwcc, width, lanes = _level_meta(levels, n_points)
     if d_out.shape != (n_points, width):
         raise ValueError(f"gather_levels_backward: cotangent {tuple(d_out.shape)}, "
                          f"expected {(n_points, width)}")
+    for lv, d in zip(levels, d_levels):
+        if d is not None and (d.shape != lv.shape or d.dtype != torch.float32
+                              or d.device != lv.device or not d.is_contiguous()):
+            raise ValueError("gather_levels_backward: a level gradient buffer must be a "
+                             f"contiguous f32 {tuple(lv.shape)} on {lv.device}")
     d_out = d_out.to(torch.float32).contiguous()
-    d_levels: List[Optional[torch.Tensor]] = [
-        torch.zeros_like(lv) if need else None for lv, need in zip(levels, level_needs_grad)]
     d_ix = torch.empty_like(ix) if coords_need_grad else None
     d_iy = torch.empty_like(iy) if coords_need_grad else None
     vals = (ctypes.c_void_p * n_levels)(*[lv.data_ptr() for lv in levels])
     grads = (ctypes.c_void_p * n_levels)(*[build.ptr(g) for g in d_levels])
     status = build.library().scenerf_gather_levels_bwd_f32(
         vals, grads, hwcc, n_levels, ix.data_ptr(), iy.data_ptr(), n_points,
-        d_out.data_ptr(), width, build.ptr(d_ix), build.ptr(d_iy),
+        d_out.data_ptr(), width, build.ptr(d_ix), build.ptr(d_iy), lanes, 0,
         build.stream_handle(ix.device))
     build.check(status, "gather_levels_bwd")
     build.LAUNCHES["gather_levels_bwd"] += 1
-    return d_levels, d_ix, d_iy
+    return d_ix, d_iy
+
+
+def _plain_backward(levels, ix, iy, d_out, d_levels, coords_need_grad: bool):
+    """G-bwd's plain version with G-bwd's contract: autograd of
+    `gather_levels_plain`, its level gradients added into `d_levels`."""
+    with torch.enable_grad():
+        lvs = [lv.detach().requires_grad_(d is not None) for lv, d in zip(levels, d_levels)]
+        x = ix.detach().requires_grad_(coords_need_grad)
+        y = iy.detach().requires_grad_(coords_need_grad)
+        wrt = [t for t in (*lvs, x, y) if t.requires_grad]
+        grads = iter(torch.autograd.grad(gather_levels_plain(lvs, x, y), wrt, d_out))
+    for d in d_levels:
+        if d is not None:
+            d.add_(next(grads))
+    if not coords_need_grad:
+        return None, None
+    return next(grads), next(grads)
+
+
+class _GradBuffers:
+    """One pyramid's level gradient buffers, allocated and zeroed at the
+    first gather backward that needs them, taken by the pyramid node."""
+
+    def __init__(self, levels: Sequence[torch.Tensor]):
+        self._like = [(lv.shape, lv.device) if lv.requires_grad else None for lv in levels]
+        self._buffers: Optional[List[Optional[torch.Tensor]]] = None
+
+    def get(self) -> List[Optional[torch.Tensor]]:
+        if self._buffers is None:
+            self._buffers = [None if like is None else
+                             torch.zeros(like[0], dtype=torch.float32, device=like[1])
+                             for like in self._like]
+        return self._buffers
+
+    def take(self) -> Optional[List[Optional[torch.Tensor]]]:
+        buffers, self._buffers = self._buffers, None
+        return buffers
+
+
+class PyramidGrads:
+    """The link from the gathers on one pyramid to its shared gradient
+    buffers (see `share_pyramid_grads`). `levels`: the pyramid as the gathers
+    must take it; `token`: a scalar each gather takes as an input, so that
+    the pyramid node runs after the last of them."""
+
+    def __init__(self, levels: Tuple[torch.Tensor, ...], token: torch.Tensor,
+                 buffers: _GradBuffers):
+        self.levels = levels
+        self.token = token
+        self.buffers = buffers
+
+
+class _PyramidNode(torch.autograd.Function):
+    """Forward: the levels as they are, and the token. Backward: the shared
+    buffers (plus any level gradient from a consumer other than a gather)."""
+
+    @staticmethod
+    def forward(ctx, buffers: _GradBuffers, *levels):
+        ctx.buffers = buffers
+        ctx.set_materialize_grads(False)
+        return (levels[0].new_zeros(()), *levels)
+
+    @staticmethod
+    def backward(ctx, d_token, *d_levels):
+        buffers = ctx.buffers.take() or [None] * len(d_levels)
+        out = []
+        for buf, d in zip(buffers, d_levels):
+            if d is not None:
+                buf = d if buf is None else buf.add_(d)
+            out.append(buf)
+        return (None, *out)
+
+
+def share_pyramid_grads(levels: Sequence[torch.Tensor]
+                        ) -> Tuple[Tuple[torch.Tensor, ...], Optional[PyramidGrads]]:
+    """Pass a pyramid through its gradient node: (levels, PyramidGrads) for
+    the gathers that read it in this forward, or (levels, None) when no
+    gradient is recorded."""
+    levels = tuple(levels)
+    if not (torch.is_grad_enabled() and any(lv.requires_grad for lv in levels)):
+        return levels, None
+    buffers = _GradBuffers(levels)
+    token, *out = _PyramidNode.apply(buffers, *levels)
+    return tuple(out), PyramidGrads(tuple(out), token, buffers)
 
 
 class _GatherLevels(torch.autograd.Function):
-    """Kernel G forward, kernel G-bwd backward."""
+    """Kernel G forward, kernel G-bwd backward (the plain versions where the
+    tensors lie on the CPU). With a pyramid's buffers the level gradients
+    are added into them and none is returned; the token gets a zero."""
 
     @staticmethod
-    def forward(ctx, ix, iy, *levels):
+    def forward(ctx, buffers: Optional[_GradBuffers], ix, iy, token, *levels):
+        ctx.buffers = buffers
+        ctx.kernel = build.use_kernel(ix)
         ctx.save_for_backward(ix, iy, *levels)
-        return _launch_forward(levels, ix, iy)
+        if ctx.kernel:
+            return _launch_forward(levels, ix, iy)
+        return gather_levels_plain(levels, ix, iy)
 
     @staticmethod
     def backward(ctx, d_out):
         ix, iy, *levels = ctx.saved_tensors
-        coords = ctx.needs_input_grad[0] or ctx.needs_input_grad[1]
-        d_levels, d_ix, d_iy = gather_levels_backward(
-            levels, ix, iy, d_out, ctx.needs_input_grad[2:], coords)
-        return (d_ix if ctx.needs_input_grad[0] else None,
-                d_iy if ctx.needs_input_grad[1] else None, *d_levels)
+        needs = ctx.needs_input_grad
+        coords = needs[1] or needs[2]
+        if ctx.buffers is not None:
+            d_levels = ctx.buffers.get()
+        else:
+            d_levels = [torch.zeros_like(lv) if need else None
+                        for lv, need in zip(levels, needs[4:])]
+        backward = gather_levels_backward if ctx.kernel else _plain_backward
+        d_ix, d_iy = backward(levels, ix, iy, d_out, d_levels, coords)
+        if ctx.buffers is not None:
+            d_levels, token = [None] * len(levels), d_out.new_zeros(())
+        else:
+            token = None
+        return (None, d_ix if needs[1] else None, d_iy if needs[2] else None, token,
+                *d_levels)
 
 
-def gather_levels(levels: Sequence[torch.Tensor], ix: torch.Tensor,
-                  iy: torch.Tensor) -> torch.Tensor:
+def gather_levels(levels: Sequence[torch.Tensor], ix: torch.Tensor, iy: torch.Tensor,
+                  grads: Optional[PyramidGrads] = None) -> torch.Tensor:
     """Bilinear zero-padded gather of L channel-last levels at [L, N] coords
-    -> [N, sum C_l]."""
+    -> [N, sum C_l]. `grads`: the pyramid's `PyramidGrads` when `levels` came
+    from `share_pyramid_grads`."""
     if len(levels) != ix.shape[0] or ix.shape != iy.shape or ix.dim() != 2:
         raise ValueError(f"{len(levels)} levels need ix, iy of shape [L, N]; "
                          f"got {tuple(ix.shape)}, {tuple(iy.shape)}")
+    if grads is not None and (len(levels) != len(grads.levels)
+                              or any(a is not b for a, b in zip(levels, grads.levels))):
+        raise ValueError("gather_levels: `grads` belongs to another pyramid")
+    shared = grads is not None and torch.is_grad_enabled()
     if not build.use_kernel(ix):
+        if shared:
+            return _GatherLevels.apply(grads.buffers, ix, iy, grads.token, *levels)
         return gather_levels_plain(levels, ix, iy)
 
     dev = ix.device
@@ -118,6 +279,8 @@ def gather_levels(levels: Sequence[torch.Tensor], ix: torch.Tensor,
         raise ValueError("gather_levels kernel takes f32 coords on the levels' device")
     ix = ix.contiguous()
     iy = iy.contiguous()
+    if shared:
+        return _GatherLevels.apply(grads.buffers, ix, iy, grads.token, *levels)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (ix, iy, *levels)):
-        return _GatherLevels.apply(ix, iy, *levels)
+        return _GatherLevels.apply(None, ix, iy, None, *levels)
     return _launch_forward(levels, ix, iy)

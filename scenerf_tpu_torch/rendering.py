@@ -24,7 +24,7 @@ from scenerf_tpu_torch.config import SceneRFConfig, SphereConfig
 from scenerf_tpu_torch.encoding import positional_encoding
 from scenerf_tpu_torch.fields import ResnetFC, gaussian_params_from_offsets, radiance_outputs
 from scenerf_tpu_torch.ops.composite import sort_composite
-from scenerf_tpu_torch.ops.gather import gather_levels
+from scenerf_tpu_torch.ops.gather import PyramidGrads, gather_levels
 from scenerf_tpu_torch.som import ray_som
 
 SCALES = (1, 2, 4, 8, 16)
@@ -81,11 +81,13 @@ def featurize_points(
     inv_K: torch.Tensor,
     sphere: SphereConfig,
     n_pe_freqs: int = 6,
+    pyramid_grads: Optional[PyramidGrads] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Per-point conditioning: (latent [N, d_latent], x_in [N, d_pe + 3])."""
+    """Per-point conditioning: (latent [N, d_latent], x_in [N, d_pe + 3]).
+    `pyramid_grads`: the pyramid's shared gradient buffers (training)."""
     ix, iy = pyramid_coords(cam_pts, cam_K, inv_K, sphere,
                             [lv.shape[:2] for lv in pyramid])
-    latent = gather_levels(pyramid, ix, iy)
+    latent = gather_levels(pyramid, ix, iy, grads=pyramid_grads)
 
     pe = positional_encoding(cam_pts, num_freqs=n_pe_freqs)
     x_in = torch.cat([pe, viewdir], dim=-1)
@@ -104,6 +106,7 @@ def render_ray_block(
     noise_uni: torch.Tensor,    # [r, n_pts_uni] U(0, 1)
     noise_gauss: torch.Tensor,  # [r, G * Pg] N(0, 1)
     with_som: bool = False,
+    pyramid_grads: Optional[PyramidGrads] = None,
 ) -> Dict[str, torch.Tensor]:
     """Render one block of rays end to end with the given raw noise."""
     r = pixels.shape[0]
@@ -125,7 +128,7 @@ def render_ray_block(
     anchor_pts = geo.transform_points(anchor_pts_src, T_source2infer)
     vd_anchor = viewdir_infer[:, None, :].expand(r, cfg.n_gaussians, 3).reshape(-1, 3)
     z_a, x_a = featurize_points(pyramid, anchor_pts.reshape(-1, 3), vd_anchor,
-                                cam_K, inv_K, cfg.sphere, cfg.n_pe_freqs)
+                                cam_K, inv_K, cfg.sphere, cfg.n_pe_freqs, pyramid_grads)
     offsets = mlp_gaussian(z_a, x_a).reshape(r, cfg.n_gaussians, 2)
     g_means, g_stds = gaussian_params_from_offsets(offsets, anchors, cfg.std,
                                                    cfg.mean_std_floor)
@@ -145,7 +148,7 @@ def render_ray_block(
     P = sd.shape[1]
     vd = viewdir_infer[:, None, :].expand(r, P, 3).reshape(-1, 3)
     z, x_in = featurize_points(pyramid, pts.detach().reshape(-1, 3), vd, cam_K, inv_K,
-                               cfg.sphere, cfg.n_pe_freqs)
+                               cfg.sphere, cfg.n_pe_freqs, pyramid_grads)
     density, rgb = radiance_outputs(mlp(z, x_in))
     out = sort_composite(sd, dv, density.reshape(r, P), rgb.reshape(r, P, 3))
 
@@ -173,11 +176,15 @@ def render_rays(
     noise_uni: Optional[torch.Tensor] = None,
     noise_gauss: Optional[torch.Tensor] = None,
     with_som: bool = False,
+    pyramid_grads: Optional[PyramidGrads] = None,
 ) -> Dict[str, torch.Tensor]:
     """Render R rays in chunks of `ray_chunk`. The noise is drawn once for
     all R rays from `generator` (or passed in as `noise_uni` [R, n_pts_uni],
     `noise_gauss` [R, G*Pg]) and sliced per chunk, so the result does not
-    depend on the chunk size. The RaySOM (training only) runs if `with_som`."""
+    depend on the chunk size. The RaySOM (training only) runs if `with_som`.
+    `pyramid_grads` (training): from `ops.gather.share_pyramid_grads`, whose
+    levels `pyramid` must be; every chunk's gathers add their level
+    gradients into its buffers."""
     inv_K = inverse(cam_K)
     chunk = ray_chunk or cfg.ray_chunk
     R = pixels.shape[0]
@@ -189,7 +196,8 @@ def render_rays(
     blocks = [
         render_ray_block(pixels[i:i + chunk], pyramid, cam_K, inv_K, T_source2infer,
                          mlp, mlp_gaussian, cfg, noise_uni[i:i + chunk],
-                         noise_gauss[i:i + chunk], with_som=with_som)
+                         noise_gauss[i:i + chunk], with_som=with_som,
+                         pyramid_grads=pyramid_grads)
         for i in range(0, R, chunk)
     ]
     if len(blocks) == 1:

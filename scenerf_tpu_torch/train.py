@@ -21,15 +21,7 @@ import torch
 
 from scenerf_tpu_torch.config import SceneRFConfig
 from scenerf_tpu_torch.model import Noise, SceneRF
-
-
-def resolve_device(device=None) -> torch.device:
-    """`device`, or cuda:0 when None; raises when CUDA is asked for and absent
-    (the port has no silent CPU fallback: pass device="cpu" for the CPU)."""
-    dev = torch.device("cuda", 0) if device is None else torch.device(device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError("no CUDA device: pass device='cpu' to run on the CPU")
-    return dev
+from scenerf_tpu_torch.ops.build import resolve_device
 
 
 class Trainer:

@@ -10,8 +10,10 @@ warm-up pose, then profiles one encode and `--poses` poses of the stride-2
 sweep. Train: takes one warm-up step of `Trainer` on `make_batch` (4 sources
 x 1200 rays), then profiles one step. Prints the device time by kernel (top
 25), by kind (GEMM, convolution, the port's kernels, the rest), the device
-busy share of the profiled window, and the card's name and power limit;
-writes a chrome trace to `--out`.
+busy share of the profiled window, the device time of kernel G-bwd's
+autograd nodes and of the pyramid node whose gradient buffers they share
+(training), and the card's name and power limit; writes a chrome trace to
+`--out`.
 """
 from __future__ import annotations
 
@@ -118,23 +120,36 @@ def main() -> None:
         print(f"  {kind:40s} {ms:10.1f} ms {ms / busy_ms:6.1%} ({count[kind]} kernels)")
     port_ms, port_n = defaultdict(float), defaultdict(int)
     for e in events:
-        m = re.search(r"(gather_levels(?:_bwd)?|sort_composite(?:_bwd)?|ray_som)_kernel", e.name)
+        m = re.search(r"(gather_levels(?:_bwd)?|sort_composite(?:_bwd)?|ray_som)(?:_runs)?_kernel",
+                      e.name)
         if m:
             port_ms[m.group(1)] += e.device_time / 1e3
             port_n[m.group(1)] += 1
     for name in sorted(port_ms):
         print(f"  port kernel {name:30s} {port_ms[name]:10.3f} ms in {port_n[name]} launches")
-    # G-bwd's autograd node: the kernel and its wrapper's zeroing of the level
-    # gradients; the engine's evaluation of the node adds the summing of its
-    # outputs into the gradients already accumulated for the same levels
-    for label, op in (("G-bwd node (kernel + zeroing)", "_GatherLevelsBackward"),
-                      ("G-bwd node evaluated (+ gradient accumulation)",
-                       "autograd::engine::evaluate_function: _GatherLevelsBackward")):
+    # G-bwd's autograd nodes: the kernel, and where a gather is not on a
+    # shared pyramid (the encoder's resamples, the reprojection gathers) its
+    # wrapper's zeroing of the level gradient; on the pyramid the first
+    # gather's backward zeroes the shared buffers once. The engine's
+    # evaluation of a node adds the summing of its outputs into the gradients
+    # already accumulated for the same tensors. The pyramid node hands the
+    # shared buffers to autograd once per step. A tree whose gathers each
+    # zero and return a full level gradient compares with the two
+    # "evaluated" lines together.
+    total_evaluated = 0.0
+    for label, op in (("G-bwd nodes (kernel + zeroing)", "_GatherLevelsBackward"),
+                      ("G-bwd nodes evaluated (+ gradient accumulation)",
+                       "autograd::engine::evaluate_function: _GatherLevelsBackward"),
+                      ("pyramid node", "_PyramidNodeBackward"),
+                      ("pyramid node evaluated (+ gradient accumulation)",
+                       "autograd::engine::evaluate_function: _PyramidNodeBackward")):
         node = [e for e in prof.events() if e.name == op]
         if node:
-            total = sum(getattr(e, "device_time_total", None) or e.cuda_time_total
-                        for e in node) / 1e3
+            total = sum(e.device_time_total for e in node) / 1e3
+            total_evaluated += total if "evaluate_function" in op else 0.0
             print(f"  {label:48s} {total:10.3f} ms device time in {len(node)} calls")
+    if args.train:
+        print(f"  {'G-bwd + pyramid nodes evaluated, per step':48s} {total_evaluated:10.3f} ms")
     print(prof.key_averages().table(sort_by="device_time_total", row_limit=25))
     Path(out).parent.mkdir(parents=True, exist_ok=True)
     prof.export_chrome_trace(out)

@@ -6,7 +6,10 @@ the card against the same path on the CPU. The backward kernels (G-bwd,
 C-bwd) against autograd of the plain versions: a misaligned level, corners
 off the map, a small level every point lands on (atomic contention), saturated
 alphas; kernel S with argmax ties; outputs that carry a `grad_fn` on the card;
-and the `tiny` training step on the card against the CPU. Kernel T (TSDF
+and the `tiny` training step on the card against the CPU. Kernel G bit-equal
+at one level of every KITTI tap width and lane-group size; G-bwd's vector
+and scalar atomics, its run-merging mapping, and a training step's chunk
+gathers adding into one pyramid's shared buffers. Kernel T (TSDF
 integrate) in both modes: one frame, ties on `>=`, voxels behind the camera
 and on its z = 0 plane, pixels at the image border and on .5 boundaries, and
 63 frames at the KITTI grid; bit-equal to the plain version but for voxels
@@ -30,6 +33,7 @@ from scenerf_tpu_torch.data.synthetic import default_intrinsics, input_frame
 from scenerf_tpu_torch.data.synthetic import make_batch
 from scenerf_tpu_torch.model import SceneRF
 from scenerf_tpu_torch.ops import build
+from scenerf_tpu_torch.ops import gather as G
 from scenerf_tpu_torch.ops.composite import sort_composite, sort_composite_plain
 from scenerf_tpu_torch.ops.gather import gather_levels, gather_levels_plain
 from scenerf_tpu_torch.ops.tsdf import integrate, integrate_plain, pixel_ties
@@ -67,6 +71,28 @@ def test_gather_kernel_matches_plain(dev, widths):
     want = gather_levels_plain(levels, ix, iy)
     torch.cuda.synchronize()
     torch.testing.assert_close(got, want, rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("n", [40000, 700])
+@pytest.mark.parametrize("width", [3, 8, 32, 48, 80, 224])
+def test_gather_kernel_bit_equal_at_one_level(dev, width, n):
+    """One level per call, as the sphere resamples launch it: at 40,000
+    points with 1, 2, 8, 16, 32, 32 lanes per point, at 700 with the lane
+    groups widened to 32 (the reprojection gather's case); G bit-equal to the
+    plain version, coords off the map, huge and NaN (a NaN weight gives NaN
+    on both) included."""
+    g = torch.Generator(device=dev).manual_seed(width)
+    level = torch.randn(23, 31, width, generator=g, device=dev)
+    ix, iy = _coords(g, [level], n, dev)
+    ix[0, :5] = torch.tensor([float("nan"), 1e30, -1e30, 3e9, -0.5])
+    iy[0, 5:8] = torch.tensor([float("nan"), 1e30, 22.5])
+    want_lanes = {3: 1, 8: 2, 32: 8, 48: 16}.get(width, 32) if n == 40000 else 32
+    assert G.lanes_per_point([width], n) == want_lanes
+    got = gather_levels([level], ix, iy)
+    want = gather_levels_plain([level], ix, iy)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    assert bool(torch.isfinite(got[8:]).all())
 
 
 def test_gather_kernel_misaligned_level(dev):
@@ -205,6 +231,102 @@ def test_gather_bwd_misaligned_level_and_no_coord_grad(dev):
     torch.cuda.synchronize()
     torch.testing.assert_close(grads[0], grads[1], rtol=1e-5, atol=1e-6)
     assert ix.grad is None and iy.grad is None
+
+
+@pytest.mark.parametrize("path", ["vector", "scalar"])
+@pytest.mark.parametrize("width", [8, 48, 224])
+def test_gather_bwd_vector_and_scalar_atomics(dev, path, width):
+    """G-bwd's vector-atomic path (16-byte aligned level, gradient and
+    cotangent: red.global.add.v4.f32) and its scalar path (the same level
+    4 bytes off alignment), both against autograd of the plain version, with
+    coordinate gradients; the kernel adds into the gradient it is given."""
+    g = torch.Generator(device=dev).manual_seed(width)
+    shape = (17, 29, width)
+    n_el = shape[0] * shape[1] * width
+    off = 0 if path == "vector" else 1
+    lv_buf = torch.randn(n_el + 1, generator=g, device=dev)
+    level = lv_buf[off:off + n_el].view(shape)
+    n = 40001  # lanes per point 2, 16, 32
+    ix, iy = _coords(g, [level], n, dev)
+    d_out = torch.randn(n, width, generator=g, device=dev)
+    start = torch.randn(shape, generator=g, device=dev)
+    grad_buf = torch.zeros(n_el + 1, device=dev)
+    grad = grad_buf[off:off + n_el].view(shape)
+    grad.copy_(start)
+    build.reset_launch_counts()
+    d_ix, d_iy = G.gather_levels_backward([level], ix, iy, d_out, [grad], True)
+    want = _gather_grads([level], ix, iy, d_out, plain=True)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["gather_levels_bwd"] == 1
+    torch.testing.assert_close(grad - start, want[0][0], rtol=1e-5,
+                               atol=1e-5 * float(want[0][0].abs().max()))
+    for a, b in ((d_ix, want[1]), (d_iy, want[2])):
+        torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * float(b.abs().max()))
+
+
+@pytest.mark.parametrize("n", [1, 31, 2001])
+def test_gather_bwd_run_merging(dev, n):
+    """KITTI widths without a coordinate gradient: at 2001 points the
+    run-merging mapping (runs of points in one cell, a run across a tile's
+    end, points off the map and half off it, a tile cut short), at 1 and 31
+    points too few warps for it and the per-point mapping; against autograd
+    of the plain version."""
+    g = torch.Generator(device=dev).manual_seed(n)
+    widths = (80, 160, 320, 640, 1280)
+    levels = [torch.randn(6 + 3 * i, 9 + 4 * i, c, generator=g, device=dev)
+              for i, c in enumerate(widths)]
+    ix, iy = _coords(g, levels, n, dev)
+    run = torch.arange(n, device=dev) // 5  # five consecutive points a cell
+    ix[:, : n // 2] = (run[: n // 2] % 4).float() + 0.3 + ix[:, : n // 2] % 0.5
+    iy[:, : n // 2] = 1.25
+    ix[:, n // 2::7] = -0.5  # half off the map
+    ix[:, n // 2 + 1::7] = 1e9  # off the map
+    d_out = torch.randn(n, sum(widths), generator=g, device=dev)
+    grads = [torch.zeros_like(lv) for lv in levels]
+    assert G.lanes_per_point(widths, n) == 32
+    G.gather_levels_backward(levels, ix, iy, d_out, grads, False)
+    want = _gather_grads(levels, ix, iy, d_out, plain=True)[0]
+    torch.cuda.synchronize()
+    for a, b in zip(grads, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * float(b.abs().max()))
+
+
+def test_gather_bwd_chunks_accumulate_into_shared_pyramid_grads(dev):
+    """A training-style sequence on one KITTI-width pyramid: chunk gathers of
+    samples and anchors through `share_pyramid_grads` (one with no loss, one
+    under no_grad) against autograd of the plain gathers, summed; the
+    pyramid's buffers are zeroed once and the gathers' backwards return no
+    level gradient."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    widths = (80, 160, 320, 640, 1280)
+    levels = [torch.randn(9 + 4 * i, 13 + 6 * i, c, generator=g, device=dev)
+              for i, c in enumerate(widths)]
+    chunks = [_coords(g, levels, n, dev) for n in (1920, 120, 1920, 120, 700, 64)]
+    cots = [torch.randn(c[0].shape[1], sum(widths), generator=g, device=dev) for c in chunks]
+    results = []
+    for shared in (True, False):
+        leaves = [lv.clone().requires_grad_(True) for lv in levels]
+        pyramid, grads = G.share_pyramid_grads(leaves) if shared else (leaves, None)
+        build.reset_launch_counts()
+        loss = 0.0
+        for i, (ix, iy) in enumerate(chunks):
+            fn = gather_levels if shared else gather_levels_plain
+            if i == 5:
+                with torch.no_grad():
+                    fn(pyramid, ix, iy, grads=grads) if shared else fn(pyramid, ix, iy)
+                continue
+            out = fn(pyramid, ix, iy, grads=grads) if shared else fn(pyramid, ix, iy)
+            if i != 4:
+                loss = loss + (out * cots[i]).sum()
+        loss.backward()
+        torch.cuda.synchronize()
+        if shared:
+            assert build.LAUNCHES["gather_levels"] == 6
+            assert build.LAUNCHES["gather_levels_bwd"] == 4
+            assert grads.buffers.take() is None
+        results.append([lv.grad for lv in leaves])
+    for a, b in zip(*results):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * float(b.abs().max()))
 
 
 def _composite_inputs(g, R, P, dev, saturate: bool):

@@ -114,7 +114,7 @@ def test_tsdf_volume_matches_jax(case):
     jvol = jtsdf.TSDFVolume(np.array(bnds), voxel_size=0.1, trunc_margin=10.0)
     for K, depth, color in frames:
         jvol.integrate(color, depth, K, np.eye(4))
-    vol = tsdf.TSDFVolume(np.array(bnds), voxel_size=0.1, trunc_margin=10.0)
+    vol = tsdf.TSDFVolume(np.array(bnds), voxel_size=0.1, trunc_margin=10.0, device="cpu")
     vol.integrate_frames(np.stack([c for _, _, c in frames]), np.stack([d for _, d, _ in frames]),
                          np.stack([K for K, _, _ in frames]), np.stack([np.eye(4)] * len(frames)))
     assert vol.shape == jvol._tsdf.shape

@@ -133,7 +133,7 @@ def test_slice_reconstruction_matches(slice_run):
                                      method="bilinear"))
     jvol = JaxTSDFVolume(bnds, voxel_size=1.0)
     jvol.integrate((np.clip(jc, 0, 1) * 255).astype(np.uint8).astype(np.float32), jd, K, T)
-    vol = TSDFVolume(bnds, voxel_size=1.0)
+    vol = TSDFVolume(bnds, voxel_size=1.0, device="cpu")
     vol.integrate(quantize_colors(upsample_to(out["color"].reshape(h, w, 3), (H, W))),
                   upsample_to(out["depth"].reshape(h, w), (H, W)), K, T)
 
