@@ -5,13 +5,17 @@ hand-written kernels.
     python3 chip_smoke.py
 
 Phases (each prints one line and raises on failure):
-  1. device: card name and power limit, versions, TF32 off, kernel build
+  1. device: card name and power limit, versions, TF32 off, kernel build;
+     the device time of an empty kernel on one block and on kernel C's grid
+     at a training chunk (the floor a single-wave launch cannot beat)
   2. kernel G (multi-level bilinear gather) bit-equal to its plain PyTorch
      version at KITTI shapes: the five-level pyramid at the projected coords
      of 5000 rays x 64 samples, every sphere resample of the B7 encoder
      (s1 .. s32 at its tap widths) and the 1200-pixel reprojection gather,
      each beside F.grid_sample on the same tap and coords (events, alone)
-  3. kernel C (per-ray sort + composite) against its plain version, R=5000, P=64
+  3. kernel C (per-ray sort + composite) against its plain version at P=64
+     and the launch sizes of the paths: R=300 (a training chunk), 1024 (the
+     GT-depth render), 5000 (a serve chunk)
   4. encode: SceneRF(kitti()) with seeded random weights (EfficientNet-B7
      spherical U-Net) on one synthetic 1220x370 frame
   5. serve: render_pose_sweep over the first 3 poses of the CLI's default
@@ -27,17 +31,21 @@ Phases (each prints one line and raises on failure):
      the same gathers each zeroing its own gradient; the 3-channel
      reprojection gather with coordinate gradients; every sphere resample's
      backward beside grid_sample's
-  8. kernel C-bwd against autograd of the plain sort + composite, R=5000,
-     P=64 with saturated alphas and clamped ties; the device time of kernels
-     C and C-bwd alone (CUDA-graph replay of 50 launches), with the inputs
-     read from HBM and L2-resident
-  9. kernel S (RaySOM EM) against its plain version at a training chunk
-     (R=300, C=4, P=64)
+  8. kernel C-bwd, through the sort order of kernel C's training launch
+     (RaySOM's EM inside), against autograd of the plain sort + composite,
+     R=5000, P=64 with saturated alphas and clamped ties; the device time of
+     C-bwd, and of kernel C alone and its training launch alone at R=300,
+     1024, 5000 (CUDA-graph replay of 50 launches), with the inputs read from
+     HBM and L2-resident
+  9. RaySOM's EM inside kernel C's training launch, and kernel S (the EM
+     launched alone), against its plain version at a training chunk (R=300,
+     C=4, P=64); the fused launch timed beside C alone and C + S
  10. train: Trainer(kitti()) on the phase-4 weights takes 3 steps on
      make_batch (4 sources x 1200 rays, f32): finite loss and gradients,
      every parameter gets a nonzero gradient, the first AdamW step moves
      each weight by -lr g / (|g| + eps), BN running statistics move,
-     every kernel launches; step 0 again on the plain versions from the same
+     every kernel launches, S only inside C's launches; step 0 again on the
+     plain versions from the same
      weights and draws, loss and every gradient leaf held to the kernel
      path's; ms per step, rays/s, peak device memory
  11. reconstruction: the phase-4 weights encode the synthetic frame with
@@ -66,6 +74,7 @@ from pathlib import Path
 ROOT = Path(__file__).resolve().parent
 SEED = 0
 N_RAYS, N_PTS = 5000, 64
+C_RAYS = (300, 1024, N_RAYS)  # kernel C's launches: training chunk, GT-depth render, serve chunk
 SWEEP_POSES = 3
 STRIDE = 2
 CHUNK = 5000
@@ -210,7 +219,8 @@ def main() -> None:
     from scenerf_tpu_torch.fields import gaussian_params_from_offsets
     from scenerf_tpu_torch.model import SceneRF, compute_sphere_maps
     from scenerf_tpu_torch.ops import build
-    from scenerf_tpu_torch.ops.composite import (sort_composite, sort_composite_backward,
+    from scenerf_tpu_torch.ops.composite import (SOM_KEYS, SomInputs, sort_composite,
+                                                 sort_composite_backward,
                                                  sort_composite_forward, sort_composite_plain)
     from scenerf_tpu_torch.ops.gather import (gather_levels, gather_levels_backward,
                                               gather_levels_plain, lanes_per_point,
@@ -238,6 +248,18 @@ def main() -> None:
     for line in build.build_log().splitlines():
         if "Compiling entry" in line or "registers" in line or "spill" in line:
             print(f"    ptxas: {line.strip()}")
+
+    def empty_launch(n_rays: int) -> None:
+        # an empty kernel on the grid kernels C and S take for n_rays rays
+        build.check(build.library().scenerf_empty_launch(n_rays, build.stream_handle(dev)),
+                    "empty")
+
+    chunk = C.kitti().ray_chunk
+    floor = {"one_block_ms": graph_ms(lambda: empty_launch(1)),
+             "train_chunk_grid_ms": graph_ms(lambda: empty_launch(chunk))}
+    print(f"[1 device] an empty kernel alone (graph of {GRAPH_REPS}): one block "
+          f"{floor['one_block_ms'] * 1e3:.2f} us, kernel C's grid at a training chunk "
+          f"({chunk} rays) {floor['train_chunk_grid_ms'] * 1e3:.2f} us")
 
     cfg = C.kitti()
     K_np = default_intrinsics(cfg)
@@ -332,46 +354,69 @@ def main() -> None:
               f" plain {r['plain_ms']:.3f} ms; bound {r['bound_ms']:.4f} ms")
 
     # ---- 3. kernel C -----------------------------------------------------
-    n_uni = cfg.n_pts_uni
-    sd_uni = S.uniform_sensor_distances(gen, N_RAYS, n_uni, cfg.min_sample_depth,
-                                        cfg.max_sample_depth, device=dev)
-    means = torch.rand(N_RAYS, cfg.n_gaussians, generator=gen, device=dev) * 100.0
-    stds = torch.rand(N_RAYS, cfg.n_gaussians, generator=gen, device=dev) * 5.0 + 1.5
-    sd_g = torch.clamp(torch.repeat_interleave(means, cfg.n_pts_per_gaussian, 1)
-                       + torch.randn(N_RAYS, cfg.n_pts_gauss, generator=gen, device=dev)
-                       * torch.repeat_interleave(stds, cfg.n_pts_per_gaussian, 1),
-                       min=cfg.min_clamp_depth)  # clamped ties included
-    sd = torch.cat([sd_uni, sd_g], 1)
-    dv = sd * (0.8 + 0.2 * torch.rand(N_RAYS, 1, generator=gen, device=dev))
-    dens = torch.nn.functional.softplus(
-        torch.randn(N_RAYS, N_PTS, generator=gen, device=dev) - 1.0)
-    rgb = torch.rand(N_RAYS, N_PTS, 3, generator=gen, device=dev)
-    ck = sort_composite(sd, dv, dens, rgb)
-    cp = sort_composite_plain(sd, dv, dens, rgb)
-    torch.cuda.synchronize()
-    cerr = 0.0
-    for k in ("depth", "color"):
-        ok = torch.isclose(ck[k], cp[k], rtol=COMPOSITE_RTOL, atol=1e-6)
-        if not bool(ok.all()):
-            fail(f"sort_composite {k}: {int((~ok).sum())} values beyond rtol {COMPOSITE_RTOL}")
-        cerr = max(cerr, float((ck[k] - cp[k]).abs().max()))
-    for k in ("sensor_distance", "depth_volume"):
-        if not torch.equal(ck[k], cp[k]):
-            fail(f"sort_composite {k}: sorted order differs from the stable sort")
-    same_argmin = float((ck["closest_idx"] == cp["closest_idx"]).float().mean())
-    if same_argmin < ARGMIN_MIN_SHARE:
-        fail(f"sort_composite argmin agrees on {same_argmin:.4%} of rays")
-    ms = cuda_ms(lambda: sort_composite(sd, dv, dens, rgb))
-    plain_ms = cuda_ms(lambda: sort_composite_plain(sd, dv, dens, rgb))
-    # per sample: the 21-stage bitonic network's compares, ~20 arithmetic ops
+    def composite_inputs(R: int):
+        """A KITTI-shaped ray block: uniform and Gaussian distances (clamped:
+        ties), depths, densities, colors, and the Gaussians [R, 4] about
+        which the Gaussian samples were drawn."""
+        sd_u = S.uniform_sensor_distances(gen, R, cfg.n_pts_uni, cfg.min_sample_depth,
+                                          cfg.max_sample_depth, device=dev)
+        m = torch.rand(R, cfg.n_gaussians, generator=gen, device=dev) * 100.0
+        sdev = torch.rand(R, cfg.n_gaussians, generator=gen, device=dev) * 5.0 + 1.5
+        sd_gs = torch.clamp(torch.repeat_interleave(m, cfg.n_pts_per_gaussian, 1)
+                            + torch.randn(R, cfg.n_pts_gauss, generator=gen, device=dev)
+                            * torch.repeat_interleave(sdev, cfg.n_pts_per_gaussian, 1),
+                            min=cfg.min_clamp_depth)  # clamped ties included
+        sd_r = torch.cat([sd_u, sd_gs], 1)
+        dv_r = sd_r * (0.8 + 0.2 * torch.rand(R, 1, generator=gen, device=dev))
+        dens_r = torch.nn.functional.softplus(
+            torch.randn(R, N_PTS, generator=gen, device=dev) - 1.0)
+        rgb_r = torch.rand(R, N_PTS, 3, generator=gen, device=dev)
+        return [sd_r, dv_r, dens_r, rgb_r], m, sdev
+
+    def composite_bound(ins, outs, n_protos: int = 0) -> dict:
+        """Kernel C's bound on these inputs and outputs: per sample the
+        21-stage bitonic network's compares and ~20 arithmetic ops; with
+        RaySOM's EM, C^2 products and sums for p(z|c2) and ~12 C for p(z|c1)
+        and the weights."""
+        return bound(nbytes(*ins, *outs),
+                     ins[0].numel() * (41 + 2 * n_protos ** 2 + 12 * n_protos))
+
+    c_in, c_rows = {}, []
+    for R in C_RAYS:
+        ins, m, sdev = composite_inputs(R)
+        c_in[R] = (ins, m, sdev)
+        ck = sort_composite(*ins)
+        cp = sort_composite_plain(*ins)
+        torch.cuda.synchronize()
+        cerr = 0.0
+        for k in ("depth", "color"):
+            ok = torch.isclose(ck[k], cp[k], rtol=COMPOSITE_RTOL, atol=1e-6)
+            if not bool(ok.all()):
+                fail(f"sort_composite R={R} {k}: {int((~ok).sum())} values beyond rtol "
+                     f"{COMPOSITE_RTOL}")
+            cerr = max(cerr, float((ck[k] - cp[k]).abs().max()))
+        for k in ("sensor_distance", "depth_volume"):
+            if not torch.equal(ck[k], cp[k]):
+                fail(f"sort_composite R={R} {k}: sorted order differs from the stable sort")
+        same_argmin = float((ck["closest_idx"] == cp["closest_idx"]).float().mean())
+        if same_argmin < ARGMIN_MIN_SHARE:
+            fail(f"sort_composite R={R} argmin agrees on {same_argmin:.4%} of rays")
+        c_rows.append(dict(rays=R, max_abs_err=cerr,
+                           argmin_equal=same_argmin,
+                           ms=cuda_ms(lambda: sort_composite(*ins)),
+                           plain_ms=cuda_ms(lambda: sort_composite_plain(*ins)),
+                           **composite_bound(ins, ck.values())))
+        print(f"[3 kernel C] R={R} P={N_PTS}: depth/color max abs err {cerr:.3e} (rtol {COMPOSITE_RTOL}), sorted "
+              f"outputs bit-equal, argmin equal on {same_argmin:.4%} of rays; kernel "
+              f"{c_rows[-1]['ms']:.3f} ms, plain {c_rows[-1]['plain_ms']:.3f} ms, bound "
+              f"{c_rows[-1]['bound_ms'] * 1e3:.2f} us")
+        del ck, cp
+    (sd, dv, dens, rgb), means, stds = c_in[N_RAYS]
+    main_row = c_rows[C_RAYS.index(N_RAYS)]
     results["sort_composite"] = dict(
-        max_abs_err=cerr, ms=ms, plain_ms=plain_ms,
-        **bound(nbytes(sd, dv, dens, rgb, *(ck[k] for k in ck)), 41 * sd.numel()),
-        library_ms=None)
-    print(f"[3 kernel C] R={N_RAYS} P={N_PTS}: depth/color max abs err {cerr:.3e} "
-          f"(rtol {COMPOSITE_RTOL}), argmin equal on {same_argmin:.4%} of rays; "
-          f"kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-    del levels, ix, iy, got, want, ck, cp
+        {k: main_row[k] for k in ("max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by")},
+        library_ms=None, at_shapes=c_rows)
+    del levels, ix, iy, got, want
     torch.cuda.empty_cache()
 
     # ---- 4. encode -------------------------------------------------------
@@ -659,7 +704,12 @@ def main() -> None:
     hot = torch.rand(N_RAYS, N_PTS, generator=gen, device=dev) < 0.2
     dens_sat = torch.where(hot, dens * 100 + 50, dens)  # saturated alphas
     ins = [sd, dv, dens_sat, rgb]
-    fwd_outs, order = sort_composite_forward(*ins, with_order=True)
+
+    def som_of(m, sdev):
+        return SomInputs(m, sdev, cfg.som_sigma, cfg.som_mask_threshold)
+
+    # the order of kernel C's training launch, the one with RaySOM's EM inside
+    fwd_outs, order, _ = sort_composite_forward(*ins, with_order=True, som=som_of(means, stds))
     n_saturated = int((fwd_outs[2] == 1.0).sum())
     g_depth = torch.randn(N_RAYS, generator=gen, device=dev)
     g_color = torch.randn(N_RAYS, 3, generator=gen, device=dev)
@@ -689,56 +739,124 @@ def main() -> None:
     bwd_copies = hbm_copies((fwd_outs[0], fwd_outs[1], order, dens_sat, rgb, g_depth, g_color))
     dev_ms = graph_ms([lambda c=c: sort_composite_backward(*c) for c in bwd_copies])
     dev_ms_l2 = graph_ms(bwd)
-    fwd_copies = hbm_copies((sd, dv, dens, rgb))
-    c_dev_ms = graph_ms([lambda c=c: sort_composite_forward(*c) for c in fwd_copies])
-    c_dev_ms_l2 = graph_ms(lambda: sort_composite_forward(sd, dv, dens, rgb))
-    n_copies = (len(bwd_copies), len(fwd_copies))
-    del bwd_copies, fwd_copies
-    results["sort_composite"].update(device_ms=c_dev_ms, device_ms_l2=c_dev_ms_l2)
+    n_copies = len(bwd_copies)
+    del bwd_copies
+    # kernel C alone (as the serve and GT-depth renders launch it) and its
+    # training launch (sort order written, RaySOM's EM inside) at each launch
+    # size, from HBM and L2-resident
+    for row in c_rows:
+        ins_r, m_r, s_r = c_in[row["rays"]]
+        copies = hbm_copies((*ins_r, m_r, s_r))
+        row.update(
+            hbm_copies=len(copies), copies_mb=len(copies) * nbytes(*copies[0]) / 1e6,
+            device_ms=graph_ms([lambda c=c: sort_composite_forward(*c[:4]) for c in copies]),
+            device_ms_l2=graph_ms(lambda: sort_composite_forward(*ins_r)),
+            fused_device_ms=graph_ms([lambda c=c: sort_composite_forward(
+                *c[:4], with_order=True, som=som_of(*c[4:])) for c in copies]),
+            fused_device_ms_l2=graph_ms(lambda: sort_composite_forward(
+                *ins_r, with_order=True, som=som_of(m_r, s_r))))
+        del copies
+    results["sort_composite"].update(device_ms=main_row["device_ms"],
+                                     device_ms_l2=main_row["device_ms_l2"])
     results["sort_composite_bwd"] = dict(
         max_abs_err=cb_err, ms=ms, plain_ms=plain_ms, device_ms=dev_ms, device_ms_l2=dev_ms_l2,
         **bound(nbytes(fwd_outs[0], fwd_outs[1], order, dens_sat, rgb, g_depth, g_color,
                        *got_c), 60 * sd.numel()), library_ms=None)
-    print(f"[8 kernel C-bwd] R={N_RAYS} P={N_PTS}, {n_saturated} saturated alphas: max abs "
-          f"err {cb_err:.3e} (rtol {COMPOSITE_BWD_RTOL}); kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms; device time alone (graph of {GRAPH_REPS}), inputs from HBM "
-          f"({n_copies[0]} / {n_copies[1]} copies cycled) / L2-resident: C-bwd "
-          f"{dev_ms * 1e3:.1f} / {dev_ms_l2 * 1e3:.1f} us, C {c_dev_ms * 1e3:.1f} / "
-          f"{c_dev_ms_l2 * 1e3:.1f} us")
+    print(f"[8 kernel C-bwd] R={N_RAYS} P={N_PTS}, {n_saturated} saturated alphas, through "
+          f"the order of C's training launch: max abs err {cb_err:.3e} (rtol "
+          f"{COMPOSITE_BWD_RTOL}); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms; device time "
+          f"alone (graph of {GRAPH_REPS}), inputs from HBM ({n_copies} copies cycled) / "
+          f"L2-resident: {dev_ms * 1e3:.1f} / {dev_ms_l2 * 1e3:.1f} us")
+    for row in c_rows:
+        print(f"[8 kernel C] R={row['rays']} alone, "
+              f"inputs cycled over {row['hbm_copies']} copies ({row['copies_mb']:.0f} MB; the "
+              f"L2 holds {L2_BYTES / 1e6:.0f} MB) / L2-resident: C {row['device_ms'] * 1e3:.2f} / "
+              f"{row['device_ms_l2'] * 1e3:.2f} us, its training launch (order + RaySOM's EM) "
+              f"{row['fused_device_ms'] * 1e3:.2f} / {row['fused_device_ms_l2'] * 1e3:.2f} us; "
+              f"bound of C {row['bound_ms'] * 1e3:.2f} us ({row['bound_by']})")
     del leaves, pc, want_c
 
-    # ---- 9. kernel S -----------------------------------------------------
+    # ---- 9. RaySOM's EM: inside kernel C's training launch, and kernel S --
     R_s = cfg.ray_chunk
     anchors = S.gaussian_anchor_distances(cfg.n_gaussians, cfg.max_sample_depth, device=dev)
     offs = torch.randn(R_s, cfg.n_gaussians, 2, generator=gen, device=dev) * 5.0
     g_means, g_stds = gaussian_params_from_offsets(offs, anchors, cfg.std, cfg.mean_std_floor)
-    s_sd, s_alpha = fwd_outs[0][:R_s].contiguous(), fwd_outs[2][:R_s].contiguous()
+    ins_s = c_in[R_s][0]
+    som_in = som_of(g_means, g_stds)
+    build.reset_launch_counts()
+    fused = sort_composite(*ins_s, som=som_in)
+    s_sd, s_alpha = fused["sensor_distance"], fused["alphas"]
     som_args = (g_means, g_stds, s_sd, s_alpha, cfg.som_sigma, cfg.som_mask_threshold)
     got_s = som_em(*som_args)
+    counts = dict(build.LAUNCHES)
     want_s = som_em_plain(*som_args)
     torch.cuda.synchronize()
-    agree = torch.ones(R_s, dtype=torch.bool, device=dev)
-    for a, b in zip(got_s[:2], want_s[:2]):
-        agree &= torch.isclose(a, b, rtol=SOM_RTOL, atol=SOM_RTOL).all(dim=1)
-    agree &= (got_s[2] == want_s[2]).all(dim=1)
-    share = float(agree.float().mean())
-    if share < SOM_MIN_SHARE:
-        fail(f"ray_som: kernel agrees with the plain version on {share:.4%} of rays")
+    if (counts["sort_composite"], counts["ray_som"], counts["ray_som_in_sort_composite"]) != (1, 2, 1):
+        fail(f"ray_som: launch counts {counts} after one fused launch and one of S")
+
+    def agreement(got) -> float:
+        agree = torch.ones(R_s, dtype=torch.bool, device=dev)
+        for a, b in zip(got[:2], want_s[:2]):
+            agree &= torch.isclose(a, b, rtol=SOM_RTOL, atol=SOM_RTOL).all(dim=1)
+        agree &= (got[2] == want_s[2]).all(dim=1)
+        return float(agree.float().mean())
+
+    got_f = [fused[k] for k in SOM_KEYS]
+    share_f, share_s = agreement(got_f), agreement(got_s)
+    if min(share_f, share_s) < SOM_MIN_SHARE:
+        fail(f"ray_som: the EM inside C agrees with the plain version on {share_f:.4%} of "
+             f"rays, kernel S on {share_s:.4%}")
+    f_err = max(float((a - b).abs().max()) for a, b in zip(got_f, want_s))
     s_err = max(float((a - b).abs().max()) for a, b in zip(got_s, want_s))
+
+    def c_then_s():
+        outs, _, _ = sort_composite_forward(*ins_s, with_order=True)
+        return som_em(g_means, g_stds, outs[0], outs[2], cfg.som_sigma, cfg.som_mask_threshold)
+
+    def fused_plain():
+        out = sort_composite_plain(*ins_s)
+        return som_em_plain(g_means, g_stds, out["sensor_distance"], out["alphas"],
+                            cfg.som_sigma, cfg.som_mask_threshold)
+
     ms = cuda_ms(lambda: som_em(*som_args))
     plain_ms = cuda_ms(lambda: som_em_plain(*som_args))
-    # L2-resident: on the training path S reads the chunk kernel C has just written
+    fused_ms = cuda_ms(lambda: sort_composite(*ins_s, som=som_in))
+    fused_plain_ms = cuda_ms(fused_plain)
+    c_ms = cuda_ms(lambda: sort_composite(*ins_s))
+    # alone, L2-resident as on the training path (C reads what the field has
+    # just written, S what C has just written), C writing the sort order
     dev_ms = graph_ms(lambda: som_em(*som_args))
+    fused_dev = graph_ms(lambda: sort_composite_forward(*ins_s, with_order=True, som=som_in))
+    c_dev = graph_ms(lambda: sort_composite_forward(*ins_s, with_order=True))
+    c_s_dev = graph_ms(c_then_s)
     C_ = cfg.n_gaussians
+    fused_bound = composite_bound(ins_s, [*(fused[k] for k in fused), g_means, g_stds], C_)
+    # the numbers of the launch the training path makes: kernel C's training
+    # launch with the EM inside, against the plain sort-composite then EM
     results["ray_som"] = dict(
-        max_abs_err=s_err, ms=ms, plain_ms=plain_ms, device_ms_l2=dev_ms,
-        # per sample: C^2 products and sums for p(z|c2), ~12 C for p(z|c1) and the weights
-        **bound(nbytes(g_means, g_stds, s_sd, s_alpha, *got_s),
-                s_sd.numel() * (2 * C_ * C_ + 12 * C_)), library_ms=None)
-    print(f"[9 kernel S] R={R_s} C={C_} P={N_PTS}: agrees within rtol {SOM_RTOL} (mask equal) "
-          f"on {share:.4%} of rays, max abs err {s_err:.3e}; kernel {ms:.3f} ms, plain "
-          f"{plain_ms:.3f} ms, device time alone (L2-resident) {dev_ms * 1e3:.1f} us")
-    del fwd_outs, order, got_c
+        max_abs_err=f_err, agree_share=share_f, ms=fused_ms, plain_ms=fused_plain_ms,
+        device_ms_l2=fused_dev, **fused_bound, library_ms=None,
+        launched_in="scenerf_tpu_torch/ops/csrc/composite.cu (kernel C's training launch, "
+                    "order written)",
+        sort_composite_alone=dict(ms=c_ms, device_ms_l2=c_dev,
+                                  then_standalone_s_device_ms_l2=c_s_dev),
+        # the entry for sorted samples without a composite, off the training path
+        standalone=dict(
+            source="scenerf_tpu_torch/ops/csrc/som.cu", max_abs_err=s_err, agree_share=share_s,
+            ms=ms, plain_ms=plain_ms, device_ms_l2=dev_ms,
+            # per sample: C^2 products and sums for p(z|c2), ~12 C for p(z|c1) and the weights
+            **bound(nbytes(g_means, g_stds, s_sd, s_alpha, *got_s),
+                    s_sd.numel() * (2 * C_ * C_ + 12 * C_))))
+    print(f"[9 RaySOM] R={R_s} C={C_} P={N_PTS}: the EM inside C's training launch agrees with "
+          f"the plain version within rtol {SOM_RTOL} (mask equal) on {share_f:.4%} of rays (max "
+          f"abs err {f_err:.3e}), kernel S alone on {share_s:.4%} ({s_err:.3e}); events: C with "
+          f"the EM {fused_ms:.3f} ms (plain sort-composite then EM {fused_plain_ms:.3f} ms), C "
+          f"alone {c_ms:.3f} ms, S alone {ms:.3f} ms (plain EM {plain_ms:.3f} ms); device time alone (L2-resident, order written): C with the EM "
+          f"{fused_dev * 1e3:.2f} us, C alone {c_dev * 1e3:.2f} us, S alone {dev_ms * 1e3:.2f} us, "
+          f"C then S {c_s_dev * 1e3:.2f} us; bound of C with the EM "
+          f"{fused_bound['bound_ms'] * 1e3:.2f} us, of S "
+          f"{results['ray_som']['standalone']['bound_ms'] * 1e3:.3f} us")
+    del fwd_outs, order, got_c, fused, got_s, want_s
     torch.cuda.empty_cache()
 
     # ---- 10. train -------------------------------------------------------
@@ -796,6 +914,8 @@ def main() -> None:
     for name in TRAIN_KERNELS:
         if launches[name] < 1:
             fail(f"kernel {name} was not launched on the training path")
+    if launches["ray_som"] != launches["ray_som_in_sort_composite"]:
+        fail(f"the training path launched kernel S alone: {launches}")
     # a conv bias that feeds a train-mode batch norm is subtracted again: zero gradient
     zero = [n for n, seen in seen_nonzero.items()
             if not seen and not re.search(r"conv_block[12]\.0\.bias$", n)]
@@ -1007,12 +1127,13 @@ def main() -> None:
                            "scenerf_tpu/rendering.py:102"),
         "sort_composite_bwd": ("scenerf_tpu_torch/ops/csrc/composite_bwd.cu",
                                "scenerf_tpu/rendering.py:102"),
-        "ray_som": ("scenerf_tpu_torch/ops/csrc/som.cu", "scenerf_tpu/som.py:37"),
+        "ray_som": ("scenerf_tpu_torch/ops/csrc/som_em.cuh", "scenerf_tpu/som.py:37"),
         "tsdf_integrate": ("scenerf_tpu_torch/ops/csrc/tsdf.cu",
                            "scenerf_tpu/fusion/tsdf.py:44"),
     }
     # launches: on the training path, or for T the reconstruction path's
     main_launches = {**launches, "tsdf_integrate": recon_launches["tsdf_integrate"]}
+    results["ray_som"]["empty_kernel_floor"] = floor
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": main_launches[name],

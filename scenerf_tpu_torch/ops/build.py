@@ -28,7 +28,9 @@ NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 LAUNCHES = {"gather_levels": 0, "gather_levels_bwd": 0, "sort_composite": 0,
-            "sort_composite_bwd": 0, "ray_som": 0, "tsdf_integrate": 0}
+            "sort_composite_bwd": 0, "ray_som": 0, "tsdf_integrate": 0,
+            # of the ray_som launches, those inside kernel C's (training) launch
+            "ray_som_in_sort_composite": 0}
 
 _lib = None
 _force_plain = False
@@ -134,12 +136,14 @@ def library() -> ctypes.CDLL:
             "scenerf_gather_levels_bwd_f32": [vp, vp, vp, i32, vp, vp, i32, vp, i32,
                                               vp, vp, i32, i32, vp],
             "scenerf_sort_composite_f32": [vp, vp, vp, vp, i32, i32, vp, vp, vp, vp,
-                                           vp, vp, vp, vp, vp, vp, vp],
+                                           vp, vp, vp, vp, vp, vp, vp, vp, i32, f32, f32,
+                                           f32, vp, vp, vp, vp],
             "scenerf_sort_composite_bwd_f32": [vp, vp, vp, vp, vp, vp, vp, i32, i32,
                                                vp, vp, vp, vp, vp],
             "scenerf_ray_som_f32": [vp, vp, vp, vp, i32, i32, i32, f32, f32, f32,
                                     vp, vp, vp, vp],
             "scenerf_tsdf_integrate_f32": [vp] * 7 + [i32] * 6 + [f32] * 6 + [i32, vp],
+            "scenerf_empty_launch": [i32, vp],
         }
         for name, argtypes in signatures.items():
             fn = getattr(lib, name)

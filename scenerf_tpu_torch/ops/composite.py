@@ -15,15 +15,20 @@ Both return a dict with the per-ray `depth` [R], `color` [R, 3],
 the sorted `sensor_distance`, `depth_volume`, `alphas`, `weights` [R, P].
 Only `depth` and `color` carry a gradient on the kernel path: the training
 step reads the sorted samples and alphas detached (the RaySOM) and the rest
-as logs.
+as logs. Given `som` (the training render), `sort_composite` also runs
+RaySOM's EM update on the sorted samples and alphas (`som.som_em_plain`):
+on a CUDA tensor inside kernel C's launch, which then counts as a launch of
+kernel S too; the dict then also holds `som_new_means`, `som_new_vars` and
+`som_mask` [R, C], with no gradient.
 """
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, NamedTuple, Optional
 
 import torch
 
 from scenerf_tpu_torch.ops import build
+from scenerf_tpu_torch.som import em_launch_args, som_em_plain
 
 MAX_PTS = 64  # samples per ray the kernel holds in one warp's registers
 
@@ -74,13 +79,24 @@ def sort_composite_plain(sd: torch.Tensor, dv: torch.Tensor, density: torch.Tens
     return composite(dens_sorted, sd_sorted, dv_sorted, rgb_sorted)
 
 
+class SomInputs(NamedTuple):
+    """What RaySOM's EM takes beside the sorted samples."""
+    means: torch.Tensor  # [R, C] predicted Gaussian means
+    stds: torch.Tensor   # [R, C] predicted Gaussian stds
+    som_sigma: float
+    mask_threshold: float
+
+
 _OUT_KEYS = ("sensor_distance", "depth_volume", "alphas", "weights", "depth", "color",
              "weights_at_depth", "closest_pts_to_depth", "closest_idx")
+SOM_KEYS = ("som_new_means", "som_new_vars", "som_mask")
 
 
-def sort_composite_forward(sd, dv, density, rgb, with_order: bool = False):
+def sort_composite_forward(sd, dv, density, rgb, with_order: bool = False,
+                           som: Optional[SomInputs] = None):
     """Kernel C on contiguous f32 inputs -> (outputs in `_OUT_KEYS` order,
-    order [R, P] int32 or None)."""
+    order [R, P] int32 or None, RaySOM's EM outputs in `SOM_KEYS` order
+    or None); with `som`, the EM runs in the same launch."""
     R, P = sd.shape
     dev = sd.device
     f32 = dict(dtype=torch.float32, device=dev)
@@ -89,12 +105,24 @@ def sort_composite_forward(sd, dv, density, rgb, with_order: bool = False):
              torch.empty((R,), **f32), torch.empty((R,), **f32),
              torch.empty((R,), dtype=torch.int32, device=dev)]
     order = torch.empty((R, P), dtype=torch.int32, device=dev) if with_order else None
+    em, som_args = None, (None, None, 0, 0.0, 0.0, 0.0, None, None, None)
+    if som is not None:
+        (means, stds), scalars, em = em_launch_args(som.means, som.stds, P, som.som_sigma,
+                                                    som.mask_threshold)
+        if means.shape[0] != R or means.device != dev:
+            raise ValueError(f"sort_composite: RaySOM means {tuple(means.shape)} on "
+                             f"{means.device} for {R} rays on {dev}")
+        som_args = (means.data_ptr(), stds.data_ptr(), *scalars, *(t.data_ptr() for t in em))
     status = build.library().scenerf_sort_composite_f32(
         *(t.data_ptr() for t in (sd, dv, density, rgb)), R, P,
-        *(t.data_ptr() for t in outs), build.ptr(order), build.stream_handle(dev))
+        *(t.data_ptr() for t in outs), build.ptr(order), *som_args,
+        build.stream_handle(dev))
     build.check(status, "sort_composite")
     build.LAUNCHES["sort_composite"] += 1
-    return outs, order
+    if som is not None:
+        build.LAUNCHES["ray_som"] += 1
+        build.LAUNCHES["ray_som_in_sort_composite"] += 1
+    return outs, order, em
 
 
 def sort_composite_backward(sd_sorted, dv_sorted, order, density, rgb, d_depth, d_color):
@@ -119,13 +147,15 @@ class _SortComposite(torch.autograd.Function):
     """Kernel C forward (writing the sort order), kernel C-bwd backward."""
 
     @staticmethod
-    def forward(ctx, sd, dv, density, rgb):
-        outs, order = sort_composite_forward(sd, dv, density, rgb, with_order=True)
+    def forward(ctx, sd, dv, density, rgb, som):
+        outs, order, em = sort_composite_forward(sd, dv, density, rgb, with_order=True,
+                                                 som=som)
         ctx.save_for_backward(outs[0], outs[1], density, rgb)
         ctx.order = order  # an intermediate, not an input or output
+        em = em or ()
         ctx.mark_non_differentiable(*(t for k, t in zip(_OUT_KEYS, outs)
-                                      if k not in ("depth", "color")))
-        return tuple(outs)
+                                      if k not in ("depth", "color")), *em)
+        return (*outs, *em)
 
     @staticmethod
     def backward(ctx, *grads):
@@ -133,18 +163,24 @@ class _SortComposite(torch.autograd.Function):
         d_depth, d_color = grads[_OUT_KEYS.index("depth")], grads[_OUT_KEYS.index("color")]
         d = sort_composite_backward(sd_sorted, dv_sorted, ctx.order, density, rgb,
                                     d_depth, d_color)
-        return tuple(g if need else None for g, need in zip(d, ctx.needs_input_grad))
+        return (*(g if need else None for g, need in zip(d, ctx.needs_input_grad)), None)
 
 
 def sort_composite(sd: torch.Tensor, dv: torch.Tensor, density: torch.Tensor,
-                   rgb: torch.Tensor) -> Dict[str, torch.Tensor]:
-    """Sort each ray's samples by `sd` [R, P] and alpha-composite them."""
+                   rgb: torch.Tensor, som: Optional[SomInputs] = None) -> Dict[str, torch.Tensor]:
+    """Sort each ray's samples by `sd` [R, P] and alpha-composite them; with
+    `som`, also RaySOM's EM on the sorted samples (keys `SOM_KEYS`)."""
     R, P = sd.shape
     if dv.shape != (R, P) or density.shape != (R, P) or rgb.shape != (R, P, 3):
         raise ValueError(f"sort_composite: shapes {tuple(sd.shape)}, {tuple(dv.shape)}, "
                          f"{tuple(density.shape)}, {tuple(rgb.shape)}")
     if not build.use_kernel(sd):
-        return sort_composite_plain(sd, dv, density, rgb)
+        out = sort_composite_plain(sd, dv, density, rgb)
+        if som is not None:
+            em = som_em_plain(som.means, som.stds, out["sensor_distance"], out["alphas"],
+                              som.som_sigma, som.mask_threshold)
+            out.update(zip(SOM_KEYS, em))
+        return out
 
     if P > MAX_PTS:
         raise ValueError(f"sort_composite kernel takes at most {MAX_PTS} samples per ray, got {P}")
@@ -153,8 +189,8 @@ def sort_composite(sd: torch.Tensor, dv: torch.Tensor, density: torch.Tensor,
     for t in ins:
         if t.device != dev or t.dtype != torch.float32:
             raise ValueError("sort_composite kernel takes f32 tensors on one device")
+    keys = _OUT_KEYS + (SOM_KEYS if som is not None else ())
     if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
-        outs = _SortComposite.apply(*ins)
-    else:
-        outs, _ = sort_composite_forward(*ins, with_order=False)
-    return dict(zip(_OUT_KEYS, outs))
+        return dict(zip(keys, _SortComposite.apply(*ins, som)))
+    outs, _, em = sort_composite_forward(*ins, with_order=False, som=som)
+    return dict(zip(keys, (*outs, *(em or ()))))

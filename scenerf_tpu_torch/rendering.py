@@ -10,7 +10,7 @@ the JAX order of sort-then-evaluate). Rays render in a Python loop over
 chunks, with the noise drawn once for all rays and sliced. Outside
 `torch.no_grad` the render carries gradients (the kernels' backwards are
 autograd Functions); `with_som=True`, the training render, adds the RaySOM
-(kernel S) and its KL.
+(its EM, kernel S's, inside the sort-composite launch) and its KL.
 """
 from __future__ import annotations
 
@@ -23,7 +23,7 @@ from scenerf_tpu_torch import sampling as S
 from scenerf_tpu_torch.config import SceneRFConfig, SphereConfig
 from scenerf_tpu_torch.encoding import positional_encoding
 from scenerf_tpu_torch.fields import ResnetFC, gaussian_params_from_offsets, radiance_outputs
-from scenerf_tpu_torch.ops.composite import sort_composite
+from scenerf_tpu_torch.ops.composite import SOM_KEYS, SomInputs, sort_composite
 from scenerf_tpu_torch.ops.gather import PyramidGrads, gather_levels
 from scenerf_tpu_torch.som import ray_som
 
@@ -150,12 +150,15 @@ def render_ray_block(
     z, x_in = featurize_points(pyramid, pts.detach().reshape(-1, 3), vd, cam_K, inv_K,
                                cfg.sphere, cfg.n_pe_freqs, pyramid_grads)
     density, rgb = radiance_outputs(mlp(z, x_in))
-    out = sort_composite(sd, dv, density.reshape(r, P), rgb.reshape(r, P, 3))
+    som_in = (SomInputs(g_means, g_stds, cfg.som_sigma, cfg.som_mask_threshold)
+              if with_som else None)
+    out = sort_composite(sd, dv, density.reshape(r, P), rgb.reshape(r, P, 3), som=som_in)
 
     if with_som:
+        # the EM ran with the sort-composite (one launch on the card)
         som = ray_som(g_means, g_stds, out["sensor_distance"], out["alphas"],
                       som_sigma=cfg.som_sigma, mask_threshold=cfg.som_mask_threshold,
-                      std_floor=cfg.kl_std_floor)
+                      std_floor=cfg.kl_std_floor, em=[out.pop(k) for k in SOM_KEYS])
         out["loss_kl"] = som.loss_kl
         out["som_vars"] = som.new_vars
     out["gaussian_means"] = g_means

@@ -4,13 +4,15 @@ the KL loss toward the re-estimated Gaussians. Counterpart of
 
 The EM half is detached: on a CUDA tensor it runs kernel S
 (`ops/csrc/som.cu`), on a CPU tensor `som_em_plain`, its plain version. The
-KL, the only part with a gradient, is plain PyTorch on [R, C] under autograd
-and sees the predicted means/stds.
+training render runs the same EM inside kernel C's launch
+(`ops.composite.sort_composite(som=...)`) and hands its outputs to
+`ray_som(em=...)`. The KL, the only part with a gradient, is plain PyTorch
+on [R, C] under autograd and sees the predicted means/stds.
 """
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import torch
 
@@ -96,23 +98,41 @@ def som_em_plain(m: torch.Tensor, s: torch.Tensor, d: torch.Tensor, alphas: torc
     return new_means, new_vars, (mean_mask & var_mask).to(m.dtype)
 
 
+def em_launch_args(m: torch.Tensor, s: torch.Tensor, P: int, som_sigma: float,
+                   mask_threshold: float
+                   ) -> Tuple[List[torch.Tensor], tuple, List[torch.Tensor]]:
+    """The EM's part of a kernel launch (S, or C with S inside) for means and
+    stds [R, C] and P samples per ray: ([means, stds] detached contiguous
+    f32, (C, 2 som_sigma^2, C * 1e-8, mask_threshold), the outputs
+    new_means, new_vars, mask [R, C]); raises on what the kernel does not
+    take."""
+    R, C = m.shape
+    if not 1 <= C <= MAX_PROTOS or P > 64:
+        raise ValueError(f"ray_som kernel takes at most {MAX_PROTOS} components and "
+                         f"64 samples per ray, got {C} and {P}")
+    if s.shape != (R, C) or s.device != m.device:
+        raise ValueError("ray_som kernel takes [R, C] means and stds on one device")
+    ins = [t.detach().to(torch.float32).contiguous() for t in (m, s)]
+    outs = [torch.empty((R, C), dtype=torch.float32, device=m.device) for _ in range(3)]
+    return ins, (C, 2.0 * som_sigma ** 2, C * 1e-8, mask_threshold), outs
+
+
 def som_em(m: torch.Tensor, s: torch.Tensor, d: torch.Tensor, alphas: torch.Tensor,
            som_sigma: float, mask_threshold: float
            ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """The EM step of `som_em_plain`: kernel S on a CUDA tensor."""
     if not build.use_kernel(d):
         return som_em_plain(m, s, d, alphas, som_sigma, mask_threshold)
-    (R, C), P = m.shape, d.shape[1]
-    if not 1 <= C <= MAX_PROTOS or P > 64:
-        raise ValueError(f"ray_som kernel takes at most {MAX_PROTOS} components and "
-                         f"64 samples per ray, got {C} and {P}")
-    ins = [t.detach().to(torch.float32).contiguous() for t in (m, s, d, alphas)]
-    if any(t.device != d.device for t in ins) or s.shape != (R, C) or alphas.shape != (R, P):
+    R, P = d.shape
+    ms, scalars, outs = em_launch_args(m, s, P, som_sigma, mask_threshold)
+    samples = [t.detach().to(torch.float32).contiguous() for t in (d, alphas)]
+    if ms[0].shape[0] != R or alphas.shape != (R, P) or any(
+            t.device != d.device for t in (*ms, samples[1])):
         raise ValueError("ray_som kernel takes [R, C] means/stds and [R, P] samples on one device")
-    outs = [torch.empty((R, C), dtype=torch.float32, device=d.device) for _ in range(3)]
+    C = scalars[0]
     status = build.library().scenerf_ray_som_f32(
-        *(t.data_ptr() for t in ins), R, C, P, 2.0 * som_sigma ** 2, C * 1e-8,
-        mask_threshold, *(t.data_ptr() for t in outs), build.stream_handle(d.device))
+        *(t.data_ptr() for t in (*ms, *samples)), R, C, P, *scalars[1:],
+        *(t.data_ptr() for t in outs), build.stream_handle(d.device))
     build.check(status, "ray_som")
     build.LAUNCHES["ray_som"] += 1
     return tuple(outs)
@@ -126,9 +146,15 @@ def ray_som(
     som_sigma: float,
     mask_threshold: float = 0.1,
     std_floor: float = 1.5,
+    em: Optional[Sequence[torch.Tensor]] = None,
 ) -> RaySOMResult:
-    new_means, new_vars, mask = som_em(gauss_means, gauss_stds, sensor_distances, density,
-                                       som_sigma, mask_threshold)
+    """The EM step and the KL toward its Gaussians. `em`: the EM's
+    (new_means, new_vars, mask) of these inputs where the caller already has
+    them (kernel C's training launch runs it), else computed here."""
+    if em is None:
+        em = som_em(gauss_means, gauss_stds, sensor_distances, density, som_sigma,
+                    mask_threshold)
+    new_means, new_vars, mask = em
     new_stds = torch.sqrt(new_vars)
     loss = kl_gauss(gauss_means, new_means, gauss_stds, new_stds, std_floor)
     loss_kl = torch.mean(loss * mask.to(gauss_means.dtype), dim=1)

@@ -1,5 +1,5 @@
 """Record the RaySOM inputs of one training-render chunk at the KITTI preset
-on one NVIDIA GPU, with kernel S's outputs on them, for the CPU test that
+on one NVIDIA GPU, with the EM's outputs on them, for the CPU test that
 holds the port's RaySOM to the JAX package's on real render inputs
 (tests/test_torch_train_ops.py).
 
@@ -8,8 +8,8 @@ holds the port's RaySOM to the JAX package's on real render inputs
 Builds SceneRF(kitti()) with seeded random weights (f32, TF32 off, as
 chip_smoke.py does), takes one Trainer step on make_batch and saves the first
 render chunk's RaySOM inputs (predicted Gaussian means and stds [300, 4],
-sorted sample distances and alphas [300, 64]) and kernel S's (new_means,
-new_vars, mask) on them.
+sorted sample distances and alphas [300, 64]) and the (new_means, new_vars,
+mask) that the EM inside kernel C's training launch gave the step for them.
 """
 from __future__ import annotations
 
@@ -36,7 +36,6 @@ def main() -> None:
     from scenerf_tpu_torch import rendering
     from scenerf_tpu_torch.data.synthetic import make_batch
     from scenerf_tpu_torch.model import SceneRF
-    from scenerf_tpu_torch.som import som_em
     from scenerf_tpu_torch.train import Trainer
 
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -55,7 +54,7 @@ def main() -> None:
     ray_som = rendering.ray_som
 
     def recording_ray_som(m, s, sd, alphas, **kw):
-        chunks.append([t.detach().clone() for t in (m, s, sd, alphas)])
+        chunks.append([t.detach().clone() for t in (m, s, sd, alphas, *kw["em"])])
         return ray_som(m, s, sd, alphas, **kw)
 
     rendering.ray_som = recording_ray_som
@@ -63,8 +62,7 @@ def main() -> None:
         trainer.train_step(make_batch(cfg), torch.Generator(device=dev).manual_seed(0))
     finally:
         rendering.ray_som = ray_som
-    m, s, sd, alphas = chunks[0]
-    new_means, new_vars, mask = som_em(m, s, sd, alphas, cfg.som_sigma, cfg.som_mask_threshold)
+    m, s, sd, alphas, new_means, new_vars, mask = chunks[0]
     out = {k: v.cpu().numpy() for k, v in dict(
         gauss_means=m, gauss_stds=s, sensor_distances=sd, alphas=alphas,
         kernel_new_means=new_means, kernel_new_vars=new_vars, kernel_mask=mask).items()}

@@ -5,7 +5,9 @@ fewer than 64 samples per ray, tied distances, and the `tiny` serve path on
 the card against the same path on the CPU. The backward kernels (G-bwd,
 C-bwd) against autograd of the plain versions: a misaligned level, corners
 off the map, a small level every point lands on (atomic contention), saturated
-alphas; kernel S with argmax ties; outputs that carry a `grad_fn` on the card;
+alphas; kernel S with argmax ties; kernel C's training launch with RaySOM's
+EM inside (C = 1, 4, 8) against the plain pair and C-bwd through its sort
+order, at every block size; outputs that carry a `grad_fn` on the card;
 and the `tiny` training step on the card against the CPU. Kernel G bit-equal
 at one level of every KITTI tap width and lane-group size; G-bwd's vector
 and scalar atomics, its run-merging mapping, and a training step's chunk
@@ -33,6 +35,7 @@ from scenerf_tpu_torch.data.synthetic import default_intrinsics, input_frame
 from scenerf_tpu_torch.data.synthetic import make_batch
 from scenerf_tpu_torch.model import SceneRF
 from scenerf_tpu_torch.ops import build
+from scenerf_tpu_torch.ops import composite as CM
 from scenerf_tpu_torch.ops import gather as G
 from scenerf_tpu_torch.ops.composite import sort_composite, sort_composite_plain
 from scenerf_tpu_torch.ops.gather import gather_levels, gather_levels_plain
@@ -104,10 +107,12 @@ def test_gather_kernel_misaligned_level(dev):
                                gather_levels_plain([level], ix, iy), rtol=0, atol=1e-6)
 
 
+@pytest.mark.parametrize("R", [1, 7, 300, 777, 1024, 5000])
 @pytest.mark.parametrize("P", [1, 20, 33, 64])
-def test_sort_composite_kernel_matches_plain(dev, P):
+def test_sort_composite_kernel_matches_plain(dev, P, R):
+    """At the training (300), GT-depth (1024) and serve (5000) launch sizes
+    and at sizes that leave a block part empty (1, 7, 777)."""
     g = torch.Generator(device=dev).manual_seed(P)
-    R = 777
     sd = torch.clamp(torch.rand(R, P, generator=g, device=dev) * 120 - 20, min=0.1)  # ties
     dv = sd * 0.9
     dens = torch.rand(R, P, generator=g, device=dev) * 2
@@ -364,6 +369,64 @@ def test_sort_composite_bwd_kernel_matches_plain(dev, P, saturate):
                                    msg=name)
 
 
+def _som_inputs(g, R, C_, dev):
+    """Sorted means with equal prototypes (exact argmax ties) on a quarter
+    of the rays, and stds."""
+    means = torch.sort(torch.rand(R, C_, generator=g, device=dev) * 100, dim=1).values
+    if C_ > 1:
+        means[: (R + 3) // 4, 1] = means[: (R + 3) // 4, 0]
+    stds = torch.rand(R, C_, generator=g, device=dev) * 4 + 1.5
+    return means, stds
+
+
+@pytest.mark.parametrize("R", [1, 7, 300, 1024, 5000])
+@pytest.mark.parametrize("P", [1, 20, 33, 64])
+def test_sort_composite_with_som_matches_plain(dev, P, R):
+    """Kernel C's training launch, with RaySOM's EM inside, at C = 1, 4, 8:
+    its composite outputs equal kernel C's alone (the sorted ones bit-equal
+    to the stable sort), its EM outputs agree with `som_em_plain` on its
+    sorted samples and alphas (all but 0.1% of the rays, rounded down, within
+    rtol 1e-4, the mask equal), it counts one launch of C and one of S, and
+    C-bwd through its `order` matches autograd of the plain version; with
+    saturated alphas, clamped distance ties and equal prototypes."""
+    g = torch.Generator(device=dev).manual_seed(R * 100 + P)
+    ins = _composite_inputs(g, R, P, dev, saturate=True)
+    alone = sort_composite(*ins)
+    plain = sort_composite_plain(*ins)
+    gd = torch.randn(R, generator=g, device=dev)
+    gc = torch.randn(R, 3, generator=g, device=dev)
+    leaves = [t.detach().clone().requires_grad_(True) for t in ins]
+    out = sort_composite_plain(*leaves)
+    want_grads = torch.autograd.grad([out["depth"], out["color"]], leaves, [gd, gc])
+    for C_ in (1, 4, 8):
+        means, stds = _som_inputs(g, R, C_, dev)
+        som = CM.SomInputs(means, stds, 2.0, 0.1)
+        build.reset_launch_counts()
+        got = sort_composite(*ins, som=som)
+        assert build.LAUNCHES["sort_composite"] == 1 and build.LAUNCHES["ray_som"] == 1
+        assert build.LAUNCHES["ray_som_in_sort_composite"] == 1
+        for k in CM._OUT_KEYS:
+            torch.testing.assert_close(got[k], alone[k], rtol=0, atol=0, msg=k)
+        for k in ("sensor_distance", "depth_volume"):
+            torch.testing.assert_close(got[k], plain[k], rtol=0, atol=0)
+        em = som_em_plain(means, stds, got["sensor_distance"], got["alphas"], 2.0, 0.1)
+        close = torch.ones(R, dtype=torch.bool, device=dev)
+        for k, b in zip(CM.SOM_KEYS[:2], em[:2]):
+            close &= torch.isclose(got[k], b, rtol=1e-4, atol=1e-4).all(dim=1)
+        close &= (got["som_mask"] == em[2]).all(dim=1)
+        assert int((~close).sum()) <= R // 1000, (C_, int((~close).sum()))
+
+        leaves = [t.detach().clone().requires_grad_(True) for t in ins]
+        out = sort_composite(*leaves, som=som)
+        assert out["som_new_means"].grad_fn is None and out["depth"].grad_fn is not None
+        grads = torch.autograd.grad([out["depth"], out["color"]], leaves, [gd, gc])
+        torch.cuda.synchronize()
+        for name, a, b in zip(("d_sd", "d_dv", "d_density", "d_rgb"), grads, want_grads):
+            assert bool(torch.isfinite(a).all()), name
+            torch.testing.assert_close(a, b, rtol=1e-4,
+                                       atol=1e-5 * max(float(b.abs().max()), 1e-6), msg=name)
+
+
 def test_ray_som_kernel_matches_plain_with_ties(dev):
     g = torch.Generator(device=dev).manual_seed(5)
     R, C_, P = 2000, 4, 64
@@ -404,6 +467,8 @@ def test_tiny_train_step_on_card_matches_cpu(dev):
     train_kernels = ("gather_levels", "gather_levels_bwd", "sort_composite",
                      "sort_composite_bwd", "ray_som")
     assert all(build.LAUNCHES[k] >= 1 for k in train_kernels), build.LAUNCHES
+    # RaySOM's EM ran inside kernel C's training launches only: no launch of S alone
+    assert build.LAUNCHES["ray_som"] == build.LAUNCHES["ray_som_in_sort_composite"]
     want = cpu.train_step(batch, noise=noise)
     for k in want:
         torch.testing.assert_close(got[k].cpu(), want[k], rtol=1e-3, atol=1e-5, msg=k)
