@@ -17,7 +17,8 @@ Phases (each prints one line and raises on failure):
      and the launch sizes of the paths: R=300 (a training chunk), 1024 (the
      GT-depth render), 5000 (a serve chunk)
   4. encode: SceneRF(kitti()) with seeded random weights (EfficientNet-B7
-     spherical U-Net) on one synthetic 1220x370 frame
+     spherical U-Net) on one synthetic 1220x370 frame: one K5 launch per
+     batch norm (192), each site's shape and layout recorded
   5. serve: render_pose_sweep over the first 3 poses of the CLI's default
      sweep at stride 2, chunk 5000; pose 0 again on the plain versions
   6. numbers: encode ms, ms per pose, rays/s, peak device memory
@@ -44,10 +45,13 @@ Phases (each prints one line and raises on failure):
      make_batch (4 sources x 1200 rays, f32): finite loss and gradients,
      every parameter gets a nonzero gradient, the first AdamW step moves
      each weight by -lr g / (|g| + eps), BN running statistics move,
-     every kernel launches, S only inside C's launches; step 0 again on the
-     plain versions from the same
-     weights and draws, loss and every gradient leaf held to the kernel
-     path's; ms per step, rays/s, peak device memory
+     every kernel launches, S only inside C's launches, K5 192 times forward
+     and backward per step; step 0 again on the plain versions but K5's
+     kernels, from the same weights and draws, loss and every gradient leaf
+     held to the kernel path's; K5 on the train-mode encode (levels, and the
+     encoder's gradients under a fixed cotangent) against the plain version,
+     each held to the plain version in f64; ms per step, rays/s, peak device
+     memory
  11. reconstruction: the phase-4 weights encode the synthetic frame with
      KITTI's calibration, render the CLI's full default sweep (63 poses) at
      stride 2, chunk 5000 (kernels G, C), upsample it to 1220x370, quantize
@@ -56,6 +60,15 @@ Phases (each prints one line and raises on failure):
      version in both modes (bit-equal but for pixel-rounding ties) and the
      kernel's occupancy scored against the plain version's (SSCMetrics);
      s per frame, fuse ms, T's time (events, fresh volume; alone) and bound
+ 12. kernel K5 (N1-N4: batch norm statistics, affine + activation +
+     residual, and their backward) at every distinct batch norm configuration
+     of the encoder and decoder (shape, activation, residual, layout; the
+     sites recorded in phases 4 and 10): each kernel against its plain
+     version on the same inputs, the fused op in train mode against autograd
+     of the plain version (the cotangent zeroed at the leaky-ReLU's kink
+     ties), eval mode within 2 f32 spacings; each kernel's time alone, by
+     events and plain, its bound, F.batch_norm + activation; their sums over
+     a training step's 192 sites and an encode's; the host time of one call
 Then one JSON line of per-kernel results, the card line, and the last line
 {"ok": true, "device": {...}}. It exits non-zero, printing no result, when no
 CUDA device is present or any phase fails. Imports torch, numpy and the port
@@ -63,7 +76,10 @@ CUDA device is present or any phase fails. Imports torch, numpy and the port
 """
 from __future__ import annotations
 
+import contextlib
+import copy
 import json
+import math
 import re
 import statistics
 import subprocess
@@ -83,10 +99,16 @@ COMPOSITE_RTOL = 1e-5
 ARGMIN_MIN_SHARE = 0.999
 SERVE_RTOL = 1e-3
 SERVE_MIN_SHARE = 0.99
-SERVE_KERNELS = ("gather_levels", "sort_composite")  # the serve path runs no backward
+SERVE_KERNELS = ("gather_levels", "sort_composite", "bn_apply")  # no backward
 TRAIN_KERNELS = ("gather_levels", "gather_levels_bwd", "sort_composite", "sort_composite_bwd",
-                 "ray_som")
-RECON_KERNELS = ("gather_levels", "sort_composite", "tsdf_integrate")
+                 "ray_som", "bn_stats", "bn_apply", "bn_bwd_reduce", "bn_bwd_apply")
+RECON_KERNELS = ("gather_levels", "sort_composite", "tsdf_integrate", "bn_apply")
+BN_KERNELS = ("bn_stats", "bn_apply", "bn_bwd_reduce", "bn_bwd_apply")
+BN_SITES = 192             # FusedBatchNorm modules of the B7 spherical U-Net
+BN_RTOL = 1e-5             # y, running statistics, the statistics (sums in another order)
+BN_REL_L2 = 1e-4           # dx, dweight, dbias, d_residual, dx's coefficients
+BN_EVAL_SPACINGS = 2       # eval y: f32 spacings of the summands |x mul| + |add| + |r|
+ENCODE_F64_RATIO = 2.0     # K5's encode error against f64, in units of the plain version's
 GATHER_BWD_REL_TOL = 1e-5  # max abs error <= this x max|d_level| (f32 atomics)
 COORD_GRAD_REL_TOL = 1e-4  # d_ix, d_iy: sums over channels in another order
 COMPOSITE_BWD_RTOL = 1e-4  # the plain cumprod backward divides by 1 - alpha + 1e-10
@@ -218,7 +240,9 @@ def main() -> None:
     from scenerf_tpu_torch.encoder.sphere_decoder import sphere_map_coords
     from scenerf_tpu_torch.fields import gaussian_params_from_offsets
     from scenerf_tpu_torch.model import SceneRF, compute_sphere_maps
+    from scenerf_tpu_torch.encoder.norm import FusedBatchNorm
     from scenerf_tpu_torch.ops import build
+    from scenerf_tpu_torch.ops import norm as NM
     from scenerf_tpu_torch.ops.composite import (SOM_KEYS, SomInputs, sort_composite,
                                                  sort_composite_backward,
                                                  sort_composite_forward, sort_composite_plain)
@@ -424,6 +448,22 @@ def main() -> None:
     with torch.device(dev):
         model = SceneRF(cfg).eval()
     img = torch.from_numpy(input_frame(cfg, seed=SEED)).to(dev)
+    # every batch norm site of the encode: its input's shape and layout
+    # (NM.plane: 0 channel-last, > 0 channel-first, None neither) and its
+    # activation and residual (kernel K5's launch configurations)
+    bn_sites = {"eval": [], "train": []}
+
+    def site_hooks(path: str) -> list:
+        def record_site(mod, args, kwargs):
+            x_in = args[0]
+            res_in = args[1] if len(args) > 1 else kwargs.get("residual")
+            bn_sites[path].append((tuple(x_in.shape), mod.act, res_in is not None, mod.eps,
+                                   mod.momentum, NM.plane(x_in)))
+
+        return [m.register_forward_pre_hook(record_site, with_kwargs=True)
+                for m in model.modules() if isinstance(m, FusedBatchNorm)]
+
+    bn_hooks = site_hooks("eval")
     torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
     torch.cuda.synchronize()
@@ -431,6 +471,18 @@ def main() -> None:
     lv = model.encode(img, K_np, sphere_maps=sphere_maps)
     torch.cuda.synchronize()
     encode_ms = (time.perf_counter() - t0) * 1e3
+    encode_launches = dict(build.LAUNCHES)
+    for h in bn_hooks:
+        h.remove()
+    bn_eval = (encode_launches["bn_stats"], encode_launches["bn_apply"])
+    if len(bn_sites["eval"]) != BN_SITES or bn_eval != (0, BN_SITES):
+        fail(f"encode: {len(bn_sites['eval'])} batch norm sites, K5 launches (stats, apply) "
+             f"{bn_eval}; expected {BN_SITES} eval applies and no statistics")
+
+    def layouts(path: str) -> str:
+        planes = [site[-1] for site in bn_sites[path]]
+        return (f"{sum(p == 0 for p in planes)} channel-last, "
+                f"{sum(bool(p) for p in planes)} channel-first of {len(planes)} sites")
     want_shapes = [(1, *pyramid_level_size(cfg.sphere, s), c) for s, c in zip(SCALES, widths)]
     got_shapes = [tuple(lv[k].shape) for k in ("1_1", "1_2", "1_4", "1_8", "1_16")]
     if got_shapes != want_shapes:
@@ -440,7 +492,8 @@ def main() -> None:
             fail(f"encode level {k} is not finite")
     print(f"[4 encode] B7 spherical U-Net on {W}x{H}: levels {got_shapes}, finite, "
           f"max|level| {['%.3e' % float(v.abs().max()) for v in lv.values()]}; "
-          f"first call {encode_ms:.1f} ms")
+          f"first call {encode_ms:.1f} ms; kernel K5: {bn_eval[1]} eval launches (one per "
+          f"batch norm), inputs {layouts('eval')} (views, no copies)")
 
     # ---- 5. serve --------------------------------------------------------
     pyramid = model.pyramid_for_item(lv, 0)
@@ -464,6 +517,8 @@ def main() -> None:
     for name in SERVE_KERNELS:
         if launches[name] < 1:
             fail(f"kernel {name} was not launched on the serve path")
+    if (launches["bn_stats"], launches["bn_apply"]) != (0, BN_SITES):
+        fail(f"serve: K5 launches {launches}; expected {BN_SITES} eval applies (the encode)")
     n_rays = depth[0].numel()
     g0 = torch.Generator(device=dev).manual_seed(SEED)
     with build.plain_versions():
@@ -869,12 +924,16 @@ def main() -> None:
     step_ms, losses = [], []
     torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
+    NM.cotangent_copies = 0
     for i in range(TRAIN_STEPS):
+        hooks = site_hooks("train") if i == 0 else []  # step 0's layouts; not timed warm
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         metrics = trainer.train_step(batch, noise=noises[i])
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
+        for h in hooks:
+            h.remove()
         gmax = torch.stack([p.grad.abs().max() for p in params.values()]).cpu()
         if not (bool(torch.isfinite(gmax).all()) and bool(torch.isfinite(metrics["total_loss"]))):
             fail(f"train step {i}: loss or gradients not finite")
@@ -916,6 +975,11 @@ def main() -> None:
             fail(f"kernel {name} was not launched on the training path")
     if launches["ray_som"] != launches["ray_som_in_sort_composite"]:
         fail(f"the training path launched kernel S alone: {launches}")
+    bn_train = [launches[k] for k in BN_KERNELS]
+    if bn_train != [BN_SITES * TRAIN_STEPS] * 4:
+        fail(f"train: K5 launches {dict(zip(BN_KERNELS, bn_train))} in {TRAIN_STEPS} steps; "
+             f"expected {BN_SITES} of each per step")
+    bn_copies = NM.cotangent_copies
     # a conv bias that feeds a train-mode batch norm is subtracted again: zero gradient
     zero = [n for n, seen in seen_nonzero.items()
             if not seen and not re.search(r"conv_block[12]\.0\.bias$", n)]
@@ -930,12 +994,20 @@ def main() -> None:
     print(f"[10 train] {TRAIN_STEPS} steps, {cfg.n_sources} sources x {cfg.n_rays} rays x "
           f"{cfg.n_pts_per_ray} samples, f32: loss {['%.5f' % v for v in losses]}; finite; "
           f"{len(params)} parameter tensors, all with nonzero gradients; {moved} BN running "
-          f"statistics moved; main-path launches {launches}")
+          f"statistics moved; main-path launches {launches} (K5: {BN_SITES} forward and "
+          f"{BN_SITES} backward per step; inputs {layouts('train')}; {bn_copies} cotangents "
+          f"copied to their input's layout)")
     print(f"[10 train] {adam_text}")
 
+    # step 0 again on the plain versions but K5's kernels: the step's loss
+    # and gradients move by far more than rounding when the encode moves by
+    # rounding (RaySOM's assignments, the closest-sample argmins: on this
+    # card a 1e-6 change of the input frame on the plain path moved some
+    # gradient leaves by over 100%), so both sides share K5's encode, and K5
+    # is held to its plain version on the encode below
     model.load_state_dict(start_state)
     plain_trainer = Trainer(cfg, device=dev, model=model)
-    with build.plain_versions():
+    with build.plain_versions(keep=("bn",)):
         metrics_p = plain_trainer.train_step(batch, noise=noises[0])
     torch.cuda.synchronize()
     loss_k, loss_p = metrics0["total_loss"], float(metrics_p["total_loss"])
@@ -957,10 +1029,59 @@ def main() -> None:
         fail(f"train step 0: gradient {worst_name} relative L2 {worst:.3e} > {TRAIN_GRAD_REL_L2}")
     metric_err = max(abs(metrics0[k] - float(v)) / max(abs(float(v)), 1e-12)
                      for k, v in metrics_p.items())
-    print(f"[10 train] step 0 on the plain versions from the same weights and draws: loss "
+    print(f"[10 train] step 0 on the plain versions (K5's kernels kept) from the same weights "
+          f"and draws: loss "
           f"{loss_p:.6f} vs kernel path {loss_k:.6f}; worst metric relative difference "
           f"{metric_err:.2e}; worst gradient leaf relative L2 {worst:.3e} ({worst_name}; "
           f"limit {TRAIN_GRAD_REL_L2})")
+
+    # K5 on the train-mode encode: the levels, and every encoder gradient
+    # under one fixed cotangent of the levels, through K5's kernels and
+    # through the plain version, each held to the plain version in f64 (the
+    # same f32 frame and sphere-map coords): the kernels' error at most
+    # ENCODE_F64_RATIO times the plain version's
+    tensors, maps_t = plain_trainer.device_batch(batch)
+    enc = {}
+    for name in ("kernels", "plain", "f64"):
+        model.load_state_dict(start_state)
+        net = copy.deepcopy(model.net_rgb).double() if name == "f64" else model.net_rgb
+        net.train()
+        net.zero_grad(set_to_none=True)
+        cot = torch.Generator(device=dev).manual_seed(SEED + 1)
+        with build.plain_versions() if name != "kernels" else contextlib.nullcontext():
+            lv_e = net(tensors["img_input"].double() if name == "f64" else tensors["img_input"],
+                       maps_t)
+            sum((lv_e[k].double() * torch.randn(lv_e[k].shape, generator=cot, device=dev,
+                                                dtype=torch.float64)).sum()
+                for k in sorted(lv_e)).backward()
+        enc[name] = ({k: v.detach().double() for k, v in lv_e.items()},
+                     torch.cat([p.grad.double().flatten() for p in net.parameters()
+                                if p.grad is not None]))
+        del lv_e, net
+    model.zero_grad(set_to_none=True)
+    enc_err = {}
+    for name in ("kernels", "plain"):
+        lv_n, g_n = enc[name]
+        lv_r, g_r = enc["f64"]
+        enc_err[name] = dict(
+            levels={k: float((lv_n[k] - lv_r[k]).norm() / lv_r[k].norm()) for k in lv_r},
+            grads=float((g_n - g_r).norm() / g_r.norm()))
+    ek, ep = enc_err["kernels"], enc_err["plain"]
+    for k in ep["levels"]:
+        if not ek["levels"][k] <= ENCODE_F64_RATIO * ep["levels"][k] + 1e-7:
+            fail(f"train-mode encode, level {k}: K5's relative L2 error against f64 "
+                 f"{ek['levels'][k]:.3e} > {ENCODE_F64_RATIO} x the plain version's "
+                 f"{ep['levels'][k]:.3e}")
+    if not ek["grads"] <= ENCODE_F64_RATIO * ep["grads"] + 1e-7:
+        fail(f"train-mode encode gradients: K5's relative L2 error against f64 "
+             f"{ek['grads']:.3e} > {ENCODE_F64_RATIO} x the plain version's {ep['grads']:.3e}")
+    del enc, lv_n, g_n, lv_r, g_r, tensors, maps_t
+    torch.cuda.empty_cache()
+    print(f"[10 train] K5 on the train-mode encode against the plain version in f64: levels "
+          f"relative L2 { {k: float('%.2e' % v) for k, v in ek['levels'].items()} } (plain "
+          f"f32: { {k: float('%.2e' % v) for k, v in ep['levels'].items()} }); all encoder "
+          f"gradients under a fixed cotangent {ek['grads']:.2e} (plain f32 {ep['grads']:.2e}; "
+          f"limit {ENCODE_F64_RATIO}x)")
     n_step_rays = cfg.n_sources * cfg.n_rays
     print(f"[10 numbers] on {card}: {warm:.1f} ms per step (median of steps "
           f"{list(range(1, TRAIN_STEPS))}; step 0 {step_ms[0]:.1f} ms), "
@@ -1007,6 +1128,9 @@ def main() -> None:
     for name in RECON_KERNELS:
         if recon_launches[name] < 1:
             fail(f"kernel {name} was not launched on the reconstruction path")
+    if (recon_launches["bn_stats"], recon_launches["bn_apply"]) != (0, BN_SITES):
+        fail(f"reconstruction encode: K5 launches {recon_launches}; expected {BN_SITES} eval "
+             f"applies")
     if tuple(depths.shape) != (n_poses, H, W) or tuple(colors.shape) != (n_poses, H, W, 3):
         fail(f"full-res sweep {tuple(depths.shape)}, {tuple(colors.shape)}")
     if not bool(torch.isfinite(depths).all()):
@@ -1116,8 +1240,302 @@ def main() -> None:
           f"{t_ms:.3f} ms (events, fresh volume, median of {TIMING_RUNS}), alone "
           f"{t_dev_ms:.3f} ms (graph of {GRAPH_REPS}), bound {t_bound['bound_ms']:.3f} ms "
           f"({t_bound['bound_by']}); plain {t_plain_ms:.3f} ms")
+    # ---- 12. kernel K5 ---------------------------------------------------
+    # every distinct batch norm configuration of the B7 encoder and decoder
+    # (the sites recorded in phase 4; the training step runs the same): the
+    # kernels N1-N4 one by one against their plain versions, the fused op in
+    # train mode against autograd of the plain version, eval mode, and the
+    # times: each kernel alone (CUDA graph), the fused op by events, its
+    # plain version, and F.batch_norm(training=True) + the activation
     del lv, sweep, depths, colors, packed, vol, ties
     torch.cuda.empty_cache()
+    site_count = {"train": {}, "eval": {}}
+    for path, counts in site_count.items():
+        for key in bn_sites[path]:
+            counts[key] = counts.get(key, 0) + 1
+    configs = sorted(set(site_count["train"]) | set(site_count["eval"]),
+                     key=lambda k: (-math.prod(k[0]), k[1], k[2], k[5]))
+    act_ops = {"identity": 0, "silu": 4, "leaky": 2}        # per element, forward
+    act_grad_ops = {"identity": 0, "silu": 7, "leaky": 2}   # per element, act'(z)
+    lib_act = {"identity": lambda z: z, "silu": F.silu,
+               "leaky": lambda z: F.leaky_relu(z, NM.LEAKY_SLOPE)}
+
+    def rel_l2(a, b) -> float:
+        return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+
+    def check_close(what, a, b, rtol=BN_RTOL):
+        atol = 1e-6 * float(b.abs().max())
+        ok = (a - b).abs() <= rtol * b.abs() + atol
+        if not bool(ok.all()):
+            fail(f"K5 {what}: {int((~ok).sum())} values beyond rtol {rtol} (max abs error "
+                 f"{float((a - b).abs().max()):.3e})")
+        return float((a - b).abs().max())
+
+    def check_l2(what, a, b):
+        """Relative L2 within BN_REL_L2; returns the max abs error."""
+        err = rel_l2(a, b)
+        if not (bool(torch.isfinite(a).all()) and err <= BN_REL_L2):
+            fail(f"K5 {what}: relative L2 {err:.3e} > {BN_REL_L2}")
+        return float((a - b).abs().max())
+
+    bn_rows = []
+    for key in configs:
+        shape, act, has_res, eps, mom, layout = key
+        count = {path: site_count[path].get(key, 0) for path in site_count}
+        Cn = shape[-1]
+        Mn = math.prod(shape[:-1])
+        what = (f"{list(shape)} {act}{' + residual' if has_res else ''}"
+                f"{' channel-first' if layout else ''}")
+
+        def draw():
+            """A seeded tensor of the site's shape and layout."""
+            if not layout:
+                return torch.randn(shape, generator=gen, device=dev)
+            return torch.randn(shape[0], Cn, *shape[1:-1], generator=gen,
+                               device=dev).movedim(1, -1)
+
+        def lib_in(t):
+            """The library's layout: NCHW for a channel-first site, [M, C] else."""
+            return t.movedim(-1, 1) if layout else t.reshape(Mn, Cn)
+
+        x = draw() * 2 + 0.5
+        x[..., 0] = 0.5  # a constant channel: mean2 - mean^2 ties at 0
+        w = torch.rand(Cn, generator=gen, device=dev) + 0.5
+        b = torch.rand(Cn, generator=gen, device=dev) - 0.5
+        rm = torch.rand(Cn, generator=gen, device=dev) * 0.4 - 0.2
+        rv = torch.rand(Cn, generator=gen, device=dev) + 0.5
+        r = draw() if has_res else None
+        dy = draw()
+        run = lambda: [rm.clone(), rv.clone()]  # noqa: E731
+        err = {}
+        # N1: the statistics and the running update
+        rk, rp = run(), run()
+        _, st_k = NM.launch_forward(x, w, b, *rk, True, mom, eps, act, r, stages=1)
+        st_p = NM.stats_plain(x, w, b, *rp, mom, eps)
+        err["bn_stats"] = max(*(check_close(f"N1 {what} statistics row {i}", st_k[i], st_p[i])
+                                for i in range(5)),
+                              check_close(f"N1 {what} running mean", rk[0], rp[0]),
+                              check_close(f"N1 {what} running var", rk[1], rp[1]))
+        # N2 on the plain statistics; in eval mode folding the running ones
+        y_k, _ = NM.launch_forward(x, w, b, *run(), True, mom, eps, act, r, stages=2,
+                                   stats=st_p)
+        err["bn_apply"] = check_close(f"N2 {what}", y_k, NM.apply_plain(x, st_p, act, r))
+        ye_k, _ = NM.launch_forward(x, w, b, rm, rv, False, mom, eps, act, r, want_stats=False)
+        fold = NM.fold_plain(w, b, rm, rv, eps)
+        ye_p = NM.batch_norm_act_plain(x, w, b, rm, rv, False, mom, eps, act, r)
+        summands = (x * fold[NM.MUL]).abs() + fold[NM.ADD].abs() + (0 if r is None else r.abs())
+        spacing = torch.nextafter(summands, torch.full_like(summands, float("inf"))) - summands
+        eval_spacings = float(((ye_k - ye_p).abs() / spacing).max())
+        if not eval_spacings <= BN_EVAL_SPACINGS:
+            fail(f"K5 N2 eval {what}: {eval_spacings:.2f} f32 spacings from the plain version")
+        err["bn_apply"] = max(err["bn_apply"], float((ye_k - ye_p).abs().max()))
+        # N3, N4 on the plain statistics (and N4 on the plain coefficients)
+        _, gr_k, _ = NM.launch_backward(x, dy, w, st_p, True, eps, act, r, stages=1)
+        gr_p = NM.bwd_reduce_plain(x, dy, st_p, w, eps, act, True, r)
+        err["bn_bwd_reduce"] = max(check_l2(f"N3 {what} row {i}", gr_k[i], gr_p[i])
+                                   for i in range(4))
+        dx_k, _, dr_k = NM.launch_backward(x, dy, w, st_p, True, eps, act, r,
+                                           residual_grad=has_res, stages=2, grads=gr_p)
+        dx_p, dr_p = NM.bwd_apply_plain(x, dy, st_p, gr_p, act, r)
+        err["bn_bwd_apply"] = check_l2(f"N4 {what} dx", dx_k, dx_p)
+        if has_res:
+            err["bn_bwd_apply"] = max(err["bn_bwd_apply"], check_l2(f"N4 {what} d_r", dr_k, dr_p))
+        # the fused op, train mode: the kernels' Function against autograd of
+        # the plain version (the gradient through mean and var included); the
+        # cotangent zeroed at the leaky-ReLU's kink ties (z within rounding of
+        # 0, where each side's statistics may pick the other slope)
+        ties = NM.kink_ties(x, st_p, act, r)
+        dy_op = torch.where(ties, torch.zeros_like(dy), dy)
+        sides = []
+        for plain in (False, True):
+            leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+            rr = None if r is None else r.clone().requires_grad_(True)
+            stats = run()
+            with build.plain_versions() if plain else contextlib.nullcontext():
+                y = NM.batch_norm_act(*leaves, *stats, True, mom, eps, act, rr)
+            y.backward(dy_op)
+            sides.append([y.detach(), *stats, *(t.grad for t in leaves),
+                          *([] if rr is None else [rr.grad])])
+            del y, leaves, rr
+        for i, name in enumerate(("y", "running mean", "running var")):
+            check_close(f"{what} train {name}", sides[0][i], sides[1][i])
+        op_l2 = max(rel_l2(sides[0][i], sides[1][i]) for i in range(3, len(sides[0])))
+        for i, name in zip(range(3, len(sides[0])), ("x", "weight", "bias", "residual")):
+            check_l2(f"{what} train d{name}", sides[0][i], sides[1][i])
+        del sides
+        # times
+        nb = lambda *ts: nbytes(*(t for t in ts if t is not None))  # noqa: E731
+        r_act = r if act != "identity" else None  # the backward reads r for z only
+        y_buf, st_buf, gr_buf = torch.empty_like(x), st_p.clone(), gr_p.clone()
+        dx_buf = torch.empty_like(x)
+        dr_buf = torch.empty_like(x) if has_res and act != "identity" else None
+        scratch = run()
+        stage_calls = {
+            "bn_stats": (lambda: NM.launch_forward(x, w, b, *scratch, True, mom, eps, act, r,
+                                                   stages=1, y=y_buf, stats=st_buf),
+                         lambda: NM.stats_plain(x, w, b, *scratch, mom, eps)),
+            "bn_apply": (lambda: NM.launch_forward(x, w, b, *scratch, True, mom, eps, act, r,
+                                                   stages=2, y=y_buf, stats=st_p),
+                         lambda: NM.apply_plain(x, st_p, act, r)),
+            "bn_bwd_reduce": (lambda: NM.launch_backward(x, dy, w, st_p, True, eps, act, r,
+                                                         stages=1, grads=gr_buf, dx=dx_buf),
+                              lambda: NM.bwd_reduce_plain(x, dy, st_p, w, eps, act, True, r)),
+            "bn_bwd_apply": (lambda: NM.launch_backward(x, dy, w, st_p, True, eps, act, r,
+                                                        residual_grad=has_res, stages=2,
+                                                        grads=gr_p, dx=dx_buf, d_res=dr_buf),
+                             lambda: NM.bwd_apply_plain(x, dy, st_p, gr_p, act, r)),
+        }
+        stage_ms = {k: cuda_ms(kern) for k, (kern, _) in stage_calls.items()}
+        stage_plain_ms = {k: cuda_ms(plain) for k, (_, plain) in stage_calls.items()}
+        alone = {k: graph_ms(kern) for k, (kern, _) in stage_calls.items()}
+        alone["bn_apply_eval"] = graph_ms(lambda: NM.launch_forward(
+            x, w, b, rm, rv, False, mom, eps, act, r, want_stats=False, y=y_buf))
+        n = x.numel()
+        bounds = {
+            "bn_stats": bound(nb(x), 3 * n),
+            "bn_apply": bound(nb(x, r, y_buf), (4 + act_ops[act]) * n),
+            "bn_apply_eval": bound(nb(x, r, y_buf), (4 + act_ops[act]) * n),
+            "bn_bwd_reduce": bound(nb(x, dy, r_act), (5 + act_grad_ops[act]) * n),
+            "bn_bwd_apply": bound(nb(x, dy, r_act, x, r_act if has_res else None),
+                                  (6 + act_grad_ops[act]) * n),
+        }
+        leaf_x = x.clone().requires_grad_(True)
+        leaf_w, leaf_b = w.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        leaf_r = None if r is None else r.clone().requires_grad_(True)
+
+        def fused_fwd():
+            return NM.batch_norm_act(leaf_x, leaf_w, leaf_b, *scratch, True, mom, eps, act,
+                                     leaf_r)
+
+        def fused_step(fwd):
+            fwd().backward(dy)
+
+        def plain_fwd():
+            with build.plain_versions():
+                return fused_fwd()
+
+        def lib_fwd():
+            z = F.batch_norm(lib_in(leaf_x), scratch[0], scratch[1], leaf_w, leaf_b,
+                             training=True, momentum=1.0 - mom, eps=eps)
+            return lib_act[act](z if leaf_r is None else z + lib_in(leaf_r))
+
+        ms_fwd, ms_step = cuda_ms(fused_fwd), cuda_ms(lambda: fused_step(fused_fwd))
+        plain_fwd_ms, plain_step = cuda_ms(plain_fwd), cuda_ms(lambda: fused_step(plain_fwd))
+        lib_fwd_ms = cuda_ms(lib_fwd)
+        lib_step = cuda_ms(lambda: lib_fwd().backward(lib_in(dy)))
+        with torch.no_grad():
+            eval_ms = cuda_ms(lambda: NM.batch_norm_act(x, w, b, rm, rv, False, mom, eps, act, r))
+            eval_plain_ms = cuda_ms(lambda: NM.batch_norm_act_plain(x, w, b, rm, rv, False, mom,
+                                                                    eps, act, r))
+        reduce_dims = (0, *range(2, len(shape))) if layout else 0
+        lib_stats_ms = cuda_ms(lambda: torch.var_mean(lib_in(x), reduce_dims, correction=0))
+        bn_rows.append(dict(
+            shape=list(shape), act=act, residual=has_res, eps=eps, momentum=mom,
+            channel_first=bool(layout), sites=count, kink_ties=int(ties.sum()),
+            max_abs_err=err, eval_spacings=eval_spacings, op_rel_l2=op_l2,
+            device_ms=alone, bound_ms={k: v["bound_ms"] for k, v in bounds.items()},
+            stage_ms=stage_ms, stage_plain_ms=stage_plain_ms,
+            events_ms=dict(train_fwd=ms_fwd, train_bwd=ms_step - ms_fwd, eval=eval_ms),
+            plain_ms=dict(train_fwd=plain_fwd_ms, train_bwd=plain_step - plain_fwd_ms,
+                          eval=eval_plain_ms),
+            library_ms=dict(train_fwd=lib_fwd_ms, train_bwd=lib_step - lib_fwd_ms,
+                            var_mean=lib_stats_ms)))
+        row = bn_rows[-1]
+        print(f"[12 kernel K5] {what} x{count['train']} train, x{count['eval']} eval: N1 {alone['bn_stats'] * 1e3:.1f} N2 "
+              f"{alone['bn_apply'] * 1e3:.1f} (eval {alone['bn_apply_eval'] * 1e3:.1f}) N3 "
+              f"{alone['bn_bwd_reduce'] * 1e3:.1f} N4 {alone['bn_bwd_apply'] * 1e3:.1f} us alone; "
+              f"bounds {bounds['bn_stats']['bound_ms'] * 1e3:.1f} / "
+              f"{bounds['bn_apply']['bound_ms'] * 1e3:.1f} / "
+              f"{bounds['bn_bwd_reduce']['bound_ms'] * 1e3:.1f} / "
+              f"{bounds['bn_bwd_apply']['bound_ms'] * 1e3:.1f} us; events fwd / bwd / eval "
+              f"{ms_fwd:.3f} / {ms_step - ms_fwd:.3f} / {eval_ms:.3f} ms, plain "
+              f"{plain_fwd_ms:.3f} / {plain_step - plain_fwd_ms:.3f} / {eval_plain_ms:.3f}, "
+              f"F.batch_norm + act {lib_fwd_ms:.3f} / {lib_step - lib_fwd_ms:.3f}; errors "
+              f"{ {k: float('%.2e' % v) for k, v in err.items()} }, eval "
+              f"{eval_spacings:.2f} spacings, op rel L2 {op_l2:.2e} ({int(ties.sum())} kink "
+              f"ties)")
+        del x, r, dy, y_buf, dx_buf, dr_buf, leaf_x, leaf_r, y_k, ye_k, ye_p, dx_k, dx_p, dr_k
+        del dr_p, summands, spacing, stage_calls, ties, dy_op
+        torch.cuda.empty_cache()
+
+    def per_step(get, path: str = "train") -> float:
+        return sum(row["sites"][path] * get(row) for row in bn_rows)
+
+    # the host's time to issue one call (no synchronize: the enqueue), at the
+    # smallest configuration, kernels against the plain chain, in turns
+    shape, act, has_res, eps, mom = bn_rows[-1]["shape"], *(
+        bn_rows[-1][k] for k in ("act", "residual", "eps", "momentum"))
+    xs = torch.randn(shape, device=dev).requires_grad_(True)
+    rs = torch.randn(shape, device=dev) if has_res else None
+    mod = FusedBatchNorm(shape[-1], eps, mom, act=act).to(dev)
+
+    def host_us(fn, plain: bool, reps: int = 200) -> float:
+        times = []
+        with build.plain_versions() if plain else contextlib.nullcontext():
+            for _ in range(reps):
+                t0 = time.perf_counter()
+                fn()
+                times.append((time.perf_counter() - t0) * 1e6)
+                torch.cuda.synchronize()
+        return statistics.median(times)
+
+    host = {"train_fwd": {}, "eval": {}}
+    for plain in (False, True, True, False):
+        side = "plain" if plain else "kernel"
+        mod.train()
+        host["train_fwd"].setdefault(side, []).append(host_us(lambda: mod(xs, rs), plain))
+        mod.eval()
+        with torch.no_grad():
+            host["eval"].setdefault(side, []).append(host_us(lambda: mod(xs, rs), plain))
+    host = {k: {side: statistics.mean(v) for side, v in d.items()} for k, d in host.items()}
+    print(f"[12 kernel K5] host time to issue one call at {shape} {act}: train forward kernel "
+          f"{host['train_fwd']['kernel']:.1f} us vs plain chain {host['train_fwd']['plain']:.1f} "
+          f"us; eval {host['eval']['kernel']:.1f} vs {host['eval']['plain']:.1f} us (median of "
+          f"200, mean of 2 turns)")
+    del xs, rs, mod
+
+    bn_step = dict(
+        forward_ms=per_step(lambda r_: r_["device_ms"]["bn_stats"] + r_["device_ms"]["bn_apply"]),
+        backward_ms=per_step(lambda r_: r_["device_ms"]["bn_bwd_reduce"]
+                             + r_["device_ms"]["bn_bwd_apply"]),
+        eval_ms=per_step(lambda r_: r_["device_ms"]["bn_apply_eval"], "eval"),
+        forward_bound_ms=per_step(lambda r_: r_["bound_ms"]["bn_stats"] + r_["bound_ms"]["bn_apply"]),
+        backward_bound_ms=per_step(lambda r_: r_["bound_ms"]["bn_bwd_reduce"]
+                                   + r_["bound_ms"]["bn_bwd_apply"]),
+        eval_bound_ms=per_step(lambda r_: r_["bound_ms"]["bn_apply_eval"], "eval"),
+        forward_events_ms=per_step(lambda r_: r_["events_ms"]["train_fwd"]),
+        backward_events_ms=per_step(lambda r_: r_["events_ms"]["train_bwd"]),
+        plain_forward_ms=per_step(lambda r_: r_["plain_ms"]["train_fwd"]),
+        plain_backward_ms=per_step(lambda r_: r_["plain_ms"]["train_bwd"]),
+        library_forward_ms=per_step(lambda r_: r_["library_ms"]["train_fwd"]),
+        library_backward_ms=per_step(lambda r_: r_["library_ms"]["train_bwd"]),
+        sites=sum(row["sites"]["train"] for row in bn_rows), configurations=len(bn_rows),
+        layouts={path: layouts(path) for path in bn_sites},
+        cotangent_copies_in_train=bn_copies, host_us_per_call=host)
+    print(f"[12 kernel K5] per training step over the {bn_step['sites']} sites "
+          f"({bn_step['configurations']} configurations; inputs: train {layouts('train')}, eval "
+          f"{layouts('eval')}; {bn_step['cotangent_copies_in_train']} cotangents copied "
+          f"in {TRAIN_STEPS} steps): kernels alone forward {bn_step['forward_ms']:.3f} ms "
+          f"(bound {bn_step['forward_bound_ms']:.3f}), backward {bn_step['backward_ms']:.3f} ms "
+          f"(bound {bn_step['backward_bound_ms']:.3f}); eval encode {bn_step['eval_ms']:.3f} ms "
+          f"(bound {bn_step['eval_bound_ms']:.3f}); events forward / backward "
+          f"{bn_step['forward_events_ms']:.2f} / {bn_step['backward_events_ms']:.2f} ms, plain "
+          f"{bn_step['plain_forward_ms']:.2f} / {bn_step['plain_backward_ms']:.2f}, "
+          f"F.batch_norm + act {bn_step['library_forward_ms']:.2f} / "
+          f"{bn_step['library_backward_ms']:.2f}")
+    main_bn = bn_rows[0]  # the largest configuration
+    for name in BN_KERNELS:
+        results[name] = dict(
+            shape=main_bn["shape"], act=main_bn["act"], residual=main_bn["residual"],
+            max_abs_err=max(row["max_abs_err"][name] for row in bn_rows),
+            ms=main_bn["stage_ms"][name], plain_ms=main_bn["stage_plain_ms"][name],
+            device_ms=main_bn["device_ms"][name], bound_ms=main_bn["bound_ms"][name],
+            bound_by="bytes",
+            library_ms=main_bn["library_ms"]["var_mean"] if name == "bn_stats" else None,
+            per_step=bn_step, at_shapes=[{k: row[k] for k in (
+                "shape", "act", "residual", "channel_first", "sites", "device_ms", "bound_ms",
+                "events_ms", "plain_ms", "library_ms")} for row in bn_rows]
+            if name == "bn_stats" else None)
 
     sources = {
         "gather_levels": ("scenerf_tpu_torch/ops/csrc/gather.cu", "scenerf_tpu/geometry.py:106"),
@@ -1130,6 +1548,8 @@ def main() -> None:
         "ray_som": ("scenerf_tpu_torch/ops/csrc/som_em.cuh", "scenerf_tpu/som.py:37"),
         "tsdf_integrate": ("scenerf_tpu_torch/ops/csrc/tsdf.cu",
                            "scenerf_tpu/fusion/tsdf.py:44"),
+        **{k: ("scenerf_tpu_torch/ops/csrc/norm.cu", "scenerf_tpu/encoder/norm.py:31")
+           for k in BN_KERNELS},
     }
     # launches: on the training path, or for T the reconstruction path's
     main_launches = {**launches, "tsdf_integrate": recon_launches["tsdf_integrate"]}

@@ -135,28 +135,29 @@ class MBConv(nn.Module):
         se = SqueezeExcite(c_mid, max(1, int(c_in * se_ratio)))
         if self.expand:
             self.conv_pw = Conv2dCL(c_in, c_mid, 1, bias=False)
-            self.bn1 = FusedBatchNorm(c_mid, bn_eps, bn_momentum)
+            self.bn1 = FusedBatchNorm(c_mid, bn_eps, bn_momentum, act="silu")
             self.conv_dw = dw
-            self.bn2 = FusedBatchNorm(c_mid, bn_eps, bn_momentum)
+            self.bn2 = FusedBatchNorm(c_mid, bn_eps, bn_momentum, act="silu")
             self.se = se
             self.conv_pwl = Conv2dCL(c_mid, c_out, 1, bias=False)
             self.bn3 = FusedBatchNorm(c_out, bn_eps, bn_momentum)
         else:
             self.conv_dw = dw
-            self.bn1 = FusedBatchNorm(c_mid, bn_eps, bn_momentum)
+            self.bn1 = FusedBatchNorm(c_mid, bn_eps, bn_momentum, act="silu")
             self.se = se
             self.conv_pw = Conv2dCL(c_mid, c_out, 1, bias=False)
             self.bn2 = FusedBatchNorm(c_out, bn_eps, bn_momentum)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """The projection BN adds the block's residual (identity activation)
+        in its fused pass."""
+        res = x if self.residual else None
         if self.expand:
-            h = F.silu(self.bn1(self.conv_pw(x)))
-            h = F.silu(self.bn2(self.conv_dw(h)))
-            h = self.bn3(self.conv_pwl(self.se(h)))
-        else:
-            h = F.silu(self.bn1(self.conv_dw(x)))
-            h = self.bn2(self.conv_pw(self.se(h)))
-        return h + x if self.residual else h
+            h = self.bn1(self.conv_pw(x))
+            h = self.bn2(self.conv_dw(h))
+            return self.bn3(self.conv_pwl(self.se(h)), res)
+        h = self.bn1(self.conv_dw(x))
+        return self.bn2(self.conv_pw(self.se(h)), res)
 
 
 class EfficientNet(nn.Module):
@@ -169,7 +170,7 @@ class EfficientNet(nn.Module):
         super().__init__()
         stem = round_filters(32, width)
         self.conv_stem = Conv2dCL(3, stem, 3, stride=2, bias=False, same=True)
-        self.bn1 = FusedBatchNorm(stem, bn_eps, bn_momentum)
+        self.bn1 = FusedBatchNorm(stem, bn_eps, bn_momentum, act="silu")
         c_in = stem
         stages = []
         self.tap_channels = {"s1": 3}
@@ -190,7 +191,7 @@ class EfficientNet(nn.Module):
 
     def forward(self, x: torch.Tensor) -> Taps:
         taps: Taps = {"s1": x}
-        h = F.silu(self.bn1(self.conv_stem(x)))
+        h = self.bn1(self.conv_stem(x))
         for si, stage in enumerate(self.blocks):
             for block in stage:
                 h = block(h)

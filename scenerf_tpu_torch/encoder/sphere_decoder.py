@@ -18,7 +18,6 @@ from typing import Dict, Tuple
 
 import numpy as np
 import torch
-import torch.nn.functional as F
 from torch import nn
 
 from scenerf_tpu_torch import geometry as geo
@@ -30,7 +29,6 @@ from scenerf_tpu_torch.ops.gather import gather_levels
 Levels = Dict[str, torch.Tensor]
 
 SCALES = (1, 2, 4, 8, 16, 32)
-LEAKY_SLOPE = 0.01
 DECODER_BN_EPS = 1e-5
 DECODER_BN_MOMENTUM = 0.9
 
@@ -107,22 +105,24 @@ def resize_bilinear_align_corners(x: torch.Tensor, out_hw: Tuple[int, int]) -> t
 
 
 class BasicBlock(nn.Module):
-    """Dilated residual block: leaky(bn2(conv2(leaky(bn1(conv1 x)))) + x)."""
+    """Dilated residual block: leaky(bn2(conv2(leaky(bn1(conv1 x)))) + x),
+    each BN fused with its leaky-ReLU (JAX's: gradient 1 at 0), the second
+    with the residual too."""
 
     def __init__(self, channels: int, dilation: int):
         super().__init__()
         d = dilation
         self.conv_block1 = nn.Sequential(
             Conv2dCL(channels, channels, 3, padding=d, dilation=d),
-            FusedBatchNorm(channels, DECODER_BN_EPS, DECODER_BN_MOMENTUM))
+            FusedBatchNorm(channels, DECODER_BN_EPS, DECODER_BN_MOMENTUM, act="leaky"))
         self.conv_block2 = nn.Sequential(
             Conv2dCL(channels, channels, 3, padding=d, dilation=d),
-            FusedBatchNorm(channels, DECODER_BN_EPS, DECODER_BN_MOMENTUM))
+            FusedBatchNorm(channels, DECODER_BN_EPS, DECODER_BN_MOMENTUM, act="leaky"))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = F.leaky_relu(self.conv_block1(x), LEAKY_SLOPE)
-        h = self.conv_block2(h)
-        return F.leaky_relu(h + x, LEAKY_SLOPE)
+        h = self.conv_block1(x)
+        conv2, bn2 = self.conv_block2
+        return bn2(conv2(h), x)
 
 
 class UpSampleBN(nn.Module):

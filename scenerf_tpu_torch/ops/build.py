@@ -23,17 +23,20 @@ from pathlib import Path
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 SOURCES = ("gather.cu", "gather_bwd.cu", "composite.cu", "composite_bwd.cu", "som.cu",
-           "tsdf.cu")
+           "tsdf.cu", "norm.cu")
 NVCC_FLAGS = ("-gencode=arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas=-v")
 
 LAUNCHES = {"gather_levels": 0, "gather_levels_bwd": 0, "sort_composite": 0,
             "sort_composite_bwd": 0, "ray_som": 0, "tsdf_integrate": 0,
             # of the ray_som launches, those inside kernel C's (training) launch
-            "ray_som_in_sort_composite": 0}
+            "ray_som_in_sort_composite": 0,
+            # kernel K5 (batch norm + activation): N1-N4
+            "bn_stats": 0, "bn_apply": 0, "bn_bwd_reduce": 0, "bn_bwd_apply": 0}
 
 _lib = None
 _force_plain = False
+_keep = frozenset()  # inside plain_versions: the kernels that still launch
 build_seconds = None  # wall time of the build this process ran (None: reused)
 
 
@@ -43,21 +46,24 @@ def reset_launch_counts() -> None:
 
 
 @contextlib.contextmanager
-def plain_versions():
+def plain_versions(keep=()):
     """Run the plain PyTorch version of every kernel, also on CUDA tensors
-    (for comparing a whole path against its plain twin on the card)."""
-    global _force_plain
-    prev, _force_plain = _force_plain, True
+    (for comparing a whole path against its plain twin on the card), but the
+    kernels named in `keep` (the `name` their wrappers pass to
+    `use_kernel`)."""
+    global _force_plain, _keep
+    prev = _force_plain, _keep
+    _force_plain, _keep = True, frozenset(keep)
     try:
         yield
     finally:
-        _force_plain = prev
+        _force_plain, _keep = prev
 
 
-def use_kernel(t) -> bool:
+def use_kernel(t, name: str = "") -> bool:
     """The dispatch rule: the kernel for a CUDA tensor, the plain version for
-    a CPU tensor (or inside `plain_versions`)."""
-    return t.is_cuda and not _force_plain
+    a CPU tensor (or inside `plain_versions`, unless it keeps `name`)."""
+    return t.is_cuda and (not _force_plain or name in _keep)
 
 
 def resolve_device(device=None):
@@ -129,7 +135,7 @@ def library() -> ctypes.CDLL:
     global _lib
     if _lib is None:
         lib = ctypes.CDLL(str(_build()))
-        vp, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        vp, i32, f32, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
         signatures = {
             "scenerf_gather_levels_f32": [vp, vp, i32, vp, vp, i32, vp, i32, i32, i32, i32,
                                           vp],
@@ -143,6 +149,10 @@ def library() -> ctypes.CDLL:
             "scenerf_ray_som_f32": [vp, vp, vp, vp, i32, i32, i32, f32, f32, f32,
                                     vp, vp, vp, vp],
             "scenerf_tsdf_integrate_f32": [vp] * 7 + [i32] * 6 + [f32] * 6 + [i32, vp],
+            "scenerf_bn_forward_f32": [vp, vp, vp, i64, i32, i64] + [vp] * 6
+                                      + [i64, f32, f32, f32, i32, i32, i32, vp],
+            "scenerf_bn_backward_f32": [vp] * 5 + [i64, i32, i64] + [vp] * 4
+                                       + [i64, f32, i32, i32, i32, vp],
             "scenerf_empty_launch": [i32, vp],
         }
         for name, argtypes in signatures.items():

@@ -1,0 +1,785 @@
+// Kernel K5: batch normalization fused with its activation and an optional
+// residual add, forward and backward, over a channel-last [M, C] tensor.
+//
+// Replaces the TPU-shaped scenerf_tpu/encoder/norm.py:31 FusedBatchNorm (f32
+// statistics with the converts fused into the reductions, the affine folded
+// into per-channel mul/add in the compute dtype) together with the swish /
+// leaky-ReLU that follows it (scenerf_tpu/encoder/backbones.py:99,106,161;
+// scenerf_tpu/encoder/sphere_decoder.py:153,157,161,165): the affine +
+// activation half was the prologue of the JAX package's deleted Pallas conv.
+//
+//   N1 bn_stats       per-channel sum x and sum x^2 over the M rows, written as
+//                     per-block partials (no atomics: the sums are
+//                     deterministic), then a finalize launch: mean, mean2,
+//                     var = max(mean2 - mean^2, 0) (E[x^2] - E[x]^2 as the
+//                     reference computes it, not Welford), mul = w rsqrt(var +
+//                     eps), add = b - mean mul, and the running statistics
+//                     updated in place in flax's convention (ra = m ra + (1 - m)
+//                     batch, the biased variance).
+//   N2 bn_apply       z = x mul + add (+ r), y = act(z); in eval mode it folds
+//                     mul/add from the running statistics itself (one launch).
+//   N3 bn_bwd_reduce  g = dy act'(z) with z recomputed from x (no saved
+//                     pre-activation), per-channel sum g and sum g x as
+//                     partials, then a finalize launch: dweight, dbias and the
+//                     two per-channel coefficients of dx.
+//   N4 bn_bwd_apply   dx = g mul + alpha_c + beta_c x; d_r = g.
+//
+// The gradient goes through mean and var as JAX's autodiff of FusedBatchNorm
+// sends it: rsqrt's derivative -0.5 rsqrt(v) / v, and at max(v_raw, 0) half
+// of it where v_raw == 0 (jnp.maximum's tie), none where v_raw < 0.
+//
+// Bound: device-memory bytes. Per element the work is a few operations
+// (~10-20 with the SiLU), far under the card's 160 f32 operations per 8 bytes
+// moved. The least traffic of the fused design: train forward 3 passes over x
+// (read for the statistics, read and write y) plus a read of r; eval forward
+// 2 passes; backward 5 (x and dy read by N3 and again by N4, dx written) plus
+// r and d_r where the activation needs them.
+//
+// Design: one tiling for all four kernels. A thread owns VW consecutive
+// channels (VW = 4, one 16-byte vector, where C % 4 == 0 and every pointer is
+// 16-byte aligned, else 1) and walks the rows; TW threads cover a row (or a
+// tile of it, when C is wider than 256 vectors), RB rows per block, so a warp
+// reads consecutive addresses whatever C is: at C = 80 a block of 12 rows x 20
+// threads reads 12 whole rows. The per-channel vectors load once per thread,
+// into registers. The row loop keeps 4 independent loads in flight per
+// thread. The reductions sum in f32 per thread, then over the block's rows in
+// shared memory, into one partial per block and channel; the finalize sums
+// those partials in f64. The finalize is a launch of its own, separate from
+// the reduction, so a multi-GPU caller can all-reduce the partial sums
+// between the two. A channel-first input (a [B, H, W, C] view of an
+// NCHW-contiguous tensor, as the eval encoder's convolutions give) takes
+// kernels of its own with one channel per blockIdx.y and the positions of its
+// planes across the threads, scalar loads; the outputs keep the input's
+// layout.
+//
+// Every kernel is templated on the element type T with f32 accumulation;
+// only T = float is instantiated.
+#include <math.h>
+#include <stdint.h>
+
+#include "common.cuh"
+
+namespace scenerf {
+namespace {
+
+constexpr int kThreads = 256;       // threads per block of N1-N4 (at most)
+constexpr int kRedBlocks = 528;     // most blocks of a reduction (N1, N3): 4 per SM
+constexpr int kApplyBlocks = 1056;  // most blocks of an elementwise pass (N2, N4)
+constexpr int kUnroll = 4;          // rows in flight per thread
+constexpr int kFinTile = 32;        // finalize: channels x partial rows per block
+constexpr float kLeakySlope = 0.01f;
+
+enum Act { kIdentity = 0, kSilu = 1, kLeaky = 2 };
+// rows of the per-channel stats [5, C]
+enum StatRow { kMean = 0, kVarRaw = 1, kInv = 2, kMul = 3, kAdd = 4 };
+// rows of the per-channel gradients [4, C]
+enum GradRow { kDWeight = 0, kDBias = 1, kAlpha = 2, kBeta = 3 };
+
+struct Tile {
+  int V;       // vectors per row (C / vw)
+  int TW;      // threads across a row tile
+  int RB;      // rows per block
+  int gy;      // row tiles (blocks along y)
+  int gx;      // blocks along the rows
+};
+
+Tile make_tile(int64_t M, int C, int vw, int max_blocks) {
+  Tile t;
+  t.V = C / vw;
+  t.gy = (t.V + kThreads - 1) / kThreads;
+  t.TW = (t.V + t.gy - 1) / t.gy;
+  t.RB = kThreads / t.TW;
+  const int64_t row_blocks = (M + t.RB - 1) / t.RB;
+  const int64_t cap = max_blocks / t.gy > 0 ? max_blocks / t.gy : 1;
+  t.gx = (int)(row_blocks < cap ? row_blocks : cap);
+  if (t.gx < 1) t.gx = 1;
+  return t;
+}
+
+template <typename T, int VW>
+__device__ __forceinline__ void load_vec(const T* __restrict__ p, float (&v)[VW]) {
+#pragma unroll
+  for (int j = 0; j < VW; ++j) v[j] = (float)p[j];
+}
+
+template <>
+__device__ __forceinline__ void load_vec<float, 4>(const float* __restrict__ p, float (&v)[4]) {
+  const float4 q = *reinterpret_cast<const float4*>(p);
+  v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
+}
+
+template <typename T, int VW>
+__device__ __forceinline__ void store_vec(T* __restrict__ p, const float (&v)[VW]) {
+#pragma unroll
+  for (int j = 0; j < VW; ++j) p[j] = (T)v[j];
+}
+
+template <>
+__device__ __forceinline__ void store_vec<float, 4>(float* __restrict__ p, const float (&v)[4]) {
+  *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+// z = x mul + add (+ r), each step rounded, in the plain version's order: N2
+// and, recomputing z, N3 and N4 take the same z (and the same side of the
+// leaky-ReLU's kink) as the forward
+__device__ __forceinline__ float pre_act(float x, float mul, float add) {
+  return __fadd_rn(__fmul_rn(x, mul), add);
+}
+
+template <int ACT>
+__device__ __forceinline__ float act_fwd(float z) {
+  if (ACT == kSilu) return __fdiv_rn(z, 1.0f + expf(-z));
+  if (ACT == kLeaky) return z >= 0.0f ? z : kLeakySlope * z;
+  return z;
+}
+
+// d act / dz: SiLU s (1 + z (1 - s)), leaky 1 where z >= 0 (JAX's where)
+template <int ACT>
+__device__ __forceinline__ float act_grad(float z) {
+  if (ACT == kSilu) {
+    const float s = __fdiv_rn(1.0f, 1.0f + expf(-z));
+    return s * (1.0f + z * (1.0f - s));
+  }
+  if (ACT == kLeaky) return z >= 0.0f ? 1.0f : kLeakySlope;
+  return 1.0f;
+}
+
+// the per-channel affine: from the stats (train) or folded from the running
+// statistics (eval); an eval launch that is given `stats` records the fold
+// there for its backward
+__device__ __forceinline__ void fold(const float* __restrict__ weight,
+                                     const float* __restrict__ bias,
+                                     const float* __restrict__ run_mean,
+                                     const float* __restrict__ run_var, float eps, int c,
+                                     float& mean, float& var, float& inv, float& mul,
+                                     float& add) {
+  mean = run_mean[c];
+  var = run_var[c];
+  inv = rsqrtf(__fadd_rn(var, eps));
+  mul = __fmul_rn(weight[c], inv);
+  add = __fsub_rn(bias[c], __fmul_rn(mean, mul));
+}
+
+// the row loop of one thread: rows ty, ty + step, ... of the block's share,
+// kUnroll at a time
+#define SCENERF_ROWS(...)                                                    \
+  {                                                                          \
+    const int64_t step = (int64_t)RB * gridDim.x;                            \
+    for (int64_t r0 = (int64_t)blockIdx.x * RB + ty; r0 < M;                 \
+         r0 += step * kUnroll) {                                             \
+      _Pragma("unroll") for (int u = 0; u < kUnroll; ++u) {                  \
+        const int64_t r = r0 + u * step;                                     \
+        if (r < M) { __VA_ARGS__ }                                           \
+      }                                                                      \
+    }                                                                        \
+  }
+
+// sums a[2][VW] over the block's RB rows (shared memory tree) and writes the
+// block's partials [gx, 2C]: row blockIdx.x, first C the sums of a[0], then
+// those of a[1]
+template <int VW>
+__device__ __forceinline__ void block_partials(float (&a)[2][VW], int tx, int ty, int TW,
+                                               int RB, bool active, int c0, int C,
+                                               float* __restrict__ partials) {
+  __shared__ float sm[2][kThreads * 4];
+  const int slot = (ty * TW + tx) * VW;
+#pragma unroll
+  for (int k = 0; k < 2; ++k) {
+#pragma unroll
+    for (int j = 0; j < VW; ++j) sm[k][slot + j] = a[k][j];
+  }
+  __syncthreads();
+  int span = 1;
+  while (span < RB) span <<= 1;
+  for (int s = span >> 1; s > 0; s >>= 1) {
+    if (ty < s && ty + s < RB) {
+      const int other = ((ty + s) * TW + tx) * VW;
+#pragma unroll
+      for (int k = 0; k < 2; ++k) {
+#pragma unroll
+        for (int j = 0; j < VW; ++j) sm[k][slot + j] += sm[k][other + j];
+      }
+    }
+    __syncthreads();
+  }
+  if (ty == 0 && active) {
+    float* row = partials + (int64_t)blockIdx.x * 2 * C;
+#pragma unroll
+    for (int j = 0; j < VW; ++j) {
+      row[c0 + j] = sm[0][slot + j];
+      row[C + c0 + j] = sm[1][slot + j];
+    }
+  }
+}
+
+// N1: per-block partial sums of x and x^2
+template <typename T, int VW>
+__global__ void __launch_bounds__(kThreads)
+bn_stats_kernel(const T* __restrict__ x, int64_t M, int C, int TW, int RB,
+                float* __restrict__ partials) {
+  const int tx = threadIdx.x % TW, ty = threadIdx.x / TW;
+  const int cv = blockIdx.y * TW + tx;
+  const bool active = cv * VW < C;
+  const int c0 = cv * VW;
+  float a[2][VW];
+#pragma unroll
+  for (int j = 0; j < VW; ++j) a[0][j] = a[1][j] = 0.0f;
+  if (active) {
+    SCENERF_ROWS({
+      float v[VW];
+      load_vec<T, VW>(x + r * C + c0, v);
+#pragma unroll
+      for (int j = 0; j < VW; ++j) {
+        a[0][j] += v[j];
+        a[1][j] = fmaf(v[j], v[j], a[1][j]);
+      }
+    })
+  }
+  block_partials<VW>(a, tx, ty, TW, RB, active, c0, C, partials);
+}
+
+// sums the [gx, 2C] partials of channel c over the gx rows in f64: one
+// channel per threadIdx.x, the partial rows spread over threadIdx.y
+__device__ __forceinline__ bool sum_partials(const float* __restrict__ partials, int gx,
+                                             int C, double& s, double& q) {
+  __shared__ double sm[2][kFinTile][kFinTile + 1];
+  const int tx = threadIdx.x, ty = threadIdx.y;
+  const int c = blockIdx.x * kFinTile + tx;
+  s = 0.0;
+  q = 0.0;
+  if (c < C) {
+    for (int p = ty; p < gx; p += kFinTile) {
+      s += (double)partials[(int64_t)p * 2 * C + c];
+      q += (double)partials[(int64_t)p * 2 * C + C + c];
+    }
+  }
+  sm[0][ty][tx] = s;
+  sm[1][ty][tx] = q;
+  __syncthreads();
+  for (int k = kFinTile / 2; k > 0; k >>= 1) {
+    if (ty < k) {
+      sm[0][ty][tx] += sm[0][ty + k][tx];
+      sm[1][ty][tx] += sm[1][ty + k][tx];
+    }
+    __syncthreads();
+  }
+  s = sm[0][0][tx];
+  q = sm[1][0][tx];
+  return ty == 0 && c < C;
+}
+
+// N1's finalize: the batch statistics, the folded affine, the running update
+__global__ void __launch_bounds__(kFinTile * kFinTile)
+bn_stats_finalize_kernel(const float* __restrict__ partials, int gx, int64_t M, int C,
+                         const float* __restrict__ weight, const float* __restrict__ bias,
+                         float* __restrict__ run_mean, float* __restrict__ run_var,
+                         float momentum, float one_minus_momentum, float eps,
+                         float* __restrict__ stats) {
+  double s, q;
+  if (!sum_partials(partials, gx, C, s, q)) return;
+  const int c = blockIdx.x * kFinTile + threadIdx.x;
+  const float mean = (float)(s / (double)M);
+  const float mean2 = (float)(q / (double)M);
+  const float var_raw = __fsub_rn(mean2, __fmul_rn(mean, mean));
+  const float var = fmaxf(var_raw, 0.0f);
+  const float inv = rsqrtf(__fadd_rn(var, eps));
+  const float mul = __fmul_rn(weight[c], inv);
+  stats[kMean * C + c] = mean;
+  stats[kVarRaw * C + c] = var_raw;
+  stats[kInv * C + c] = inv;
+  stats[kMul * C + c] = mul;
+  stats[kAdd * C + c] = __fsub_rn(bias[c], __fmul_rn(mean, mul));
+  run_mean[c] = __fadd_rn(__fmul_rn(momentum, run_mean[c]),
+                          __fmul_rn(one_minus_momentum, mean));
+  run_var[c] = __fadd_rn(__fmul_rn(momentum, run_var[c]), __fmul_rn(one_minus_momentum, var));
+}
+
+struct Affine {
+  const float* stats;     // train: read mul/add here; eval: write the fold here (or null)
+  const float* weight;    // eval: the fold's inputs
+  const float* bias;
+  const float* run_mean;
+  const float* run_var;
+  float eps;
+  int train;
+};
+
+// N2: y = act(x mul + add (+ r))
+template <typename T, int VW, int ACT, bool RES>
+__global__ void __launch_bounds__(kThreads)
+bn_apply_kernel(const T* __restrict__ x, const T* __restrict__ res, T* __restrict__ y,
+                int64_t M, int C, int TW, int RB, Affine af) {
+  const int tx = threadIdx.x % TW, ty = threadIdx.x / TW;
+  const int cv = blockIdx.y * TW + tx;
+  if (ty >= RB || cv * VW >= C) return;
+  const int c0 = cv * VW;
+  float mul[VW], add[VW];
+#pragma unroll
+  for (int j = 0; j < VW; ++j) {
+    if (af.train) {
+      mul[j] = af.stats[kMul * C + c0 + j];
+      add[j] = af.stats[kAdd * C + c0 + j];
+    } else {
+      float mean, var, inv;
+      fold(af.weight, af.bias, af.run_mean, af.run_var, af.eps, c0 + j, mean, var, inv,
+           mul[j], add[j]);
+      if (af.stats != nullptr && blockIdx.x == 0 && ty == 0) {
+        float* st = const_cast<float*>(af.stats);
+        st[kMean * C + c0 + j] = mean;
+        st[kVarRaw * C + c0 + j] = var;
+        st[kInv * C + c0 + j] = inv;
+        st[kMul * C + c0 + j] = mul[j];
+        st[kAdd * C + c0 + j] = add[j];
+      }
+    }
+  }
+  SCENERF_ROWS({
+    float v[VW];
+    load_vec<T, VW>(x + r * C + c0, v);
+    if (RES) {
+      float rv[VW];
+      load_vec<T, VW>(res + r * C + c0, rv);
+#pragma unroll
+      for (int j = 0; j < VW; ++j) {
+        v[j] = act_fwd<ACT>(__fadd_rn(pre_act(v[j], mul[j], add[j]), rv[j]));
+      }
+    } else {
+#pragma unroll
+      for (int j = 0; j < VW; ++j) v[j] = act_fwd<ACT>(pre_act(v[j], mul[j], add[j]));
+    }
+    store_vec<T, VW>(y + r * C + c0, v);
+  })
+}
+
+// g = dy act'(z), z recomputed (the identity needs no z)
+template <typename T, int VW, int ACT, bool RES>
+__device__ __forceinline__ void grad_at(const T* __restrict__ x, const T* __restrict__ res,
+                                        const T* __restrict__ dy, int64_t at,
+                                        const float (&mul)[VW], const float (&add)[VW],
+                                        float (&xv)[VW], float (&g)[VW]) {
+  load_vec<T, VW>(x + at, xv);
+  load_vec<T, VW>(dy + at, g);
+  if (ACT != kIdentity) {
+    float rv[VW];
+    if (RES) load_vec<T, VW>(res + at, rv);
+#pragma unroll
+    for (int j = 0; j < VW; ++j) {
+      const float z0 = pre_act(xv[j], mul[j], add[j]);
+      const float z = RES ? __fadd_rn(z0, rv[j]) : z0;
+      g[j] *= act_grad<ACT>(z);
+    }
+  }
+}
+
+// N3: per-block partial sums of g and g x
+template <typename T, int VW, int ACT, bool RES>
+__global__ void __launch_bounds__(kThreads)
+bn_bwd_reduce_kernel(const T* __restrict__ x, const T* __restrict__ res,
+                     const T* __restrict__ dy, int64_t M, int C, int TW, int RB,
+                     const float* __restrict__ stats, float* __restrict__ partials) {
+  const int tx = threadIdx.x % TW, ty = threadIdx.x / TW;
+  const int cv = blockIdx.y * TW + tx;
+  const bool active = cv * VW < C;
+  const int c0 = cv * VW;
+  float a[2][VW], mul[VW], add[VW];
+#pragma unroll
+  for (int j = 0; j < VW; ++j) {
+    a[0][j] = a[1][j] = 0.0f;
+    mul[j] = active ? stats[kMul * C + c0 + j] : 0.0f;
+    add[j] = active ? stats[kAdd * C + c0 + j] : 0.0f;
+  }
+  if (active) {
+    SCENERF_ROWS({
+      float xv[VW], g[VW];
+      grad_at<T, VW, ACT, RES>(x, res, dy, r * C + c0, mul, add, xv, g);
+#pragma unroll
+      for (int j = 0; j < VW; ++j) {
+        a[0][j] += g[j];
+        a[1][j] = fmaf(g[j], xv[j], a[1][j]);
+      }
+    })
+  }
+  block_partials<VW>(a, tx, ty, TW, RB, active, c0, C, partials);
+}
+
+// N3's finalize: dweight, dbias and dx's coefficients alpha, beta
+__global__ void __launch_bounds__(kFinTile * kFinTile)
+bn_bwd_finalize_kernel(const float* __restrict__ partials, int gx, int64_t M, int C,
+                       const float* __restrict__ weight, const float* __restrict__ stats,
+                       float eps, int train, float* __restrict__ grads) {
+  double sg, sgx;
+  if (!sum_partials(partials, gx, C, sg, sgx)) return;
+  const int c = blockIdx.x * kFinTile + threadIdx.x;
+  const double mean = stats[kMean * C + c], inv = stats[kInv * C + c];
+  const double mul = stats[kMul * C + c];
+  // z = x mul + add, add = bias - mean mul, mul = weight inv
+  const double dmul = sgx - mean * sg;
+  grads[kDWeight * C + c] = (float)(dmul * inv);
+  grads[kDBias * C + c] = (float)sg;
+  double alpha = 0.0, beta = 0.0;
+  if (train) {
+    // inv = rsqrt(var + eps), var = max(var_raw, 0), var_raw = mean2 - mean^2
+    const float var_raw = stats[kVarRaw * C + c];
+    const double var = var_raw > 0.0f ? (double)var_raw : 0.0;
+    const double dinv = dmul * (double)weight[c];
+    const double dvar = dinv * (-0.5 * inv / (var + (double)eps));
+    const double share = var_raw > 0.0f ? 1.0 : (var_raw == 0.0f ? 0.5 : 0.0);
+    const double dvar_raw = dvar * share;
+    const double dmean = -mul * sg - 2.0 * mean * dvar_raw;
+    alpha = dmean / (double)M;
+    beta = 2.0 * dvar_raw / (double)M;
+  }
+  grads[kAlpha * C + c] = (float)alpha;
+  grads[kBeta * C + c] = (float)beta;
+}
+
+// N4: dx = g mul + alpha + beta x; d_r = g
+template <typename T, int VW, int ACT, bool RES, bool DRES>
+__global__ void __launch_bounds__(kThreads)
+bn_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ res,
+                    const T* __restrict__ dy, T* __restrict__ dx, T* __restrict__ dres,
+                    int64_t M, int C, int TW, int RB, const float* __restrict__ stats,
+                    const float* __restrict__ grads) {
+  const int tx = threadIdx.x % TW, ty = threadIdx.x / TW;
+  const int cv = blockIdx.y * TW + tx;
+  if (ty >= RB || cv * VW >= C) return;
+  const int c0 = cv * VW;
+  float mul[VW], add[VW], alpha[VW], beta[VW];
+#pragma unroll
+  for (int j = 0; j < VW; ++j) {
+    mul[j] = stats[kMul * C + c0 + j];
+    add[j] = stats[kAdd * C + c0 + j];
+    alpha[j] = grads[kAlpha * C + c0 + j];
+    beta[j] = grads[kBeta * C + c0 + j];
+  }
+  SCENERF_ROWS({
+    const int64_t at = r * C + c0;
+    float xv[VW], g[VW], out[VW];
+    grad_at<T, VW, ACT, RES>(x, res, dy, at, mul, add, xv, g);
+#pragma unroll
+    for (int j = 0; j < VW; ++j) out[j] = fmaf(g[j], mul[j], fmaf(beta[j], xv[j], alpha[j]));
+    store_vec<T, VW>(dx + at, out);
+    if (DRES) store_vec<T, VW>(dres + at, g);
+  })
+}
+
+// ---- channel-first inputs: x [B, C, S] contiguous, element (b, c, s) at
+// (b C + c) S + s (a [B, H, W, C] tensor whose permute to [B, C, H, W] is
+// contiguous, as a convolution's NCHW output gives). One channel per
+// blockIdx.y, so the per-channel vectors load once per thread as above; the
+// positions of the channel's B planes spread over blockIdx.x and the threads,
+// consecutive threads on consecutive addresses. Scalar loads.
+
+// the position loop of one thread in channel c's planes, kUnroll at a time
+#define SCENERF_PLANES(...)                                                  \
+  {                                                                          \
+    const int64_t step = (int64_t)gridDim.x * kThreads;                      \
+    for (int64_t b = 0; b < B; ++b) {                                        \
+      const int64_t base = (b * C + c) * S;                                  \
+      for (int64_t s0 = (int64_t)blockIdx.x * kThreads + threadIdx.x; s0 < S; \
+           s0 += step * kUnroll) {                                           \
+        _Pragma("unroll") for (int u = 0; u < kUnroll; ++u) {                \
+          const int64_t pos = s0 + u * step;                                 \
+          if (pos < S) {                                                     \
+            const int64_t at = base + pos;                                   \
+            __VA_ARGS__                                                      \
+          }                                                                  \
+        }                                                                    \
+      }                                                                      \
+    }                                                                        \
+  }
+
+// N1, channel-first
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+bn_stats_cf_kernel(const T* __restrict__ x, int64_t B, int C, int64_t S,
+                   float* __restrict__ partials) {
+  const int c = blockIdx.y;
+  float a[2][1] = {{0.0f}, {0.0f}};
+  SCENERF_PLANES({
+    const float v = (float)x[at];
+    a[0][0] += v;
+    a[1][0] = fmaf(v, v, a[1][0]);
+  })
+  block_partials<1>(a, 0, threadIdx.x, 1, kThreads, true, c, C, partials);
+}
+
+// N2, channel-first
+template <typename T, int ACT, bool RES>
+__global__ void __launch_bounds__(kThreads)
+bn_apply_cf_kernel(const T* __restrict__ x, const T* __restrict__ res, T* __restrict__ y,
+                   int64_t B, int C, int64_t S, Affine af) {
+  const int c = blockIdx.y;
+  float mul, add;
+  if (af.train) {
+    mul = af.stats[kMul * C + c];
+    add = af.stats[kAdd * C + c];
+  } else {
+    float mean, var, inv;
+    fold(af.weight, af.bias, af.run_mean, af.run_var, af.eps, c, mean, var, inv, mul, add);
+    if (af.stats != nullptr && blockIdx.x == 0 && threadIdx.x == 0) {
+      float* st = const_cast<float*>(af.stats);
+      st[kMean * C + c] = mean;
+      st[kVarRaw * C + c] = var;
+      st[kInv * C + c] = inv;
+      st[kMul * C + c] = mul;
+      st[kAdd * C + c] = add;
+    }
+  }
+  SCENERF_PLANES({
+    const float z = pre_act((float)x[at], mul, add);
+    y[at] = (T)act_fwd<ACT>(RES ? __fadd_rn(z, (float)res[at]) : z);
+  })
+}
+
+// N3, channel-first
+template <typename T, int ACT, bool RES>
+__global__ void __launch_bounds__(kThreads)
+bn_bwd_reduce_cf_kernel(const T* __restrict__ x, const T* __restrict__ res,
+                        const T* __restrict__ dy, int64_t B, int C, int64_t S,
+                        const float* __restrict__ stats, float* __restrict__ partials) {
+  const int c = blockIdx.y;
+  const float mul[1] = {stats[kMul * C + c]}, add[1] = {stats[kAdd * C + c]};
+  float a[2][1] = {{0.0f}, {0.0f}};
+  SCENERF_PLANES({
+    float xv[1], g[1];
+    grad_at<T, 1, ACT, RES>(x, res, dy, at, mul, add, xv, g);
+    a[0][0] += g[0];
+    a[1][0] = fmaf(g[0], xv[0], a[1][0]);
+  })
+  block_partials<1>(a, 0, threadIdx.x, 1, kThreads, true, c, C, partials);
+}
+
+// N4, channel-first
+template <typename T, int ACT, bool RES, bool DRES>
+__global__ void __launch_bounds__(kThreads)
+bn_bwd_apply_cf_kernel(const T* __restrict__ x, const T* __restrict__ res,
+                       const T* __restrict__ dy, T* __restrict__ dx, T* __restrict__ dres,
+                       int64_t B, int C, int64_t S, const float* __restrict__ stats,
+                       const float* __restrict__ grads) {
+  const int c = blockIdx.y;
+  const float mul[1] = {stats[kMul * C + c]}, add[1] = {stats[kAdd * C + c]};
+  const float alpha = grads[kAlpha * C + c], beta = grads[kBeta * C + c];
+  SCENERF_PLANES({
+    float xv[1], g[1];
+    grad_at<T, 1, ACT, RES>(x, res, dy, at, mul, add, xv, g);
+    dx[at] = (T)fmaf(g[0], mul[0], fmaf(beta, xv[0], alpha));
+    if (DRES) dres[at] = (T)g[0];
+  })
+}
+
+#undef SCENERF_PLANES
+#undef SCENERF_ROWS
+
+bool aligned16(const void* p) { return p == nullptr || ((uintptr_t)p & 15u) == 0; }
+
+// the tensor: M rows of C channels; channel-first (plane > 0) as B = M /
+// plane items of C planes of S = plane positions
+struct Geometry {
+  int64_t M;
+  int C;
+  int64_t B, S;
+  bool cf;
+};
+
+// blocks along the positions of a channel-first launch
+int cf_splits(const Geometry& g, int max_blocks) {
+  const int64_t want = (g.S + (int64_t)kThreads * kUnroll - 1) / ((int64_t)kThreads * kUnroll);
+  const int64_t cap = max_blocks / g.C > 0 ? max_blocks / g.C : 1;
+  return (int)(want < cap ? (want > 0 ? want : 1) : cap);
+}
+
+// N1's reduction (into work) and finalize
+template <typename T, int VW>
+void launch_stats(const T* x, const Geometry& g, const float* weight, const float* bias,
+                  float* run_mean, float* run_var, float* stats, float* work, float momentum,
+                  float one_minus_momentum, float eps, cudaStream_t s) {
+  int gx;
+  if (g.cf) {
+    gx = cf_splits(g, kRedBlocks);
+    bn_stats_cf_kernel<T><<<dim3(gx, g.C), kThreads, 0, s>>>(x, g.B, g.C, g.S, work);
+  } else {
+    const Tile t = make_tile(g.M, g.C, VW, kRedBlocks);
+    gx = t.gx;
+    bn_stats_kernel<T, VW><<<dim3(t.gx, t.gy), t.TW * t.RB, 0, s>>>(x, g.M, g.C, t.TW, t.RB,
+                                                                   work);
+  }
+  bn_stats_finalize_kernel<<<(g.C + kFinTile - 1) / kFinTile, dim3(kFinTile, kFinTile), 0, s>>>(
+      work, gx, g.M, g.C, weight, bias, run_mean, run_var, momentum, one_minus_momentum, eps,
+      stats);
+}
+
+template <typename T, int VW, int ACT, bool RES>
+void launch_apply(const T* x, const T* res, T* y, const Geometry& g, const Affine& af,
+                  cudaStream_t s) {
+  if (g.cf) {
+    bn_apply_cf_kernel<T, ACT, RES><<<dim3(cf_splits(g, kApplyBlocks), g.C), kThreads, 0, s>>>(
+        x, res, y, g.B, g.C, g.S, af);
+  } else {
+    const Tile t = make_tile(g.M, g.C, VW, kApplyBlocks);
+    bn_apply_kernel<T, VW, ACT, RES><<<dim3(t.gx, t.gy), t.TW * t.RB, 0, s>>>(
+        x, res, y, g.M, g.C, t.TW, t.RB, af);
+  }
+}
+
+template <typename T, int VW>
+cudaError_t forward(const T* x, const T* res, T* y, const Geometry& g, const float* weight,
+                    const float* bias, float* run_mean, float* run_var, float* stats,
+                    float* work, float momentum, float one_minus_momentum, float eps, int act,
+                    int train, int stages, cudaStream_t s) {
+  if (train && (stages & 1)) {
+    launch_stats<T, VW>(x, g, weight, bias, run_mean, run_var, stats, work, momentum,
+                        one_minus_momentum, eps, s);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  if (stages & 2) {
+    const Affine af{stats, weight, bias, run_mean, run_var, eps, train};
+    const bool r = res != nullptr;
+    switch (act) {
+#define SCENERF_BN_APPLY(A)                                            \
+  case A:                                                              \
+    if (r) launch_apply<T, VW, A, true>(x, res, y, g, af, s);          \
+    else launch_apply<T, VW, A, false>(x, res, y, g, af, s);           \
+    break;
+      SCENERF_BN_APPLY(kIdentity) SCENERF_BN_APPLY(kSilu) SCENERF_BN_APPLY(kLeaky)
+#undef SCENERF_BN_APPLY
+    }
+  }
+  return cudaGetLastError();
+}
+
+template <typename T, int VW, int ACT, bool RES>
+cudaError_t backward_act(const T* x, const T* res, const T* dy, T* dx, T* dres,
+                         const Geometry& g, const float* weight, const float* stats,
+                         float* grads, float* work, float eps, int train, int stages,
+                         cudaStream_t s) {
+  if (stages & 1) {
+    int gx;
+    if (g.cf) {
+      gx = cf_splits(g, kRedBlocks);
+      bn_bwd_reduce_cf_kernel<T, ACT, RES><<<dim3(gx, g.C), kThreads, 0, s>>>(
+          x, res, dy, g.B, g.C, g.S, stats, work);
+    } else {
+      const Tile t = make_tile(g.M, g.C, VW, kRedBlocks);
+      gx = t.gx;
+      bn_bwd_reduce_kernel<T, VW, ACT, RES><<<dim3(t.gx, t.gy), t.TW * t.RB, 0, s>>>(
+          x, res, dy, g.M, g.C, t.TW, t.RB, stats, work);
+    }
+    bn_bwd_finalize_kernel<<<(g.C + kFinTile - 1) / kFinTile, dim3(kFinTile, kFinTile), 0,
+                             s>>>(work, gx, g.M, g.C, weight, stats, eps, train, grads);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return e;
+  }
+  if (stages & 2) {
+    if (g.cf) {
+      const dim3 grid(cf_splits(g, kApplyBlocks), g.C);
+      if (dres != nullptr) {
+        bn_bwd_apply_cf_kernel<T, ACT, RES, true><<<grid, kThreads, 0, s>>>(
+            x, res, dy, dx, dres, g.B, g.C, g.S, stats, grads);
+      } else {
+        bn_bwd_apply_cf_kernel<T, ACT, RES, false><<<grid, kThreads, 0, s>>>(
+            x, res, dy, dx, dres, g.B, g.C, g.S, stats, grads);
+      }
+    } else {
+      const Tile t = make_tile(g.M, g.C, VW, kApplyBlocks);
+      const dim3 grid(t.gx, t.gy), block(t.TW * t.RB);
+      if (dres != nullptr) {
+        bn_bwd_apply_kernel<T, VW, ACT, RES, true><<<grid, block, 0, s>>>(
+            x, res, dy, dx, dres, g.M, g.C, t.TW, t.RB, stats, grads);
+      } else {
+        bn_bwd_apply_kernel<T, VW, ACT, RES, false><<<grid, block, 0, s>>>(
+            x, res, dy, dx, dres, g.M, g.C, t.TW, t.RB, stats, grads);
+      }
+    }
+  }
+  return cudaGetLastError();
+}
+
+template <typename T, int VW>
+cudaError_t backward(const T* x, const T* res, const T* dy, T* dx, T* dres, const Geometry& g,
+                     const float* weight, const float* stats, float* grads, float* work,
+                     float eps, int act, int train, int stages, cudaStream_t s) {
+  const bool r = res != nullptr;
+#define SCENERF_BN_BWD(A, R)                                                                \
+  return backward_act<T, VW, A, R>(x, res, dy, dx, dres, g, weight, stats, grads, work, eps, \
+                                   train, stages, s)
+  switch (act) {
+    case kIdentity: SCENERF_BN_BWD(kIdentity, false);  // z is not needed: r is not read
+    case kSilu: if (r) SCENERF_BN_BWD(kSilu, true); SCENERF_BN_BWD(kSilu, false);
+    default: if (r) SCENERF_BN_BWD(kLeaky, true); SCENERF_BN_BWD(kLeaky, false);
+  }
+#undef SCENERF_BN_BWD
+}
+
+// floats of the workspace a reduction needs: the [gx, 2C] partials
+int64_t work_floats(int C) { return (int64_t)kRedBlocks * 2 * C; }
+
+bool valid(int64_t M, int C, int64_t plane, int act, int64_t work_cap) {
+  return M >= 0 && C >= 1 && plane >= 0 && (plane == 0 || (M % plane == 0 && C <= 65535)) &&
+         act >= kIdentity && act <= kLeaky && work_cap >= work_floats(C);
+}
+
+Geometry geometry(int64_t M, int C, int64_t plane) {
+  return Geometry{M, C, plane > 0 ? M / plane : 0, plane, plane > 0};
+}
+
+}  // namespace
+}  // namespace scenerf
+
+// x, res (or null), y: [M, C] f32 of one layout: channel-last contiguous
+// (plane 0), or channel-first, [M / plane, C, plane] contiguous (plane > 0).
+// weight, bias, run_mean, run_var: [C] f32. stats: [5, C] f32 (mean, mean2 -
+// mean^2, rsqrt, mul, add): written by N1 in train mode, read by N2; in eval
+// mode N2 writes the fold there when stats is not null. work: at least 2 *
+// 528 * C floats of scratch. act: 0 identity, 1 SiLU, 2 leaky ReLU (slope
+// 0.01). train: 1 batch statistics (N1 + its finalize, which also updates
+// run_mean/run_var in place, then N2), 0 running statistics (N2 alone).
+// stages: bit 0 N1 (train only), bit 1 N2 (3 for the whole forward).
+SCENERF_API int scenerf_bn_forward_f32(const float* x, const float* res, float* y,
+                                       long long M, int C, long long plane,
+                                       const float* weight, const float* bias,
+                                       float* run_mean, float* run_var, float* stats,
+                                       float* work, long long work_cap, float momentum,
+                                       float one_minus_momentum, float eps, int act, int train,
+                                       int stages, void* stream) {
+  using namespace scenerf;
+  if (!valid(M, C, plane, act, work_cap) || (train && stats == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (M == 0) return (int)cudaSuccess;
+  const Geometry g = geometry(M, C, plane);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!g.cf && C % 4 == 0 && aligned16(x) && aligned16(res) && aligned16(y)) {
+    return (int)forward<float, 4>(x, res, y, g, weight, bias, run_mean, run_var, stats, work,
+                                  momentum, one_minus_momentum, eps, act, train, stages, s);
+  }
+  return (int)forward<float, 1>(x, res, y, g, weight, bias, run_mean, run_var, stats, work,
+                                momentum, one_minus_momentum, eps, act, train, stages, s);
+}
+
+// x, res (or null), dy, dx, dres (or null: no residual gradient written):
+// [M, C] f32 of the layout `plane` gives (as above); weight [C]; stats: the
+// forward's [5, C]; grads: [4, C] f32 out (dweight, dbias, then dx's alpha
+// and beta). res is read only where the activation needs z (with the
+// identity, d_r = dy: the caller passes dres null). stages: bit 0 N3 and its
+// finalize, bit 1 N4.
+SCENERF_API int scenerf_bn_backward_f32(const float* x, const float* res, const float* dy,
+                                        float* dx, float* dres, long long M, int C,
+                                        long long plane, const float* weight,
+                                        const float* stats, float* grads, float* work,
+                                        long long work_cap, float eps, int act, int train,
+                                        int stages, void* stream) {
+  using namespace scenerf;
+  if (!valid(M, C, plane, act, work_cap)) return (int)cudaErrorInvalidValue;
+  if (M == 0) return (int)cudaSuccess;
+  const Geometry g = geometry(M, C, plane);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (!g.cf && C % 4 == 0 && aligned16(x) && aligned16(res) && aligned16(dy) &&
+      aligned16(dx) && aligned16(dres)) {
+    return (int)backward<float, 4>(x, res, dy, dx, dres, g, weight, stats, grads, work, eps,
+                                   act, train, stages, s);
+  }
+  return (int)backward<float, 1>(x, res, dy, dx, dres, g, weight, stats, grads, work, eps,
+                                 act, train, stages, s);
+}

@@ -1,0 +1,363 @@
+"""Kernel K5: batch normalization fused with its activation and an optional
+residual add (kernels N1-N4 in `csrc/norm.cu`), and its plain PyTorch version.
+
+`batch_norm_act(x, weight, bias, running_mean, running_var, training,
+momentum, eps, act, residual)` computes, over a channel-last x [..., C] f32,
+
+    y = act(x * mul + add (+ residual)),   mul = weight * rsqrt(var + eps),
+                                           add = bias - mean * mul
+
+with act one of "identity", "silu" (z * sigmoid(z)) and "leaky" (slope 0.01,
+z where z >= 0, so its gradient at 0 is 1 as JAX's `nn.leaky_relu`). In
+training mode mean and var are the batch's: f32 `mean` and `mean(x^2)` over
+every axis but the last, `var = max(mean2 - mean^2, 0)` (the biased variance;
+at a tie the maximum splits the gradient 0.5 / 0.5, as jnp.maximum and
+torch.maximum do), and the running statistics move IN PLACE in flax's
+convention, `ra = momentum * ra + (1 - momentum) * batch`. In eval mode they
+are the running statistics. It replaces the TPU-shaped
+`scenerf_tpu/encoder/norm.py:31 FusedBatchNorm` and the activation after it.
+
+On a CPU tensor (or inside `build.plain_versions()` unless it keeps "bn") it runs
+`batch_norm_act_plain`, whose autograd saves the pre-activation. On a CUDA
+tensor it launches the kernels: forward N1 (statistics, with its finalize)
+and N2 (apply; in eval mode alone, folding the running statistics itself),
+and, where autograd needs the gradient, `_BatchNormAct`'s backward N3 (the
+per-channel sums of g = dy act'(z), z recomputed from x, with its finalize)
+and N4 (dx, d_residual). That Function saves x, the residual and the [5, C]
+per-channel statistics only. The kernels take an f32 [..., C] tensor that
+is contiguous channel-last, or channel-first (a convolution's NCHW output
+seen as [B, H, W, C]: the eval encoder's stem gives one), and raise on any
+other layout rather than copy it; the outputs take the input's layout.
+
+The stage functions `stats_plain`, `apply_plain`, `bwd_reduce_plain` and
+`bwd_apply_plain` are the plain versions of N1-N4 one by one (the same
+per-channel [5, C] statistics and [4, C] gradients the kernels pass on);
+composed, they give the gradient autograd gives `batch_norm_act_plain`.
+"""
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from scenerf_tpu_torch.ops import build
+
+ACTS = ("identity", "silu", "leaky")
+LEAKY_SLOPE = 0.01
+# rows of the per-channel statistics [5, C] N1 writes (in eval mode N2)
+MEAN, VAR_RAW, INV, MUL, ADD = range(5)
+# rows of the per-channel gradients [4, C] N3's finalize writes
+DWEIGHT, DBIAS, ALPHA, BETA = range(4)
+RED_BLOCKS = 528  # csrc/norm.cu kRedBlocks: a reduction's [RED_BLOCKS, 2C] partials
+
+
+def activation(z: torch.Tensor, act: str) -> torch.Tensor:
+    """The plain activation; leaky follows JAX at 0 (`where(z >= 0, ...)`)."""
+    if act == "silu":
+        return F.silu(z)
+    if act == "leaky":
+        return torch.where(z >= 0, z, LEAKY_SLOPE * z)
+    if act == "identity":
+        return z
+    raise ValueError(f"act must be one of {ACTS}, got {act!r}")
+
+
+def activation_grad(z: torch.Tensor, act: str) -> torch.Tensor:
+    """d act / dz, as N3 and N4 compute it."""
+    if act == "silu":
+        s = torch.sigmoid(z)
+        return s * (1.0 + z * (1.0 - s))
+    if act == "leaky":
+        return torch.where(z >= 0, torch.ones_like(z), torch.full_like(z, LEAKY_SLOPE))
+    return torch.ones_like(z)
+
+
+def batch_norm_act_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                         running_mean: torch.Tensor, running_var: torch.Tensor,
+                         training: bool, momentum: float, eps: float, act: str = "identity",
+                         residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The whole op in plain PyTorch ops (see the module docstring)."""
+    if training:
+        dims = tuple(range(x.dim() - 1))
+        xf = x.to(torch.promote_types(x.dtype, torch.float32))  # f32, or f64 for f64
+        mean = torch.mean(xf, dim=dims)
+        mean2 = torch.mean(torch.square(xf), dim=dims)
+        var = torch.maximum(mean2 - torch.square(mean), torch.zeros_like(mean))
+        with torch.no_grad():
+            running_mean.mul_(momentum).add_((1.0 - momentum) * mean)
+            running_var.mul_(momentum).add_((1.0 - momentum) * var)
+    else:
+        mean, var = running_mean, running_var
+    mul = weight * torch.rsqrt(var + eps)
+    add = bias - mean * mul
+    z = x * mul.to(x.dtype) + add.to(x.dtype)
+    if residual is not None:
+        z = z + residual
+    return activation(z, act)
+
+
+# ---------------------------------------------------------------- stages
+
+
+def _rows(x: torch.Tensor) -> torch.Tensor:
+    return x.reshape(-1, x.shape[-1])
+
+
+def stats_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                running_mean: torch.Tensor, running_var: torch.Tensor, momentum: float,
+                eps: float) -> torch.Tensor:
+    """N1 and its finalize: the [5, C] statistics (mean, mean2 - mean^2,
+    rsqrt(var + eps), mul, add) of the batch; the running statistics move in
+    place."""
+    xf = _rows(x).to(torch.float32)
+    mean = xf.mean(0)
+    var_raw = torch.square(xf).mean(0) - torch.square(mean)
+    var = torch.clamp(var_raw, min=0.0)
+    inv = torch.rsqrt(var + eps)
+    mul = weight * inv
+    running_mean.mul_(momentum).add_((1.0 - momentum) * mean)
+    running_var.mul_(momentum).add_((1.0 - momentum) * var)
+    return torch.stack([mean, var_raw, inv, mul, bias - mean * mul])
+
+
+def fold_plain(weight: torch.Tensor, bias: torch.Tensor, running_mean: torch.Tensor,
+               running_var: torch.Tensor, eps: float) -> torch.Tensor:
+    """The [5, C] statistics of eval mode, folded from the running ones (N2
+    writes them when autograd needs them)."""
+    inv = torch.rsqrt(running_var + eps)
+    mul = weight * inv
+    return torch.stack([running_mean, running_var, inv, mul, bias - running_mean * mul])
+
+
+def _pre_activation(x, stats, residual):
+    z = x * stats[MUL] + stats[ADD]
+    return z if residual is None else z + residual
+
+
+def apply_plain(x: torch.Tensor, stats: torch.Tensor, act: str,
+                residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """N2: act(x * mul + add (+ residual))."""
+    return activation(_pre_activation(x, stats, residual), act)
+
+
+def bwd_reduce_plain(x: torch.Tensor, dy: torch.Tensor, stats: torch.Tensor,
+                     weight: torch.Tensor, eps: float, act: str, training: bool,
+                     residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """N3 and its finalize: the [4, C] gradients (dweight, dbias, and dx's
+    alpha and beta), from sum g and sum g x with g = dy act'(z)."""
+    g = _rows(dy * activation_grad(_pre_activation(x, stats, residual), act)).double()
+    xr = _rows(x).double()
+    sg, sgx = g.sum(0), (g * xr).sum(0)
+    st = stats.double()
+    dmul = sgx - st[MEAN] * sg
+    alpha = torch.zeros_like(sg)
+    beta = torch.zeros_like(sg)
+    if training:
+        var_raw = st[VAR_RAW]
+        var = torch.clamp(var_raw, min=0.0)
+        dvar = dmul * weight.double() * (-0.5 * st[INV] / (var + eps))
+        share = torch.where(var_raw > 0, 1.0, torch.where(var_raw == 0, 0.5, 0.0))
+        dvar_raw = dvar * share
+        m = xr.shape[0]
+        alpha = (-st[MUL] * sg - 2.0 * st[MEAN] * dvar_raw) / m
+        beta = 2.0 * dvar_raw / m
+    return torch.stack([dmul * st[INV], sg, alpha, beta]).float()
+
+
+def bwd_apply_plain(x: torch.Tensor, dy: torch.Tensor, stats: torch.Tensor,
+                    grads: torch.Tensor, act: str, residual: Optional[torch.Tensor] = None
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """N4: (dx = g mul + alpha + beta x, d_residual = g)."""
+    g = dy * activation_grad(_pre_activation(x, stats, residual), act)
+    return g * stats[MUL] + grads[ALPHA] + grads[BETA] * x, g
+
+
+def kink_ties(x: torch.Tensor, stats: torch.Tensor, act: str,
+              residual: Optional[torch.Tensor] = None, spacings: float = 8.0) -> torch.Tensor:
+    """Bool mask of the elements whose pre-activation z (from `stats`) lies
+    within `spacings` f32 spacings of the summands |x mul| + |add| + |r| of
+    the leaky-ReLU's kink at 0. There two implementations whose statistics
+    differ in the last bits may take different slopes, and their gradients
+    then differ by (1 - 0.01) dy at that element; with a smooth activation
+    the mask is empty."""
+    if act != "leaky":
+        return torch.zeros(x.shape, dtype=torch.bool, device=x.device)
+    summands = (x * stats[MUL]).abs() + stats[ADD].abs()
+    if residual is not None:
+        summands = summands + residual.abs()
+    spacing = torch.nextafter(summands, torch.full_like(summands, float("inf"))) - summands
+    return _pre_activation(x, stats, residual).abs() <= spacings * spacing
+
+
+# ---------------------------------------------------------------- kernels
+
+_work = {}  # (device index, stream) -> f32 scratch of the reductions' partials
+cotangent_copies = 0  # backward launches whose cotangent was not contiguous
+
+
+def _workspace(device: torch.device, stream: int, C: int) -> torch.Tensor:
+    """The reductions' scratch for C channels, reused by every launch on one
+    stream (launches on a stream run in order, so one buffer serves them)."""
+    key = (device.index, stream)
+    need = 2 * RED_BLOCKS * C
+    buf = _work.get(key)
+    if buf is None or buf.numel() < need:
+        buf = torch.empty(need, dtype=torch.float32, device=device)
+        _work[key] = buf
+        while len(_work) > 4:  # streams come and go (CUDA graph captures): keep the newest
+            del _work[next(iter(_work))]
+    return buf
+
+
+def plane(t: torch.Tensor) -> Optional[int]:
+    """The kernels' layout of a [..., C] tensor: 0 for contiguous channel-last,
+    the positions per channel plane for channel-first ([B, H, W, C] whose
+    permute to [B, C, H, W] is contiguous: a convolution's NCHW output seen
+    channel-last), None for any other."""
+    if t.is_contiguous():
+        return 0
+    if t.dim() >= 3 and t.movedim(-1, 1).is_contiguous():
+        return t[0, ..., 0].numel()
+    return None
+
+
+def _check(x: torch.Tensor, residual: Optional[torch.Tensor], *vectors: torch.Tensor) -> int:
+    """Raise on what the kernels do not take; the layout (`plane`)."""
+    layout = plane(x) if x.dim() >= 1 else None
+    if x.dtype != torch.float32 or layout is None:
+        raise ValueError(f"batch_norm_act kernel takes an f32 tensor, contiguous channel-last "
+                         f"or channel-first; got {x.dtype} {tuple(x.shape)} strides {x.stride()}")
+    if residual is not None and (residual.shape != x.shape or residual.dtype != x.dtype
+                                 or plane(residual) != layout
+                                 or residual.device != x.device):
+        raise ValueError("batch_norm_act kernel: the residual must be an f32 tensor of x's "
+                         "shape, layout and device")
+    for v in vectors:
+        if (v.dtype != torch.float32 or v.shape != x.shape[-1:] or not v.is_contiguous()
+                or v.device != x.device):
+            raise ValueError(f"batch_norm_act kernel: per-channel vectors must be contiguous "
+                             f"f32 [{x.shape[-1]}] on {x.device}")
+    return layout
+
+
+def launch_forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                   running_mean: torch.Tensor, running_var: torch.Tensor, training: bool,
+                   momentum: float, eps: float, act: str,
+                   residual: Optional[torch.Tensor] = None, want_stats: bool = True,
+                   stages: int = 3, y: Optional[torch.Tensor] = None,
+                   stats: Optional[torch.Tensor] = None):
+    """Launch N1 (training, stage bit 0) and N2 (stage bit 1): (y, stats),
+    stats [5, C] None in eval mode unless `want_stats`. `y` and `stats` may
+    be given (a later stage reuses an earlier one's)."""
+    layout = _check(x, residual, weight, bias, running_mean, running_var)
+    C = x.shape[-1]
+    dev = x.device
+    stream = build.stream_handle(dev)
+    if y is None:
+        y = torch.empty_like(x)
+    if stats is None and (training or want_stats):
+        stats = torch.empty((5, C), dtype=torch.float32, device=dev)
+    work = _workspace(dev, stream, C)
+    status = build.library().scenerf_bn_forward_f32(
+        x.data_ptr(), build.ptr(residual), y.data_ptr(), x.numel() // C, C, layout,
+        weight.data_ptr(),
+        bias.data_ptr(), running_mean.data_ptr(), running_var.data_ptr(), build.ptr(stats),
+        work.data_ptr(), work.numel(), momentum, 1.0 - momentum, eps, ACTS.index(act),
+        int(training), stages, stream)
+    build.check(status, "batch_norm_act forward")
+    if training and stages & 1:
+        build.LAUNCHES["bn_stats"] += 1
+    if stages & 2:
+        build.LAUNCHES["bn_apply"] += 1
+    return y, stats
+
+
+def launch_backward(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor,
+                    stats: torch.Tensor, training: bool, eps: float, act: str,
+                    residual: Optional[torch.Tensor] = None, residual_grad: bool = False,
+                    stages: int = 3, grads: Optional[torch.Tensor] = None,
+                    dx: Optional[torch.Tensor] = None, d_res: Optional[torch.Tensor] = None):
+    """Launch N3 (stage bit 0) and N4 (stage bit 1) for the cotangent dy:
+    (dx, grads [4, C], d_residual). d_residual is None unless
+    `residual_grad`; with the identity it is dy itself (no pass writes it).
+    `grads`, `dx` and `d_res` may be given (a later stage reuses an earlier
+    one's grads)."""
+    C = x.shape[-1]
+    dev = x.device
+    if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != dev:
+        raise ValueError(f"batch_norm_act backward: cotangent {dy.dtype} {tuple(dy.shape)} "
+                         f"for x {x.dtype} {tuple(x.shape)}")
+    layout = plane(x)
+    if layout is None:
+        raise ValueError(f"batch_norm_act backward: x of strides {x.stride()}")
+    if plane(dy) != layout:
+        # autograd's cotangents (an expanded ones_like, a slice) vary: dy takes x's layout
+        global cotangent_copies
+        cotangent_copies += 1
+        dy = torch.empty_like(x).copy_(dy)
+    stream = build.stream_handle(dev)
+    if dx is None:
+        dx = torch.empty_like(x)
+    if grads is None:
+        grads = torch.empty((4, C), dtype=torch.float32, device=dev)
+    if not residual_grad:
+        d_res = None
+    elif act == "identity":
+        d_res = dy
+    elif d_res is None:
+        d_res = torch.empty_like(x)
+    write_res = d_res is not None and act != "identity"
+    work = _workspace(dev, stream, C)
+    status = build.library().scenerf_bn_backward_f32(
+        x.data_ptr(), build.ptr(residual), dy.data_ptr(), dx.data_ptr(),
+        d_res.data_ptr() if write_res else None, x.numel() // C, C, layout, weight.data_ptr(),
+        stats.data_ptr(), grads.data_ptr(), work.data_ptr(), work.numel(), eps,
+        ACTS.index(act), int(training), stages, stream)
+    build.check(status, "batch_norm_act backward")
+    if stages & 1:
+        build.LAUNCHES["bn_bwd_reduce"] += 1
+    if stages & 2:
+        build.LAUNCHES["bn_bwd_apply"] += 1
+    return dx, grads, d_res
+
+
+class _BatchNormAct(torch.autograd.Function):
+    """N1 + N2 forward, N3 + N4 backward. Saves x, the residual and the
+    per-channel statistics (no pre-activation)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, residual, running, training, momentum, eps, act):
+        y, stats = launch_forward(x, weight, bias, running[0], running[1], training,
+                                  momentum, eps, act, residual)
+        ctx.save_for_backward(x, residual, weight, stats)
+        ctx.args = (training, eps, act)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, residual, weight, stats = ctx.saved_tensors
+        training, eps, act = ctx.args
+        dx, grads, d_res = launch_backward(x, dy, weight, stats, training, eps, act, residual,
+                                           residual_grad=ctx.needs_input_grad[3])
+        return dx, grads[DWEIGHT], grads[DBIAS], d_res, None, None, None, None, None
+
+
+def batch_norm_act(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                   running_mean: torch.Tensor, running_var: torch.Tensor, training: bool,
+                   momentum: float, eps: float, act: str = "identity",
+                   residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The fused op (see the module docstring): the kernels on a CUDA tensor,
+    `batch_norm_act_plain` on a CPU tensor."""
+    if act not in ACTS:
+        raise ValueError(f"act must be one of {ACTS}, got {act!r}")
+    if not build.use_kernel(x, "bn"):
+        return batch_norm_act_plain(x, weight, bias, running_mean, running_var, training,
+                                    momentum, eps, act, residual)
+    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
+                                    or bias.requires_grad
+                                    or (residual is not None and residual.requires_grad)):
+        return _BatchNormAct.apply(x, weight, bias, residual, (running_mean, running_var),
+                                   training, momentum, eps, act)
+    return launch_forward(x, weight, bias, running_mean, running_var, training, momentum, eps,
+                          act, residual, want_stats=False)[0]

@@ -1,7 +1,7 @@
 """Device time, calls and bound of the ops of the port's KITTI training step
-that still run as library calls: K3 (the ResnetFC field MLPs, cuBLAS), K5
-(FusedBatchNorm, train-mode statistics + affine) and K6 (the decoder's 3x3
-convs, dilated 1/2/3 in the residual blocks, cuDNN).
+that are library calls, K3 (the ResnetFC field MLPs, cuBLAS) and K6 (the
+decoder's 3x3 convs, dilated 1/2/3 in the residual blocks, cuDNN), and of
+K5 (FusedBatchNorm with its activation and residual: kernels N1-N4).
 
     python3 scripts/op_times_torch.py [--out op_times.json]
 
@@ -13,8 +13,9 @@ calls of max(bytes / 3.35 TB/s, operations / 67 TFLOP/s f32), the bytes
 counting each input read once and each output written once (activations,
 weights; the weight gradients in the backward), the operations 2 per
 multiply-add for K3 and K6 and ~7 (forward) / ~10 (backward) per element for
-K5. The op's plain version is the library call itself, so its plain and
-library times are this time. The event pairs add a few microseconds per call.
+K5 (its bytes those of the fused kernels: 3 passes forward, 5 backward, plus
+the residual). For K3 and K6 the op's plain version is the library call
+itself, so its plain and library times are this time. The event pairs add a few microseconds per call.
 Needs one CUDA device; no JAX.
 """
 from __future__ import annotations
@@ -102,6 +103,9 @@ def main() -> None:
     records = []  # (op, direction, start event, end event, bytes, ops)
     pending = {}
 
+    def res_of(inp) -> bool:
+        return len(inp) > 1 and inp[1] is not None
+
     def hooks(op, mod):
         def fwd_pre(m, inp):
             ev = torch.cuda.Event(enable_timing=True)
@@ -114,12 +118,13 @@ def main() -> None:
             if op == "K3":
                 b, o = linear_work(m, inp[0].shape[0], False)
             elif op == "K5":
-                b, o = F32 * 2 * inp[0].numel(), 7 * inp[0].numel()
+                # the fused kernels' least traffic: x read twice, y written, r read
+                b, o = F32 * (3 + res_of(inp)) * inp[0].numel(), 7 * inp[0].numel()
             else:
                 b, o = conv_work(m, inp[0].shape, out.shape, False)
             records.append((op, "fwd", pending.pop((id(m), "fwd")), ev, b, o))
             if torch.is_grad_enabled():  # the backward pops them, last call first
-                shapes[id(m)].append((inp[0].shape, out.shape))
+                shapes[id(m)].append((inp[0].shape, out.shape, res_of(inp)))
 
         def bwd_pre(m, grad_out):
             ev = torch.cuda.Event(enable_timing=True)
@@ -129,11 +134,14 @@ def main() -> None:
         def bwd_post(m, grad_in, grad_out):
             ev = torch.cuda.Event(enable_timing=True)
             ev.record()
-            x_shape, y_shape = shapes[id(m)].pop()
+            x_shape, y_shape, res = shapes[id(m)].pop()
             if op == "K3":
                 b, o = linear_work(m, x_shape[0], True)
             elif op == "K5":
-                b, o = F32 * 3 * x_shape.numel(), 10 * x_shape.numel()
+                # x and dy read twice, dx written; r read and d_r written where the
+                # activation needs z
+                b = F32 * (5 + 2 * (res and m.act != "identity")) * x_shape.numel()
+                o = 10 * x_shape.numel()
             else:
                 b, o = conv_work(m, x_shape, y_shape, True)
             records.append((op, "bwd", pending.pop((id(m), "bwd")), ev, b, o))

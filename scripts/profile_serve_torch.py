@@ -3,6 +3,7 @@ goes on one NVIDIA GPU.
 
     python3 scripts/profile_serve_torch.py [--poses 1] [--out build/profile/serve_trace.json]
     python3 scripts/profile_serve_torch.py --train [--out build/profile/train_trace.json]
+    python3 scripts/profile_serve_torch.py --train --root DIR   # another checkout's package
 
 Builds SceneRF(kitti()) with seeded random weights (f32, TF32 off, as
 chip_smoke.py does). Serve: encodes one synthetic frame and renders one
@@ -10,7 +11,8 @@ warm-up pose, then profiles one encode and `--poses` poses of the stride-2
 sweep. Train: takes one warm-up step of `Trainer` on `make_batch` (4 sources
 x 1200 rays), then profiles one step. Prints the device time by kernel (top
 25), by kind (GEMM, convolution, the port's kernels, the rest), the device
-busy share of the profiled window, the device time of kernel G-bwd's
+busy share of the profiled window, the kernels it ran and the peak device
+memory, the device time of kernel G-bwd's
 autograd nodes and of the pyramid node whose gradient buffers they share
 (training), and the card's name and power limit; writes a chrome trace to
 `--out`.
@@ -29,7 +31,8 @@ ROOT = Path(__file__).resolve().parents[1]
 
 KINDS = (  # first match wins, on the device kernel's name; cuDNN's convolutions
     # run as implicit GEMMs (fprop/dgrad/wgrad), so they are matched before GEMMs
-    ("port kernels (G, G-bwd, C, C-bwd, S)", r"gather_levels|sort_composite|ray_som"),
+    ("port kernels (G, G-bwd, C, C-bwd, S, K5)",
+     r"gather_levels|sort_composite|ray_som|bn_(stats|apply|bwd)"),
     ("convolution (cuDNN)", r"conv|fprop|dgrad|wgrad|implicit|winograd|fft|cudnn"),
     ("GEMM (cuBLAS)", r"gemm|cutlass|splitK"),
     ("reduction", r"reduce|norm|softmax|cumprod|cumsum|scan|sort|radix"),
@@ -49,9 +52,11 @@ def main() -> None:
     ap.add_argument("--poses", type=int, default=1)
     ap.add_argument("--train", action="store_true", help="profile one training step")
     ap.add_argument("--out", default=None)
+    ap.add_argument("--root", default=str(ROOT),
+                    help="checkout whose scenerf_tpu_torch to profile (default: this one)")
     args = ap.parse_args()
     out = args.out or f"build/profile/{'train' if args.train else 'serve'}_trace.json"
-    sys.path.insert(0, str(ROOT))
+    sys.path.insert(0, str(Path(args.root).resolve()))
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -80,6 +85,7 @@ def main() -> None:
         gen = torch.Generator(device=dev).manual_seed(0)
         trainer.train_step(batch, gen)  # warm-up (also builds the sphere maps)
         torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             trainer.train_step(batch, gen)
@@ -111,7 +117,9 @@ def main() -> None:
     wall_ms = (t2 - t0) * 1e3
     print(f"card: {card}")
     print(f"profiled window: {window} = {wall_ms:.1f} ms wall (under the profiler); "
-          f"device kernel time {busy_ms:.1f} ms, busy share {busy_ms / wall_ms:.1%}")
+          f"device kernel time {busy_ms:.1f} ms in {len(events)} kernels, busy share "
+          f"{busy_ms / wall_ms:.1%}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     by_kind, count = defaultdict(float), defaultdict(int)
     for e in events:
         by_kind[kind_of(e.name)] += e.device_time / 1e3
@@ -120,8 +128,9 @@ def main() -> None:
         print(f"  {kind:40s} {ms:10.1f} ms {ms / busy_ms:6.1%} ({count[kind]} kernels)")
     port_ms, port_n = defaultdict(float), defaultdict(int)
     for e in events:
-        m = re.search(r"(gather_levels(?:_bwd)?|sort_composite(?:_bwd)?|ray_som)(?:_runs)?_kernel",
-                      e.name)
+        m = re.search(r"(gather_levels(?:_bwd)?|sort_composite(?:_bwd)?|ray_som|bn_stats"
+                      r"|bn_apply|bn_bwd_reduce|bn_bwd_apply|bn_stats_finalize"
+                      r"|bn_bwd_finalize)(?:_runs)?_kernel", e.name)
         if m:
             port_ms[m.group(1)] += e.device_time / 1e3
             port_n[m.group(1)] += 1

@@ -15,7 +15,12 @@ gathers adding into one pyramid's shared buffers. Kernel T (TSDF
 integrate) in both modes: one frame, ties on `>=`, voxels behind the camera
 and on its z = 0 plane, pixels at the image border and on .5 boundaries, and
 63 frames at the KITTI grid; bit-equal to the plain version but for voxels
-at a pixel-rounding tie (at most 0.01% of the grid).
+at a pixel-rounding tie (at most 0.01% of the grid). Kernel K5 (N1-N4:
+batch norm + activation + residual) against the plain version and its
+autograd in train and eval mode: C in {2, 3, 80, 3840}, M from 1 to 678,000,
+a constant channel, every activation with and without the residual, the
+vector and scalar paths, a directional derivative of its autograd.Function,
+and the launch counts.
 
 Marked `cuda`: skipped where no CUDA device is present (a CUDA kernel has no
 CPU mode). The package under test imports no JAX, and neither does this
@@ -37,6 +42,7 @@ from scenerf_tpu_torch.model import SceneRF
 from scenerf_tpu_torch.ops import build
 from scenerf_tpu_torch.ops import composite as CM
 from scenerf_tpu_torch.ops import gather as G
+from scenerf_tpu_torch.ops import norm as N
 from scenerf_tpu_torch.ops.composite import sort_composite, sort_composite_plain
 from scenerf_tpu_torch.ops.gather import gather_levels, gather_levels_plain
 from scenerf_tpu_torch.ops.tsdf import integrate, integrate_plain, pixel_ties
@@ -448,7 +454,7 @@ def test_ray_som_kernel_matches_plain_with_ties(dev):
 
 
 def test_tiny_train_step_on_card_matches_cpu(dev):
-    """One training step of the `tiny` model on the card (all five kernels)
+    """One training step of the `tiny` model on the card (every kernel of the path)
     against the same step on the CPU (the plain versions): loss and metrics
     rtol 1e-3, every gradient relative L2 <= 1e-2 (leaves that are zero up to
     rounding: absolute, against the largest leaf); the gradient reaches the
@@ -465,7 +471,8 @@ def test_tiny_train_step_on_card_matches_cpu(dev):
     got = card.train_step(batch, noise={k: v.to(dev) for k, v in noise.items()})
     torch.cuda.synchronize()
     train_kernels = ("gather_levels", "gather_levels_bwd", "sort_composite",
-                     "sort_composite_bwd", "ray_som")
+                     "sort_composite_bwd", "ray_som", "bn_stats", "bn_apply", "bn_bwd_reduce",
+                     "bn_bwd_apply")
     assert all(build.LAUNCHES[k] >= 1 for k in train_kernels), build.LAUNCHES
     # RaySOM's EM ran inside kernel C's training launches only: no launch of S alone
     assert build.LAUNCHES["ray_som"] == build.LAUNCHES["ray_som_in_sort_composite"]
@@ -592,3 +599,217 @@ def test_tsdf_kernel_kitti_grid_63_frames(dev, mode):
                       torch.from_numpy(np.tile(K[None], (63, 1, 1))).to(dev), w2cs,
                       KITTI_VOX_ORIGIN, 0.2, 10.0, mode)
     assert float(got[1].max()) <= 63 and bool((got[1] > 0).any())
+
+
+# ---------------------------------------------------------------- kernel K5
+
+BN_SHAPES = [(1, 80), (7, 3), (1000, 2), (468, 3840), (2501, 80), (678000, 80)]
+BN_REL_L2 = 1e-4  # dx, dweight, dbias, d_residual: sums in another order, terms that cancel
+
+
+def _bn_inputs(dev, M, C, res, seed=0):
+    """x [M, C] with channel 0 constant (the variance tie), the per-channel
+    vectors, a residual (or None) and a cotangent."""
+    g = torch.Generator(device=dev).manual_seed(seed + M + C)
+    x = torch.randn(M, C, generator=g, device=dev) * 2 + 0.5
+    x[:, 0] = 0.5
+    vec = lambda lo, span: torch.rand(C, generator=g, device=dev) * span + lo  # noqa: E731
+    r = torch.randn(M, C, generator=g, device=dev) if res else None
+    dy = torch.randn(M, C, generator=g, device=dev)
+    return x, vec(0.5, 1.0), vec(-0.5, 1.0), vec(-0.2, 0.4), vec(0.5, 1.0), r, dy
+
+
+def _bn_both(x, w, b, rm, rv, r, dy, training, act, mom=0.9, eps=1e-5):
+    """The fused op through the kernels and through the plain version (its
+    autograd) on copies of the same inputs: per side (y, running mean,
+    running var, dx, dweight, dbias, d_residual), and the kernel side's
+    launch counts. The cotangent is zeroed at the leaky-ReLU's kink ties
+    (`N.kink_ties`: z within rounding of 0, where the two sides' statistics
+    may pick different slopes)."""
+    if training:
+        stats = N.stats_plain(x, w, b, rm.clone(), rv.clone(), mom, eps)
+    else:
+        stats = N.fold_plain(w, b, rm, rv, eps)
+    dy = torch.where(N.kink_ties(x, stats, act, r), torch.zeros_like(dy), dy)
+    out = []
+    for plain in (False, True):
+        leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+        rr = None if r is None else r.clone().requires_grad_(True)
+        stats = [rm.clone(), rv.clone()]
+        build.reset_launch_counts()
+        if plain:
+            with build.plain_versions():
+                y = N.batch_norm_act(*leaves, *stats, training, mom, eps, act, rr)
+        else:
+            y = N.batch_norm_act(*leaves, *stats, training, mom, eps, act, rr)
+        y.backward(dy)
+        if not plain:
+            launches = dict(build.LAUNCHES)
+        out.append([y.detach(), *stats, *(t.grad for t in leaves),
+                    None if rr is None else rr.grad])
+    torch.cuda.synchronize()
+    return out[0], out[1], launches
+
+
+def _rel_l2(a, b, floor):
+    return float((a - b).norm()) / max(float(b.norm()), floor)
+
+
+def _bn_check(got, want, x, dy, w, var, eps, what):
+    """y and the running statistics at rtol 1e-5 (atol 1e-6 of the largest
+    summand x mul of z); dx, dweight, dbias and d_residual by relative L2 <=
+    BN_REL_L2. With one row (M = 1) dx and dweight are 0 up to rounding (x is
+    its own mean): there they are held against the scale of their terms."""
+    y, rm, rv_, dx, dw, db, dr = got
+    y0, rm0, rv0, dx0, dw0, db0, dr0 = want
+    inv = torch.rsqrt(var + eps)
+    mul = (w * inv).abs().max()
+    torch.testing.assert_close(y, y0, rtol=1e-5, atol=1e-6 * float((x.abs().max() * mul)),
+                               msg=f"{what} y")
+    for a, b, n in ((rm, rm0, "running_mean"), (rv_, rv0, "running_var")):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-6 * float(b.abs().max()),
+                                   msg=f"{what} {n}")
+    one_row = x[..., 0].numel() == 1
+    floors = {"dx": float(dy.norm()) * float(mul) if one_row else 0.0,
+              "dweight": float((dy * x).norm() * inv.max()) if one_row else 0.0,
+              "dbias": 0.0, "d_residual": 0.0}
+    for a, b, n in ((dx, dx0, "dx"), (dw, dw0, "dweight"), (db, db0, "dbias"),
+                    (dr, dr0, "d_residual")):
+        if b is None:
+            assert a is None, (what, n)
+            continue
+        assert bool(torch.isfinite(a).all()), (what, n)
+        err = _rel_l2(a, b, floors[n])
+        assert err <= BN_REL_L2, (what, n, err)
+
+
+@pytest.mark.parametrize("res", [False, True])
+@pytest.mark.parametrize("act", ["identity", "silu", "leaky"])
+@pytest.mark.parametrize("M,C", BN_SHAPES)
+def test_bn_kernels_train_match_plain(dev, M, C, act, res):
+    """N1-N4 in train mode against the plain version and its autograd: C in
+    {2, 3, 80, 3840} (scalar and vector paths), M from 1 to 678,000 (the
+    decoder's 452x1500 level), a constant channel."""
+    x, w, b, rm, rv, r, dy = _bn_inputs(dev, M, C, res)
+    got, want, launches = _bn_both(x, w, b, rm, rv, r, dy, True, act)
+    assert (launches["bn_stats"], launches["bn_apply"], launches["bn_bwd_reduce"],
+            launches["bn_bwd_apply"]) == (1, 1, 1, 1), launches
+    _bn_check(got, want, x, dy, w, x.var(0, unbiased=False), 1e-5,
+              f"train M={M} C={C} {act} res={res}")
+
+
+@pytest.mark.parametrize("res", [False, True])
+@pytest.mark.parametrize("act", ["identity", "silu", "leaky"])
+@pytest.mark.parametrize("M,C", [(7, 3), (468, 3840), (2501, 80)])
+def test_bn_kernels_eval_match_plain(dev, M, C, act, res):
+    """Eval mode: one N2 launch folding the running statistics (no N1), y
+    bit-equal to the plain version but for the fold's rounding; the backward
+    (N3, N4) with the statistics held constant."""
+    x, w, b, rm, rv, r, dy = _bn_inputs(dev, M, C, res, seed=1)
+    got, want, launches = _bn_both(x, w, b, rm, rv, r, dy, False, act)
+    assert (launches["bn_stats"], launches["bn_apply"], launches["bn_bwd_reduce"],
+            launches["bn_bwd_apply"]) == (0, 1, 1, 1), launches
+    assert torch.equal(got[1], rm) and torch.equal(got[2], rv)
+    _bn_check(got, want, x, dy, w, rv, 1e-5, f"eval M={M} C={C} {act} res={res}")
+    # without autograd: one launch, nothing saved
+    build.reset_launch_counts()
+    with torch.no_grad():
+        y = N.batch_norm_act(x, w, b, rm, rv, False, 0.9, 1e-5, act, r)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["bn_apply"] == 1 and sum(build.LAUNCHES.values()) == 1
+    torch.testing.assert_close(y, got[0], rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+def test_bn_kernels_vector_and_scalar_paths(dev, offset):
+    """C = 80 at a 16-byte aligned base (float4 path) and 4 bytes off it
+    (scalar path): the same results as the plain version."""
+    M, C = 3000, 80
+    x, w, b, rm, rv, r, dy = _bn_inputs(dev, M, C, True, seed=2)
+    bufs = [torch.empty(M * C + offset, device=dev) for _ in range(3)]
+    views = []
+    for buf, t in zip(bufs, (x, r, dy)):
+        v = buf[offset:].view(M, C)
+        v.copy_(t)
+        views.append(v)
+    got, want, _ = _bn_both(views[0], w, b, rm, rv, views[1], views[2], True, "silu")
+    _bn_check(got, want, x, dy, w, x.var(0, unbiased=False), 1e-5, f"offset {offset}")
+
+
+def test_bn_function_directional_derivative(dev):
+    """Gradcheck in f32: the autograd.Function's gradient along a random
+    direction against the central difference of its forward (train mode,
+    SiLU with the residual: smooth, so the difference has no kink to cross),
+    within 1%."""
+    M, C = 4000, 12
+    x, w, b, rm, rv, r, dy = _bn_inputs(dev, M, C, True, seed=3)
+    g = torch.Generator(device=dev).manual_seed(5)
+    # no constant channel here: at var = 0 a step of h moves var by h^2,
+    # against eps 1e-5, and the difference quotient leaves its linear range
+    x = torch.randn(M, C, generator=g, device=dev) * 2 + 0.5
+    dirs = [torch.randn(t.shape, generator=g, device=dev) for t in (x, w, b, r)]
+
+    def loss(xx, ww, bb, rr):
+        y = N.batch_norm_act(xx, ww, bb, rm.clone(), rv.clone(), True, 0.9, 1e-5, "silu", rr)
+        return (y * dy).sum(dtype=torch.float64)
+
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, b, r)]
+    loss(*leaves).backward()
+    along = sum(float((l.grad * d).sum(dtype=torch.float64)) for l, d in zip(leaves, dirs))
+    h = 1e-3
+    with torch.no_grad():
+        plus = loss(*(t + h * d for t, d in zip((x, w, b, r), dirs)))
+        minus = loss(*(t - h * d for t, d in zip((x, w, b, r), dirs)))
+    fd = float(plus - minus) / (2 * h)
+    assert abs(fd - along) <= 1e-2 * abs(along), (fd, along)
+
+
+def test_plain_versions_keep_k5(dev):
+    """`plain_versions(keep=("bn",))`: every kernel but K5 runs its plain
+    version (the training-step comparison of chip_smoke.py runs so)."""
+    lv = torch.randn(4, 5, 8, device=dev)
+    xy = torch.zeros(1, 10, device=dev)
+    x = torch.randn(2, 3, 4, 8, device=dev)
+    v = torch.ones(8, device=dev)
+    build.reset_launch_counts()
+    with build.plain_versions(keep=("bn",)):
+        gather_levels([lv], xy, xy)
+        N.batch_norm_act(x, v, v, v.clone(), v.clone(), True, 0.9, 1e-5, "leaky")
+    assert build.LAUNCHES["gather_levels"] == 0
+    assert (build.LAUNCHES["bn_stats"], build.LAUNCHES["bn_apply"]) == (1, 1)
+
+
+def test_bn_kernel_raises_on_layout(dev):
+    """An input neither contiguous channel-last nor channel-first (a strided
+    slice) raises; no copy. A residual of another layout raises too."""
+    x = torch.randn(2, 5, 12, 8, device=dev)[:, :, ::2]
+    v = torch.ones(8, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        N.batch_norm_act(x, v, v, v.clone(), v.clone(), True, 0.9, 1e-5, "silu")
+    x = x.contiguous()
+    r = torch.randn(2, 8, 5, 6, device=dev).permute(0, 2, 3, 1)
+    with pytest.raises(ValueError, match="layout"):
+        N.batch_norm_act(x, v, v, v.clone(), v.clone(), True, 0.9, 1e-5, "silu", r)
+
+
+@pytest.mark.parametrize("training", [True, False])
+@pytest.mark.parametrize("act", ["identity", "silu", "leaky"])
+@pytest.mark.parametrize("shape", [(2, 37, 61, 24), (1, 185, 610, 64), (1, 3, 5, 3840)])
+def test_bn_kernels_channel_first_match_plain(dev, shape, act, training):
+    """Channel-first inputs ([B, H, W, C] views of NCHW-contiguous tensors, as
+    the eval encoder's stem convolution gives): N1-N4 against the plain
+    version, with the residual; the outputs keep the layout."""
+    B, H, W, C = shape
+    g = torch.Generator(device=dev).manual_seed(C)
+    cf = lambda: torch.randn(B, C, H, W, generator=g, device=dev).permute(0, 2, 3, 1)  # noqa: E731
+    x, r, dy = cf() * 2 + 0.5, cf(), cf()
+    assert N.plane(x) == H * W and not x.is_contiguous()
+    w = torch.rand(C, generator=g, device=dev) + 0.5
+    b = torch.rand(C, generator=g, device=dev) - 0.5
+    rm = torch.rand(C, generator=g, device=dev) * 0.4 - 0.2
+    rv = torch.rand(C, generator=g, device=dev) + 0.5
+    got, want, launches = _bn_both(x, w, b, rm, rv, r, dy, training, act)
+    assert (launches["bn_stats"], launches["bn_bwd_apply"]) == (int(training), 1), launches
+    assert got[0].stride() == x.stride() and got[3].stride() == x.stride()
+    var = x.reshape(-1, C).var(0, unbiased=False) if training else rv
+    _bn_check(got, want, x, dy, w, var, 1e-5, f"channel-first {shape} {act}")
