@@ -69,7 +69,27 @@ Phases (each prints one line and raises on failure):
      ties), eval mode within 2 f32 spacings; each kernel's time alone, by
      events and plain, its bound, F.batch_norm + activation; their sums over
      a training step's 192 sites and an encode's; the host time of one call
-Then one JSON line of per-kernel results, the card line, and the last line
+ 13. bf16: the JAX package's flagship training configuration,
+     kitti(n_sources=4, ray_chunk=1200, n_gt_depth=256,
+     compute_dtype="bfloat16"), on the phase-4 weights: kernels G (phase 2's
+     pyramid and every sphere resample) bit-equal to their plain bf16
+     versions, G-bwd (phase 7's cotangents, bf16 into f32 buffers), each
+     timed alone with its bf16 byte bound; a bf16 encode (192 bf16 K5
+     launches) and the first 3 sweep poses at stride 2, chunk 5000, pose 0
+     against the plain bf16 render (>= 99% of pixels); 3 bf16 training steps:
+     finite loss and gradients, parameters, gradients and BN statistics f32,
+     the statistics move, every parameter gets a gradient, the first AdamW
+     move, K5 at 192 sites forward and backward in bf16, bf16 G and G-bwd,
+     one C training launch (R = 1200, S's EM inside) per source, step 0's
+     loss within TRAIN16_LOSS_RTOL of the f32 step from the same weights and
+     draws; K5 and G in bf16 on the train-mode encode (levels, encoder
+     gradients) against f64, at most ENCODE_F64_RATIO x the plain bf16
+     version's error; N1-N4 in bf16 at every distinct batch norm
+     configuration against their plain bf16 versions, timed alone beside
+     their bf16 bounds; ms per step, rays/s, peak memory, encode ms and ms
+     per pose beside the f32 phases' numbers
+Then one JSON line of per-kernel results (each bf16 kernel's bf16 results
+under "bf16"), the card line, and the last line
 {"ok": true, "device": {...}}. It exits non-zero, printing no result, when no
 CUDA device is present or any phase fails. Imports torch, numpy and the port
 (`scenerf_tpu_torch`, which must sit beside this file), never JAX.
@@ -117,6 +137,8 @@ SOM_MIN_SHARE = 0.999
 TRAIN_STEPS = 3
 TRAIN_LOSS_RTOL = 1e-3
 TRAIN_GRAD_REL_L2 = 1e-2   # per gradient leaf, kernel path vs plain path
+TRAIN16_LOSS_RTOL = 1e-2   # the bf16 step's loss vs the f32 step's (JAX's tiny preset: 1.9e-3)
+BF16_DX_REL_L2 = 4e-3      # bf16 dx, d_residual of N4: one rounding each (2^-8)
 ADAM_EPS = 1e-8
 ADAM_STEP_TOL = 0.05       # lr: a weight's first AdamW move against -lr g / (|g| + eps)
 TSDF_MIN_EQUAL = 0.9999    # share of voxels where T and its plain version are bit-equal
@@ -201,6 +223,24 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def adamw_first_move(params, start_state, grads, lr: float):
+    """The first AdamW step (zero weight decay) moves each weight by -lr g /
+    (|g| + eps): per parameter, the largest excess of the move's distance
+    from that beyond one f32 spacing of the weight, and the largest move,
+    both in units of lr."""
+    import torch
+
+    excess, moved_by = [], []
+    for n, p in params.items():
+        p0, g = start_state[n], grads[n]
+        delta = p.detach() - p0
+        spacing = torch.nextafter(p0.abs(), torch.full_like(p0, float("inf"))) - p0.abs()
+        err = (delta + lr * g / (g.abs() + ADAM_EPS)).abs() - spacing
+        excess.append(err.max())
+        moved_by.append(delta.abs().max())
+    return torch.stack(excess).cpu() / lr, torch.stack(moved_by).cpu() / lr
+
+
 def touched_row_bytes(levels, ix, iy) -> int:
     """Bytes of the level rows that bilinear corners at (ix, iy) [L, N] land
     on, each row counted once: what a gather reads (or a scatter-add reads
@@ -242,6 +282,7 @@ def main() -> None:
     from scenerf_tpu_torch.model import SceneRF, compute_sphere_maps
     from scenerf_tpu_torch.encoder.norm import FusedBatchNorm
     from scenerf_tpu_torch.ops import build
+    from scenerf_tpu_torch.ops import gather as ops_gather
     from scenerf_tpu_torch.ops import norm as NM
     from scenerf_tpu_torch.ops.composite import (SOM_KEYS, SomInputs, sort_composite,
                                                  sort_composite_backward,
@@ -556,7 +597,7 @@ def main() -> None:
           f"{n_rays / warm_pose_ms * 1e3:.0f} rays/s; peak device memory "
           f"{peak / 2**30:.2f} GiB (encode + sweep)")
 
-    serve_launches = launches
+    serve_launches, peak_serve = launches, peak
     del lv, pyramid, sweep, depth, color, ref
     torch.cuda.empty_cache()
 
@@ -946,16 +987,7 @@ def main() -> None:
             # the first AdamW step moves each weight by -lr g / (|g| + eps)
             # (zero weight decay): held per element within 0.05 lr plus one
             # f32 spacing of the weight (the rounding of the update)
-            excess, moved_by = [], []
-            for n, p in params.items():
-                p0, g = start_state[n], grads0[n]
-                delta = p.detach() - p0
-                spacing = torch.nextafter(p0.abs(), torch.full_like(p0, float("inf"))) - p0.abs()
-                err = (delta + cfg.lr * g / (g.abs() + ADAM_EPS)).abs() - spacing
-                excess.append(err.max())
-                moved_by.append(delta.abs().max())
-            excess = torch.stack(excess).cpu() / cfg.lr
-            moved_by = torch.stack(moved_by).cpu() / cfg.lr
+            excess, moved_by = adamw_first_move(params, start_state, grads0, cfg.lr)
             if not float(excess.max()) <= ADAM_STEP_TOL:
                 fail(f"train step 0: AdamW moved a weight {float(excess.max()):.3f} lr away "
                      f"from -lr g / (|g| + eps)")
@@ -1536,6 +1568,443 @@ def main() -> None:
                 "shape", "act", "residual", "channel_first", "sites", "device_ms", "bound_ms",
                 "events_ms", "plain_ms", "library_ms")} for row in bn_rows]
             if name == "bn_stats" else None)
+
+    # ---- 13. bf16 --------------------------------------------------------
+    # the JAX package's flagship training configuration (bench.py's, minus its
+    # TPU knobs) in the port's bf16 compute path: kernels G, G-bwd and K5 in
+    # their bf16 instantiations (C, C-bwd, S and T stay f32), cuDNN and cuBLAS
+    # in bf16 over the f32 parameters
+    torch.cuda.empty_cache()
+    cfg16 = C.kitti(n_sources=4, ray_chunk=1200, n_gt_depth=256, compute_dtype="bfloat16")
+    cfg32 = cfg16.replace(compute_dtype="float32")
+    bf16 = torch.bfloat16
+    b16 = {}  # per kernel: its bf16 results
+
+    # kernel G: phase 2's pyramid at the serve chunk's points, each sphere
+    # resample at its tap width; bit-equal to the plain bf16 version
+    levels16 = [torch.randn(*pyramid_level_size(cfg.sphere, s), c, generator=gen,
+                            device=dev).to(bf16) for s, c in zip(SCALES, widths)]
+    ix, iy = pyramid_coords(pts.reshape(-1, 3), K, inv_K, cfg.sphere,
+                            [lv.shape[:2] for lv in levels16])
+
+    def check_g16(what, lvs, gx, gy, reps: int = GRAPH_REPS) -> dict:
+        """Kernel G in bf16 bit-equal to its plain version; its times ("alone":
+        a graph of `reps` launches, whose outputs all stay alive)."""
+        g1 = gather_levels(lvs, gx, gy)
+        g0 = gather_levels_plain(lvs, gx, gy)
+        torch.cuda.synchronize()
+        if g1.dtype != bf16 or not torch.equal(g1, g0):
+            fail(f"bf16 gather_levels at {what}: not bit-equal to the plain bf16 version")
+        run = lambda: gather_levels(lvs, gx, gy)  # noqa: E731
+        return dict(shape=what, max_abs_err=0.0, ms=cuda_ms(run), device_ms=graph_ms(run, reps),
+                    plain_ms=cuda_ms(lambda: gather_levels_plain(lvs, gx, gy)),
+                    lanes=lanes_per_point([lv.shape[2] for lv in lvs], gx.shape[1], bf16),
+                    **bound(touched_row_bytes(lvs, gx, gy) + nbytes(gx, gy, g1), 9 * g1.numel()))
+
+    # the pyramid's 1.59 GB output: a graph of 8 (50 would not fit the card)
+    g16 = [check_g16(f"pyramid at {ix.shape[1]} points", levels16, ix, iy, reps=8)]
+    for s, c in tap_widths.items():
+        tap = torch.randn(-(-H // s), -(-W // s), c, generator=gen, device=dev).to(bf16)
+        m = torch.from_numpy(sphere_maps[s]).to(dev)
+        rix, riy = sphere_map_coords(m, tap.shape[0], tap.shape[1])
+        g16.append(check_g16(f"s{s} sphere resample {list(tap.shape)}", [tap], rix[None],
+                             riy[None]))
+    for r in g16:
+        print(f"[13 kernel G bf16] {r['shape']} ({r['lanes']} lanes per point): bit-equal; "
+              f"kernel {r['ms']:.4f} ms, alone {r['device_ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.3f} ms; bf16 bound {r['bound_ms']:.4f} ms")
+    b16["gather_levels"] = dict(g16[0], at_shapes=g16[1:])
+
+    # kernel G-bwd: phase 7's cotangents (a training chunk's samples and
+    # anchors, one source's samples), bf16, into f32 buffers
+    ix, iy = pyramid_coords(pts_t.reshape(-1, 3), K, inv_K, cfg.sphere,
+                            [lv.shape[:2] for lv in levels16])
+    bufs = [torch.zeros(lv.shape, device=dev) for lv in levels16]
+    gb16 = []
+    for idx in (chunk_pts, anchor_pts, torch.arange(ix.shape[1], device=dev)):
+        ix_n, iy_n = ix[:, idx].contiguous(), iy[:, idx].contiguous()
+        d_n = torch.randn(idx.numel(), sum(widths), generator=gen, device=dev).to(bf16)
+        for b_ in bufs:
+            b_.zero_()
+        gather_levels_backward(levels16, ix_n, iy_n, d_n, bufs, False)
+        want_lv = [torch.zeros_like(b_) for b_ in bufs]
+        gb_plain = lambda: ops_gather._plain_backward(  # noqa: E731
+            levels16, ix_n, iy_n, d_n, want_lv, False)
+        gb_plain()
+        torch.cuda.synchronize()
+        limit = GATHER_BWD_REL_TOL * max(float(b_.abs().max()) for b_ in want_lv)
+        err = max(float((a - b_).abs().max()) for a, b_ in zip(bufs, want_lv))
+        if not err <= limit:
+            fail(f"bf16 gather_levels_bwd at {idx.numel()} points: max abs error {err} > {limit}")
+        run = lambda: gather_levels_backward(levels16, ix_n, iy_n, d_n, bufs, False)  # noqa: E731
+        gb16.append(dict(shape=list(d_n.shape), max_abs_err=err, ms=cuda_ms(run),
+                         device_ms=graph_ms(run), plain_ms=cuda_ms(gb_plain),
+                         **bound(nbytes(d_n, ix_n, iy_n)
+                                 + 2 * touched_row_bytes(bufs, ix_n, iy_n), 10 * d_n.numel())))
+        del want_lv, d_n
+    for r in gb16:
+        print(f"[13 kernel G-bwd bf16] cotangent {r['shape']} bf16 into f32 buffers: max abs "
+              f"err {r['max_abs_err']:.3e}; kernel {r['ms']:.3f} ms, alone "
+              f"{r['device_ms']:.3f} ms, plain {r['plain_ms']:.3f} ms; bound "
+              f"{r['bound_ms']:.3f} ms")
+    b16["gather_levels_bwd"] = dict(gb16[0], at_shapes=gb16[1:])
+    del levels16, ix, iy, bufs
+    torch.cuda.empty_cache()
+
+    # encode and serve in bf16 from phase 4's weights
+    with torch.device(dev):
+        model16 = SceneRF(cfg16).eval()
+    model16.load_state_dict(start_state)
+    sites16 = {"eval": [], "train": []}
+
+    def site_hooks16(path: str) -> list:
+        def record_site(mod, args, kwargs):
+            x_in = args[0]
+            res_in = args[1] if len(args) > 1 else kwargs.get("residual")
+            sites16[path].append((tuple(x_in.shape), mod.act, res_in is not None, mod.eps,
+                                  mod.momentum, NM.plane(x_in), x_in.dtype))
+
+        return [m.register_forward_pre_hook(record_site, with_kwargs=True)
+                for m in model16.modules() if isinstance(m, FusedBatchNorm)]
+
+    hooks16 = site_hooks16("eval")
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    lv16 = model16.encode(img, K_np, sphere_maps=sphere_maps)
+    torch.cuda.synchronize()
+    encode16_first = (time.perf_counter() - t0) * 1e3
+    for h in hooks16:
+        h.remove()
+    if ({v.dtype for v in lv16.values()} != {bf16}
+            or [tuple(lv16[k].shape) for k in ("1_1", "1_2", "1_4", "1_8", "1_16")]
+            != want_shapes or not all(bool(torch.isfinite(v).all()) for v in lv16.values())):
+        fail("bf16 encode: levels not bf16, of the f32 shapes, finite")
+    if (build.LAUNCHES["bn_apply_bf16"], build.LAUNCHES["bn_stats"]) != (BN_SITES, 0) or \
+            build.LAUNCHES["gather_levels_bf16"] != build.LAUNCHES["gather_levels"] or \
+            {s[-1] for s in sites16["eval"]} != {bf16}:
+        fail(f"bf16 encode launches {build.LAUNCHES}")
+    pyramid16 = model16.pyramid_for_item(lv16, 0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    sweep16 = model16.render_pose_sweep(pyramid16, K, poses, seed=SEED, stride=STRIDE,
+                                        ray_chunk=CHUNK)
+    torch.cuda.synchronize()
+    sweep16_ms = (time.perf_counter() - t0) * 1e3
+    serve16_launches = dict(build.LAUNCHES)
+    serve16_peak = torch.cuda.max_memory_allocated()
+    depth16 = sweep16["depth"]
+    if not (bool(torch.isfinite(depth16).all()) and bool(torch.isfinite(sweep16["color"]).all())
+            and 0.0 <= float(depth16.min()) and float(depth16.max()) <= cfg.max_sample_depth):
+        fail("bf16 sweep depth/color not finite or out of range")
+    with build.plain_versions():
+        ref16 = model16.render_image(pyramid16, K, poses[0],
+                                     torch.Generator(device=dev).manual_seed(SEED),
+                                     stride=STRIDE, ray_chunk=CHUNK)
+    shares16 = {}
+    for k in ("depth", "color"):
+        ok = torch.isclose(sweep16[k][0], ref16[k], rtol=SERVE_RTOL,
+                           atol=SERVE_RTOL * float(ref16[k].abs().max()))
+        shares16[k] = float((ok.all(dim=-1) if k == "color" else ok).float().mean())
+        if shares16[k] < SERVE_MIN_SHARE:
+            fail(f"bf16 pose 0 {k}: kernel path agrees with the plain bf16 path on "
+                 f"{shares16[k]:.4%} of pixels")
+    enc16 = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model16.encode(img, K_np, sphere_maps=sphere_maps)
+        torch.cuda.synchronize()
+        enc16.append((time.perf_counter() - t0) * 1e3)
+    t0 = time.perf_counter()
+    model16.render_pose_sweep(pyramid16, K, poses, seed=SEED, stride=STRIDE, ray_chunk=CHUNK)
+    torch.cuda.synchronize()
+    pose16_ms = (time.perf_counter() - t0) * 1e3 / SWEEP_POSES
+    print(f"[13 serve bf16] encode: {BN_SITES} bf16 K5 launches, levels bf16 and finite; "
+          f"{SWEEP_POSES} poses at stride {STRIDE}, chunk {CHUNK}: finite, launches "
+          f"{ {k: serve16_launches[k] for k in SERVE_KERNELS + ('gather_levels_bf16', 'bn_apply_bf16')} }; "
+          f"pose 0 vs the plain bf16 path within rtol {SERVE_RTOL}: depth {shares16['depth']:.4%}, "
+          f"color {shares16['color']:.4%} of pixels")
+    print(f"[13 numbers] on {card}: bf16 encode {statistics.median(enc16):.1f} ms (f32 "
+          f"{statistics.median(enc_times):.1f}), {pose16_ms:.1f} ms/pose warm (f32 "
+          f"{warm_pose_ms:.1f}; first sweep {sweep16_ms / SWEEP_POSES:.1f}), "
+          f"{n_rays / pose16_ms * 1e3:.0f} rays/s (f32 {n_rays / warm_pose_ms * 1e3:.0f}); peak "
+          f"device memory {serve16_peak / 2**30:.2f} GiB (f32 {peak_serve / 2**30:.2f})")
+    del lv16, pyramid16, sweep16, depth16, ref16
+    torch.cuda.empty_cache()
+
+    # train: 3 bf16 steps at the flagship shapes from phase 4's weights, and
+    # step 0 in f32 from the same weights and draws
+    model16.train()
+    batch16 = make_batch(cfg16, seed=SEED)
+    noises16 = [model16.draw_noise(1, cfg16.n_sources, gen, dev) for _ in range(TRAIN_STEPS)]
+    with torch.device(dev):
+        model32 = SceneRF(cfg32)
+    model32.load_state_dict(start_state)
+    metrics32 = Trainer(cfg32, device=dev, model=model32).train_step(batch16, noise=noises16[0])
+    loss32 = float(metrics32["total_loss"])
+    del model32, metrics32
+    torch.cuda.empty_cache()
+    trainer16 = Trainer(cfg16, device=dev, model=model16)
+    params16 = dict(model16.named_parameters())
+    seen16 = {n: False for n in params16}
+    step16_ms, losses16 = [], []
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    for i in range(TRAIN_STEPS):
+        hooks16 = site_hooks16("train") if i == 0 else []
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics16 = trainer16.train_step(batch16, noise=noises16[i])
+        torch.cuda.synchronize()
+        step16_ms.append((time.perf_counter() - t0) * 1e3)
+        for h in hooks16:
+            h.remove()
+        gmax = torch.stack([p.grad.abs().max() for p in params16.values()]).cpu()
+        if not (bool(torch.isfinite(gmax).all())
+                and bool(torch.isfinite(metrics16["total_loss"]))):
+            fail(f"bf16 train step {i}: loss or gradients not finite")
+        if {p.dtype for p in params16.values()} | {p.grad.dtype for p in params16.values()} \
+                != {torch.float32}:
+            fail(f"bf16 train step {i}: a parameter or gradient is not f32")
+        for n, m_ in zip(params16, gmax.tolist()):
+            seen16[n] |= m_ > 0
+        losses16.append(float(metrics16["total_loss"]))
+        if i == 0:
+            grads16 = {n: p.grad.detach().clone() for n, p in params16.items()}
+            excess16, moved16 = adamw_first_move(params16, start_state, grads16, cfg16.lr)
+            has16 = gmax > 0
+            if not float(excess16.max()) <= ADAM_STEP_TOL or not bool((moved16[has16] > 0).all()):
+                fail(f"bf16 train step 0: AdamW moved a weight {float(excess16.max()):.3f} lr "
+                     f"away from -lr g / (|g| + eps), or a parameter with a gradient stayed")
+    train16_launches = dict(build.LAUNCHES)
+    train16_peak = torch.cuda.max_memory_allocated()
+    launches16_per_step = {k: train16_launches[k] / TRAIN_STEPS for k in train16_launches}
+    bn16 = [train16_launches[f"{k}_bf16"] for k in BN_KERNELS]
+    if bn16 != [BN_SITES * TRAIN_STEPS] * 4 or [train16_launches[k] for k in BN_KERNELS] != bn16:
+        fail(f"bf16 train: K5 launches {train16_launches}; expected {BN_SITES} bf16 launches "
+             f"of each of N1-N4 per step")
+    if not (train16_launches["gather_levels_bf16"] >= 1
+            and train16_launches["gather_levels_bwd_bf16"] >= 1
+            and train16_launches["ray_som_in_sort_composite"] == cfg16.n_sources * TRAIN_STEPS
+            and train16_launches["ray_som"] == train16_launches["ray_som_in_sort_composite"]
+            and train16_launches["sort_composite_bwd"] >= 1):
+        fail(f"bf16 train launches {train16_launches}: expected bf16 G and G-bwd, and one "
+             f"C training launch (R = {cfg16.n_rays}, S's EM inside) per source and step")
+    if {s[-1] for s in sites16["train"]} != {bf16} or len(sites16["train"]) != BN_SITES:
+        fail(f"bf16 train: {len(sites16['train'])} BN sites, dtypes "
+             f"{ {s[-1] for s in sites16['train']} }")
+    zero16 = [n for n, seen in seen16.items()
+              if not seen and not re.search(r"conv_block[12]\.0\.bias$", n)]
+    if zero16:
+        fail(f"bf16 train: {len(zero16)} parameters never got a nonzero gradient, e.g. "
+             f"{zero16[:3]}")
+    state16 = model16.state_dict()
+    stats16 = [k for k in state16 if k.endswith(("running_mean", "running_var"))]
+    if any(state16[k].dtype != torch.float32 or torch.equal(state16[k], start_state[k])
+           for k in stats16):
+        fail("bf16 train: a BN running statistic is not f32 or did not move")
+    if not abs(losses16[0] - loss32) <= TRAIN16_LOSS_RTOL * abs(loss32):
+        fail(f"bf16 train step 0 loss {losses16[0]} vs f32 {loss32} (rtol {TRAIN16_LOSS_RTOL})")
+    warm16 = statistics.median(step16_ms[1:])
+    rays16 = cfg16.n_sources * cfg16.n_rays
+    print(f"[13 train bf16] {TRAIN_STEPS} steps of kitti(n_sources=4, ray_chunk=1200, "
+          f"n_gt_depth=256, compute_dtype=bfloat16): loss {['%.5f' % v for v in losses16]}, "
+          f"step 0 vs f32 from the same weights and draws {loss32:.5f} (rel "
+          f"{abs(losses16[0] - loss32) / abs(loss32):.2e}, rtol {TRAIN16_LOSS_RTOL}); finite; "
+          f"params, gradients and {len(stats16)} BN statistics f32, the statistics moved; "
+          f"AdamW step 0 within {max(float(excess16.max()), 0.0):.2e} lr; launches per step "
+          f"{ {k: launches16_per_step[k] for k in TRAIN_KERNELS + tuple(f'{k}_bf16' for k in build.BF16_KERNELS)} }")
+    print(f"[13 numbers] on {card}: bf16 {warm16:.1f} ms per step (median of steps "
+          f"{list(range(1, TRAIN_STEPS))}; step 0 {step16_ms[0]:.1f} ms), "
+          f"{rays16 / warm16 * 1e3:.0f} rays/s, peak device memory "
+          f"{train16_peak / 2**30:.2f} GiB; f32 phase 10 (ray_chunk {cfg.ray_chunk}): "
+          f"{warm:.1f} ms per step, {n_step_rays / warm * 1e3:.0f} rays/s, {peak / 2**30:.2f} GiB")
+
+    # K5 and G in bf16 on the train-mode encode: levels and encoder gradients
+    # under a fixed cotangent, through the kernels and through the plain bf16
+    # versions, each held to the f32 weights' encode in f64
+    tensors16, maps16 = trainer16.device_batch(batch16)
+    enc = {}
+    for name in ("kernels", "plain", "f64"):
+        model16.load_state_dict(start_state)
+        model.load_state_dict(start_state)
+        net = copy.deepcopy(model.net_rgb).double() if name == "f64" else model16.net_rgb
+        net.train()
+        net.zero_grad(set_to_none=True)
+        cot = torch.Generator(device=dev).manual_seed(SEED + 1)
+        x_in = tensors16["img_input"].to(torch.float64 if name == "f64" else bf16)
+        with build.plain_versions() if name != "kernels" else contextlib.nullcontext():
+            lv_e = net(x_in, maps16)
+            sum((lv_e[k].double() * torch.randn(lv_e[k].shape, generator=cot, device=dev,
+                                                dtype=torch.float64)).sum()
+                for k in sorted(lv_e)).backward()
+        enc[name] = ({k: v.detach().double() for k, v in lv_e.items()},
+                     torch.cat([p.grad.double().flatten() for p in net.parameters()
+                                if p.grad is not None]))
+        del lv_e, net
+    model16.zero_grad(set_to_none=True)
+    e16 = {}
+    for name in ("kernels", "plain"):
+        lv_n, g_n = enc[name]
+        lv_r, g_r = enc["f64"]
+        e16[name] = dict(levels={k: float((lv_n[k] - lv_r[k]).norm() / lv_r[k].norm())
+                                 for k in lv_r},
+                         grads=float((g_n - g_r).norm() / g_r.norm()))
+    for k in e16["plain"]["levels"]:
+        if not e16["kernels"]["levels"][k] <= ENCODE_F64_RATIO * e16["plain"]["levels"][k]:
+            fail(f"bf16 train-mode encode level {k}: kernels' relative L2 error against f64 "
+                 f"{e16['kernels']['levels'][k]:.3e} > {ENCODE_F64_RATIO} x the plain bf16 "
+                 f"version's {e16['plain']['levels'][k]:.3e}")
+    if not e16["kernels"]["grads"] <= ENCODE_F64_RATIO * e16["plain"]["grads"]:
+        fail(f"bf16 train-mode encode gradients: kernels {e16['kernels']['grads']:.3e} > "
+             f"{ENCODE_F64_RATIO} x plain bf16 {e16['plain']['grads']:.3e} against f64")
+    print(f"[13 train bf16] K5 and G (bf16) on the train-mode encode against f64: levels "
+          f"relative L2 { {k: float('%.2e' % v) for k, v in e16['kernels']['levels'].items()} } "
+          f"(plain bf16: { {k: float('%.2e' % v) for k, v in e16['plain']['levels'].items()} }); "
+          f"encoder gradients {e16['kernels']['grads']:.2e} (plain bf16 "
+          f"{e16['plain']['grads']:.2e}; limit {ENCODE_F64_RATIO}x)")
+    del enc, tensors16, maps16, trainer16, model16, batch16, noises16, grads16, lv_n, g_n
+    del lv_r, g_r
+    torch.cuda.empty_cache()
+
+    # N1-N4 in bf16 at every distinct batch norm configuration of the bf16
+    # encode and step: each against its plain bf16 version, timed alone, and
+    # the bf16 byte bound
+    count16 = {"train": {}, "eval": {}}
+    for path, counts in count16.items():
+        for key in sites16[path]:
+            counts[key[:-1]] = counts.get(key[:-1], 0) + 1
+    configs16 = sorted(set(count16["train"]) | set(count16["eval"]),
+                       key=lambda k: (-math.prod(k[0]), k[1], k[2], k[5]))
+    rows16 = []
+    for key in configs16:
+        shape, act, has_res, eps, mom, layout = key
+        Cn = shape[-1]
+
+        def draw16():
+            if not layout:
+                return torch.randn(shape, generator=gen, device=dev).to(bf16)
+            return torch.randn(shape[0], Cn, *shape[1:-1], generator=gen,
+                               device=dev).to(bf16).movedim(1, -1)
+
+        x = draw16()
+        w = torch.rand(Cn, generator=gen, device=dev) + 0.5
+        b = torch.rand(Cn, generator=gen, device=dev) - 0.5
+        rm = torch.rand(Cn, generator=gen, device=dev) * 0.4 - 0.2
+        rv = torch.rand(Cn, generator=gen, device=dev) + 0.5
+        r = draw16() if has_res else None
+        dy = draw16()
+        what = f"bf16 {list(shape)} {act}{' + residual' if has_res else ''}" \
+               f"{' channel-first' if layout else ''}"
+        err = {}
+        rk, rp = [rm.clone(), rv.clone()], [rm.clone(), rv.clone()]
+        _, st_k = NM.launch_forward(x, w, b, *rk, True, mom, eps, act, r, stages=1)
+        st_p = NM.stats_plain(x, w, b, *rp, mom, eps)
+        err["bn_stats"] = max(check_close(f"N1 {what} statistics row {i}", st_k[i], st_p[i])
+                              for i in range(5))
+        y_k, _ = NM.launch_forward(x, w, b, rm.clone(), rv.clone(), True, mom, eps, act, r,
+                                   stages=2, stats=st_p)
+        y_p = NM.apply_plain(x, st_p, act, r)
+        spac = (y_k.float() - y_p.float()).abs() / torch.exp2(
+            torch.floor(torch.log2(y_p.float().abs().clamp(min=1e-30))) - 7)
+        if float(spac.max()) > 1.0:
+            fail(f"K5 N2 {what}: {float(spac.max()):.2f} bf16 spacings from the plain version")
+        err["bn_apply"] = float((y_k.float() - y_p.float()).abs().max())
+        _, gr_k, _ = NM.launch_backward(x, dy, w, st_p, True, eps, act, r, stages=1)
+        gr_p = NM.bwd_reduce_plain(x, dy, st_p, w, eps, act, True, r)
+        err["bn_bwd_reduce"] = max(check_l2(f"N3 {what} row {i}", gr_k[i], gr_p[i])
+                                   for i in range(4))
+        dx_k, _, dr_k = NM.launch_backward(x, dy, w, st_p, True, eps, act, r,
+                                           residual_grad=has_res, stages=2, grads=gr_p)
+        dx_p, dr_p = NM.bwd_apply_plain(x, dy, st_p, gr_p, act, r)
+        for name_, a_, b_ in (("dx", dx_k, dx_p), ("d_r", dr_k, dr_p)):
+            if b_ is None or (name_ == "d_r" and not has_res):
+                continue
+            e_ = float((a_.float() - b_.float()).norm() / max(float(b_.float().norm()), 1e-30))
+            if e_ > BF16_DX_REL_L2:
+                fail(f"K5 N4 {what} {name_}: relative L2 {e_:.3e} > {BF16_DX_REL_L2}")
+        err["bn_bwd_apply"] = float((dx_k.float() - dx_p.float()).abs().max())
+        scratch = [rm.clone(), rv.clone()]
+        y_buf, st_buf, gr_buf, dx_buf = torch.empty_like(x), st_p.clone(), gr_p.clone(), \
+            torch.empty_like(x)
+        dr_buf = torch.empty_like(x) if has_res and act != "identity" else None
+        calls = {
+            "bn_stats": (lambda: NM.launch_forward(x, w, b, *scratch, True, mom, eps, act, r,
+                                                   stages=1, y=y_buf, stats=st_buf),
+                         lambda: NM.stats_plain(x, w, b, *scratch, mom, eps)),
+            "bn_apply": (lambda: NM.launch_forward(x, w, b, *scratch, True, mom, eps, act, r,
+                                                   stages=2, y=y_buf, stats=st_p),
+                         lambda: NM.apply_plain(x, st_p, act, r)),
+            "bn_bwd_reduce": (lambda: NM.launch_backward(x, dy, w, st_p, True, eps, act, r,
+                                                         stages=1, grads=gr_buf, dx=dx_buf),
+                              lambda: NM.bwd_reduce_plain(x, dy, st_p, w, eps, act, True, r)),
+            "bn_bwd_apply": (lambda: NM.launch_backward(x, dy, w, st_p, True, eps, act, r,
+                                                        residual_grad=has_res, stages=2,
+                                                        grads=gr_p, dx=dx_buf, d_res=dr_buf),
+                             lambda: NM.bwd_apply_plain(x, dy, st_p, gr_p, act, r)),
+        }
+        alone = {k: graph_ms(kern) for k, (kern, _) in calls.items()}
+        alone["bn_apply_eval"] = graph_ms(lambda: NM.launch_forward(
+            x, w, b, rm, rv, False, mom, eps, act, r, want_stats=False, y=y_buf))
+        nb = lambda *ts: nbytes(*(t for t in ts if t is not None))  # noqa: E731
+        r_act = r if act != "identity" else None
+        n = x.numel()
+        bounds16 = {
+            "bn_stats": bound(nb(x), 3 * n)["bound_ms"],
+            "bn_apply": bound(nb(x, r, y_buf), (4 + act_ops[act]) * n)["bound_ms"],
+            "bn_apply_eval": bound(nb(x, r, y_buf), (4 + act_ops[act]) * n)["bound_ms"],
+            "bn_bwd_reduce": bound(nb(x, dy, r_act), (5 + act_grad_ops[act]) * n)["bound_ms"],
+            "bn_bwd_apply": bound(nb(x, dy, r_act, x, r_act if has_res else None),
+                                  (6 + act_grad_ops[act]) * n)["bound_ms"],
+        }
+        row = dict(shape=list(shape), act=act, residual=has_res, channel_first=bool(layout),
+                   sites={p: count16[p].get(key, 0) for p in count16}, max_abs_err=err,
+                   device_ms=alone, bound_ms=bounds16)
+        if not rows16:  # the largest configuration: events and the plain versions
+            row["stage_ms"] = {k: cuda_ms(kern) for k, (kern, _) in calls.items()}
+            row["stage_plain_ms"] = {k: cuda_ms(plain) for k, (_, plain) in calls.items()}
+        rows16.append(row)
+        del x, r, dy, y_buf, dx_buf, dr_buf, y_k, y_p, dx_k, dx_p, dr_k, dr_p, calls, spac
+        torch.cuda.empty_cache()
+
+    def per_step16(get, path: str = "train") -> float:
+        return sum(row["sites"][path] * get(row) for row in rows16)
+
+    bn16_step = dict(
+        forward_ms=per_step16(lambda r_: r_["device_ms"]["bn_stats"] + r_["device_ms"]["bn_apply"]),
+        backward_ms=per_step16(lambda r_: r_["device_ms"]["bn_bwd_reduce"]
+                               + r_["device_ms"]["bn_bwd_apply"]),
+        eval_ms=per_step16(lambda r_: r_["device_ms"]["bn_apply_eval"], "eval"),
+        forward_bound_ms=per_step16(lambda r_: r_["bound_ms"]["bn_stats"]
+                                    + r_["bound_ms"]["bn_apply"]),
+        backward_bound_ms=per_step16(lambda r_: r_["bound_ms"]["bn_bwd_reduce"]
+                                     + r_["bound_ms"]["bn_bwd_apply"]),
+        eval_bound_ms=per_step16(lambda r_: r_["bound_ms"]["bn_apply_eval"], "eval"),
+        configurations=len(rows16))
+    print(f"[13 kernel K5 bf16] {len(rows16)} configurations (train sites "
+          f"{sum(r_['sites']['train'] for r_ in rows16)}, eval "
+          f"{sum(r_['sites']['eval'] for r_ in rows16)}): N1-N4 against the plain bf16 "
+          f"versions (y within 1 bf16 spacing, dx and d_r relative L2 <= {BF16_DX_REL_L2}); per "
+          f"training step alone forward {bn16_step['forward_ms']:.3f} ms (bf16 bound "
+          f"{bn16_step['forward_bound_ms']:.3f}; f32 {bn_step['forward_ms']:.3f}), backward "
+          f"{bn16_step['backward_ms']:.3f} ms (bound {bn16_step['backward_bound_ms']:.3f}; f32 "
+          f"{bn_step['backward_ms']:.3f}); eval encode {bn16_step['eval_ms']:.3f} ms (bound "
+          f"{bn16_step['eval_bound_ms']:.3f}; f32 {bn_step['eval_ms']:.3f})")
+    main16 = rows16[0]
+    for name in BN_KERNELS:
+        b16[name] = dict(shape=main16["shape"], act=main16["act"], residual=main16["residual"],
+                         max_abs_err=max(r_["max_abs_err"][name] for r_ in rows16),
+                         ms=main16["stage_ms"][name], plain_ms=main16["stage_plain_ms"][name],
+                         device_ms=main16["device_ms"][name], bound_ms=main16["bound_ms"][name],
+                         bound_by="bytes", per_step=bn16_step if name == "bn_stats" else None,
+                         at_shapes=rows16 if name == "bn_stats" else None)
+    for name in b16:
+        b16[name]["launches"] = train16_launches[f"{name}_bf16"]
+        b16[name]["launches_by_path"] = {"serve": serve16_launches[f"{name}_bf16"],
+                                         "train": train16_launches[f"{name}_bf16"]}
+        results[name]["bf16"] = b16[name]
 
     sources = {
         "gather_levels": ("scenerf_tpu_torch/ops/csrc/gather.cu", "scenerf_tpu/geometry.py:106"),

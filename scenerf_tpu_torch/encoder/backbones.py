@@ -10,11 +10,18 @@ all channel-last [B, H, W, C]. EfficientNet uses timm's parameter names
 as it is; convs use TF-SAME padding like the `tf_` timm variants. The batch
 norms use batch statistics in train mode, with `bn_momentum` (flax's
 convention, `config.bn_momentum`) for their running averages.
+
+`dtype` is the compute dtype, as flax's `nn.Conv(dtype=...)`: parameters
+stay f32, and every conv casts its input, weight and bias to `dtype` when it
+runs (bf16 on the mixed-precision path), so the activations, the squeeze-
+excitation and the batch norms' inputs and outputs are in `dtype`. None (the
+f32 path) casts nothing: a conv computes in its input's and parameters'
+dtype, so an f64 copy of the module computes in f64.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -75,14 +82,18 @@ def same_padding(size: Tuple[int, int], kernel: Tuple[int, int],
 class Conv2dCL(nn.Conv2d):
     """nn.Conv2d over channel-last [B, H, W, C] tensors, initialized like
     flax's nn.Conv (lecun_normal weights, zero bias). With `same=True` the
-    padding is TF-SAME for the input size (asymmetric where it must be)."""
+    padding is TF-SAME for the input size (asymmetric where it must be).
+    `dtype`: the compute dtype x, weight and bias are cast to (the f32
+    parameters stay f32), as flax's `nn.Conv(dtype=...)`; None casts
+    nothing."""
 
     def __init__(self, c_in: int, c_out: int, kernel: int, stride: int = 1,
                  padding: int = 0, dilation: int = 1, groups: int = 1,
-                 bias: bool = True, same: bool = False):
+                 bias: bool = True, same: bool = False, dtype: Optional[torch.dtype] = None):
         super().__init__(c_in, c_out, kernel, stride=stride, padding=padding,
                          dilation=dilation, groups=groups, bias=bias)
         self.same = same
+        self.compute_dtype = dtype
         fan_in = (c_in // groups) * kernel * kernel
         # flax lecun_normal: truncated normal at +-2 std, rescaled to unit variance
         std = 1.0 / math.sqrt(fan_in) / 0.87962566103423978
@@ -91,6 +102,10 @@ class Conv2dCL(nn.Conv2d):
             nn.init.zeros_(self.bias)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        weight, bias = self.weight, self.bias
+        if self.compute_dtype is not None:
+            x, weight = x.to(self.compute_dtype), weight.to(self.compute_dtype)
+            bias = None if bias is None else bias.to(self.compute_dtype)
         x = x.permute(0, 3, 1, 2)
         padding = self.padding
         if self.same:
@@ -101,16 +116,18 @@ class Conv2dCL(nn.Conv2d):
             else:
                 x = F.pad(x, (pl, pr, pt, pb))
                 padding = (0, 0)
-        y = F.conv2d(x, self.weight, self.bias, self.stride, padding,
-                     self.dilation, self.groups)
+        y = F.conv2d(x, weight, bias, self.stride, padding, self.dilation, self.groups)
         return y.permute(0, 2, 3, 1)
 
 
 class SqueezeExcite(nn.Module):
-    def __init__(self, c_mid: int, c_se: int):
+    """h * sigmoid(conv(silu(conv(mean(h))))), in h's dtype (the convs in
+    the compute dtype), as the JAX package's MBConv."""
+
+    def __init__(self, c_mid: int, c_se: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
-        self.conv_reduce = Conv2dCL(c_mid, c_se, 1)
-        self.conv_expand = Conv2dCL(c_se, c_mid, 1)
+        self.conv_reduce = Conv2dCL(c_mid, c_se, 1, dtype=dtype)
+        self.conv_expand = Conv2dCL(c_se, c_mid, 1, dtype=dtype)
 
     def forward(self, h: torch.Tensor) -> torch.Tensor:
         se = torch.mean(h, dim=(1, 2), keepdim=True)
@@ -125,27 +142,27 @@ class MBConv(nn.Module):
 
     def __init__(self, c_in: int, c_out: int, expand_ratio: int, kernel: int,
                  stride: int, se_ratio: float = 0.25, bn_eps: float = 1e-3,
-                 bn_momentum: float = 0.99):
+                 bn_momentum: float = 0.99, dtype: Optional[torch.dtype] = None):
         super().__init__()
         c_mid = c_in * expand_ratio
         self.expand = expand_ratio != 1
         self.residual = stride == 1 and c_in == c_out
         dw = Conv2dCL(c_mid, c_mid, kernel, stride=stride, groups=c_mid, bias=False,
-                      same=True)
-        se = SqueezeExcite(c_mid, max(1, int(c_in * se_ratio)))
+                      same=True, dtype=dtype)
+        se = SqueezeExcite(c_mid, max(1, int(c_in * se_ratio)), dtype)
         if self.expand:
-            self.conv_pw = Conv2dCL(c_in, c_mid, 1, bias=False)
+            self.conv_pw = Conv2dCL(c_in, c_mid, 1, bias=False, dtype=dtype)
             self.bn1 = FusedBatchNorm(c_mid, bn_eps, bn_momentum, act="silu")
             self.conv_dw = dw
             self.bn2 = FusedBatchNorm(c_mid, bn_eps, bn_momentum, act="silu")
             self.se = se
-            self.conv_pwl = Conv2dCL(c_mid, c_out, 1, bias=False)
+            self.conv_pwl = Conv2dCL(c_mid, c_out, 1, bias=False, dtype=dtype)
             self.bn3 = FusedBatchNorm(c_out, bn_eps, bn_momentum)
         else:
             self.conv_dw = dw
             self.bn1 = FusedBatchNorm(c_mid, bn_eps, bn_momentum, act="silu")
             self.se = se
-            self.conv_pw = Conv2dCL(c_mid, c_out, 1, bias=False)
+            self.conv_pw = Conv2dCL(c_mid, c_out, 1, bias=False, dtype=dtype)
             self.bn2 = FusedBatchNorm(c_out, bn_eps, bn_momentum)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -166,10 +183,10 @@ class EfficientNet(nn.Module):
 
     def __init__(self, width: float = 2.0, depth: float = 3.1,
                  num_features: int = 2560, bn_eps: float = 1e-3,
-                 bn_momentum: float = 0.99):
+                 bn_momentum: float = 0.99, dtype: Optional[torch.dtype] = None):
         super().__init__()
         stem = round_filters(32, width)
-        self.conv_stem = Conv2dCL(3, stem, 3, stride=2, bias=False, same=True)
+        self.conv_stem = Conv2dCL(3, stem, 3, stride=2, bias=False, same=True, dtype=dtype)
         self.bn1 = FusedBatchNorm(stem, bn_eps, bn_momentum, act="silu")
         c_in = stem
         stages = []
@@ -180,13 +197,13 @@ class EfficientNet(nn.Module):
             for bi in range(round_repeats(base_r, depth)):
                 blocks.append(MBConv(c_in, f_out, expand, kernel,
                                      stride if bi == 0 else 1, bn_eps=bn_eps,
-                                     bn_momentum=bn_momentum))
+                                     bn_momentum=bn_momentum, dtype=dtype))
                 c_in = f_out
             stages.append(nn.ModuleList(blocks))
             if si in TAP_STAGES:
                 self.tap_channels[TAP_STAGES[si]] = f_out
         self.blocks = nn.ModuleList(stages)
-        self.conv_head = Conv2dCL(c_in, num_features, 1, bias=False)
+        self.conv_head = Conv2dCL(c_in, num_features, 1, bias=False, dtype=dtype)
         self.tap_channels["s32"] = num_features
 
     def forward(self, x: torch.Tensor) -> Taps:
@@ -208,13 +225,14 @@ class TinyBackbone(nn.Module):
 
     WIDTHS = (8, 12, 16, 24)
 
-    def __init__(self, num_features: int = 64):
+    def __init__(self, num_features: int = 64, dtype: Optional[torch.dtype] = None):
         super().__init__()
         c_in = 3
         for i, w in enumerate(self.WIDTHS):
-            setattr(self, f"conv{i}", Conv2dCL(c_in, w, 3, stride=2, same=True))
+            setattr(self, f"conv{i}", Conv2dCL(c_in, w, 3, stride=2, same=True, dtype=dtype))
             c_in = w
-        self.conv_bottleneck = Conv2dCL(c_in, num_features, 3, stride=2, same=True)
+        self.conv_bottleneck = Conv2dCL(c_in, num_features, 3, stride=2, same=True,
+                                        dtype=dtype)
         self.tap_channels = {"s1": 3, "s2": 8, "s4": 12, "s8": 16, "s16": 24,
                              "s32": num_features}
 
@@ -229,13 +247,13 @@ class TinyBackbone(nn.Module):
 
 
 def make_backbone(name: str, num_features: int | None = None,
-                  bn_momentum: float = 0.99) -> nn.Module:
+                  bn_momentum: float = 0.99, dtype: Optional[torch.dtype] = None) -> nn.Module:
     """Build a backbone by config name: 'effnet-b{0..7}' or 'tiny'."""
     if name == "tiny":
-        return TinyBackbone(num_features=num_features or 64)
+        return TinyBackbone(num_features=num_features or 64, dtype=dtype)
     if name.startswith("effnet-"):
         width, depth = VARIANTS[name.split("-", 1)[1]]
         return EfficientNet(width=width, depth=depth,
                             num_features=num_features or round_filters(1280, width),
-                            bn_momentum=bn_momentum)
+                            bn_momentum=bn_momentum, dtype=dtype)
     raise ValueError(f"unknown backbone: {name}")

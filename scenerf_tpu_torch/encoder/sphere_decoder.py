@@ -8,13 +8,17 @@ the intrinsics and is built once on the host in numpy; the resampling is the
 gather kernel (`ops/gather.py`), whose backward carries the gradient into
 the taps. Tensors are channel-last [B, H, W, C]. The decoder's batch norms
 move their running averages with momentum 0.9 (flax's convention), as
-`scenerf_tpu/encoder/sphere_decoder.py:143` sets.
+`scenerf_tpu/encoder/sphere_decoder.py:143` sets. `dtype` is the compute
+dtype of the convs (see `backbones.Conv2dCL`); the resamples and the
+resizes run in the taps' dtype (bf16 taps through kernel G's bf16
+instantiation, the resize matrices rounded to bf16 as JAX's
+`_interp_matrix_align_corners(..., x.dtype)`).
 Parameter names follow the reference: conv2, up{16,8,4,2,1}._net.0 (conv)
 and _net.{1,2,3}.conv_block{1,2}.{0,1} (BasicBlocks).
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -67,7 +71,8 @@ def sphere_map_coords(sphere_map: torch.Tensor, h: int, w: int) -> Tuple[torch.T
 
 def sphere_scatter_gather(feat: torch.Tensor, sphere_map: torch.Tensor) -> torch.Tensor:
     """Resample a batched image-space tap [B, h, w, C] onto the sphere grid
-    -> [B, out_H, out_W, C], one gather-kernel call per batch item."""
+    -> [B, out_H, out_W, C] of the tap's dtype, one gather-kernel call per
+    batch item."""
     _, h, w, _ = feat.shape
     out_H, out_W, _ = sphere_map.shape
     ix, iy = sphere_map_coords(sphere_map, h, w)
@@ -94,7 +99,8 @@ def interp_matrix_align_corners(n_in: int, n_out: int) -> np.ndarray:
 
 
 def resize_bilinear_align_corners(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
-    """Bilinear resize (align_corners=True) of [B, H, W, C] via two matmuls."""
+    """Bilinear resize (align_corners=True) of [B, H, W, C] via two matmuls
+    in x's dtype (the matrices rounded to it)."""
     H, W = x.shape[-3], x.shape[-2]
     My = torch.as_tensor(interp_matrix_align_corners(H, out_hw[0]), dtype=x.dtype,
                          device=x.device)
@@ -109,14 +115,14 @@ class BasicBlock(nn.Module):
     each BN fused with its leaky-ReLU (JAX's: gradient 1 at 0), the second
     with the residual too."""
 
-    def __init__(self, channels: int, dilation: int):
+    def __init__(self, channels: int, dilation: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
         d = dilation
         self.conv_block1 = nn.Sequential(
-            Conv2dCL(channels, channels, 3, padding=d, dilation=d),
+            Conv2dCL(channels, channels, 3, padding=d, dilation=d, dtype=dtype),
             FusedBatchNorm(channels, DECODER_BN_EPS, DECODER_BN_MOMENTUM, act="leaky"))
         self.conv_block2 = nn.Sequential(
-            Conv2dCL(channels, channels, 3, padding=d, dilation=d),
+            Conv2dCL(channels, channels, 3, padding=d, dilation=d, dtype=dtype),
             FusedBatchNorm(channels, DECODER_BN_EPS, DECODER_BN_MOMENTUM, act="leaky"))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
@@ -128,11 +134,11 @@ class BasicBlock(nn.Module):
 class UpSampleBN(nn.Module):
     """Upsample to the skip's size, concat, 3x3 conv, 3 dilated BasicBlocks."""
 
-    def __init__(self, c_in: int, channels: int):
+    def __init__(self, c_in: int, channels: int, dtype: Optional[torch.dtype] = None):
         super().__init__()
         self._net = nn.Sequential(
-            Conv2dCL(c_in, channels, 3, padding=1),
-            BasicBlock(channels, 1), BasicBlock(channels, 2), BasicBlock(channels, 3))
+            Conv2dCL(c_in, channels, 3, padding=1, dtype=dtype),
+            *(BasicBlock(channels, d, dtype) for d in (1, 2, 3)))
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
         up = resize_bilinear_align_corners(x, (skip.shape[-3], skip.shape[-2]))
@@ -144,15 +150,16 @@ class DecoderSphere(nn.Module):
     pyramid. Levels {"1_1": F//32 ch, "1_2": F//16, "1_4": F//8,
     "1_8": F//4, "1_16": F//2}."""
 
-    def __init__(self, num_features: int, tap_channels: Dict[str, int]):
+    def __init__(self, num_features: int, tap_channels: Dict[str, int],
+                 dtype: Optional[torch.dtype] = None):
         super().__init__()
         Fn = num_features
-        self.conv2 = Conv2dCL(tap_channels["s32"], Fn, 1)
-        self.up16 = UpSampleBN(Fn + tap_channels["s16"], Fn // 2)
-        self.up8 = UpSampleBN(Fn // 2 + tap_channels["s8"], Fn // 4)
-        self.up4 = UpSampleBN(Fn // 4 + tap_channels["s4"], Fn // 8)
-        self.up2 = UpSampleBN(Fn // 8 + tap_channels["s2"], Fn // 16)
-        self.up1 = UpSampleBN(Fn // 16 + tap_channels["s1"], Fn // 32)
+        self.conv2 = Conv2dCL(tap_channels["s32"], Fn, 1, dtype=dtype)
+        self.up16 = UpSampleBN(Fn + tap_channels["s16"], Fn // 2, dtype)
+        self.up8 = UpSampleBN(Fn // 2 + tap_channels["s8"], Fn // 4, dtype)
+        self.up4 = UpSampleBN(Fn // 4 + tap_channels["s4"], Fn // 8, dtype)
+        self.up2 = UpSampleBN(Fn // 8 + tap_channels["s2"], Fn // 16, dtype)
+        self.up1 = UpSampleBN(Fn // 16 + tap_channels["s1"], Fn // 32, dtype)
 
     def forward(self, taps: Dict[str, torch.Tensor],
                 maps: Dict[int, torch.Tensor]) -> Levels:

@@ -3,7 +3,7 @@ Counterpart of `scenerf_tpu/encoder/unet_sphere.py`; the backbone sits at
 `encoder.original_model`, as in the reference checkpoint layout."""
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import torch
 from torch import nn
@@ -20,12 +20,14 @@ class _EncoderWrapper(nn.Module):
 
 class UNet2DSphere(nn.Module):
     def __init__(self, backbone_name: str = "effnet-b7", num_features: int = 2560,
-                 bn_momentum: float = 0.99):
+                 bn_momentum: float = 0.99, dtype: Optional[torch.dtype] = None):
+        """`dtype`: the compute dtype of every conv, resample and batch norm
+        (parameters and batch-norm statistics stay f32)."""
         super().__init__()
         backbone = make_backbone(backbone_name, num_features=num_features,
-                                 bn_momentum=bn_momentum)
+                                 bn_momentum=bn_momentum, dtype=dtype)
         self.encoder = _EncoderWrapper(backbone)
-        self.decoder = DecoderSphere(num_features, backbone.tap_channels)
+        self.decoder = DecoderSphere(num_features, backbone.tap_channels, dtype)
         self.d_latent = decoder_latent_dim(num_features)
 
     def forward(self, img: torch.Tensor, maps: Dict[int, torch.Tensor]) -> Dict[str, torch.Tensor]:

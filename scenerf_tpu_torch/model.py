@@ -8,6 +8,13 @@ metrics).
 Submodule names follow the reference Lightning layout (net_rgb, mlp,
 mlp_gaussian), so a reference `state_dict` loads through
 `utils/weights.load_reference_state_dict`.
+
+`cfg.compute_dtype="bfloat16"` is the JAX package's mixed precision: the
+parameters, the optimizer state and the batch-norm statistics stay f32;
+the convs, batch norms, activations, the feature pyramid and the field MLPs
+compute in bf16 (each module casts its input and weights when it runs, as
+flax's `dtype=` fields do); the renderer's geometry, the sort-composite and
+every loss stay f32, so gradients reach the f32 parameters through the casts.
 """
 from __future__ import annotations
 
@@ -49,15 +56,15 @@ def compute_sphere_maps(cfg: SceneRFConfig, cam_K) -> Dict[int, np.ndarray]:
 class SceneRF(nn.Module):
     def __init__(self, cfg: SceneRFConfig):
         super().__init__()
-        if cfg.dtype != torch.float32:
-            raise NotImplementedError("the port runs in float32 only so far "
-                                      f"(compute_dtype={cfg.compute_dtype!r})")
         self.cfg = cfg
-        self.net_rgb = UNet2DSphere(cfg.encoder, cfg.encoder_features, cfg.bn_momentum)
+        # the modules' compute dtype: None on the f32 path (no casts), bf16
+        # for compute_dtype="bfloat16" (parameters and BN statistics stay f32)
+        dt = None if cfg.dtype == torch.float32 else cfg.dtype
+        self.net_rgb = UNet2DSphere(cfg.encoder, cfg.encoder_features, cfg.bn_momentum, dt)
         self.d_latent = self.net_rgb.d_latent
-        self.mlp = ResnetFC(cfg.d_in, 4, self.d_latent, cfg.n_blocks, cfg.d_hidden)
+        self.mlp = ResnetFC(cfg.d_in, 4, self.d_latent, cfg.n_blocks, cfg.d_hidden, dt)
         self.mlp_gaussian = ResnetFC(cfg.d_in, 2, self.d_latent, cfg.n_blocks,
-                                     cfg.d_hidden)
+                                     cfg.d_hidden, dt)
 
     # ---------------------------------------------------------------- encode
     def compute_sphere_maps(self, cam_K) -> Dict[int, np.ndarray]:

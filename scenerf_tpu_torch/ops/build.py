@@ -33,6 +33,10 @@ LAUNCHES = {"gather_levels": 0, "gather_levels_bwd": 0, "sort_composite": 0,
             "ray_som_in_sort_composite": 0,
             # kernel K5 (batch norm + activation): N1-N4
             "bn_stats": 0, "bn_apply": 0, "bn_bwd_reduce": 0, "bn_bwd_apply": 0}
+# of those launches, the ones of a bf16 instantiation (counted under both keys)
+BF16_KERNELS = ("gather_levels", "gather_levels_bwd", "bn_stats", "bn_apply", "bn_bwd_reduce",
+                "bn_bwd_apply")
+LAUNCHES.update({f"{k}_bf16": 0 for k in BF16_KERNELS})
 
 _lib = None
 _force_plain = False
@@ -43,6 +47,15 @@ build_seconds = None  # wall time of the build this process ran (None: reused)
 def reset_launch_counts() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+
+
+def count_launch(name: str, dtype) -> None:
+    """One launch of kernel `name`'s instantiation for `dtype`."""
+    import torch
+
+    LAUNCHES[name] += 1
+    if dtype == torch.bfloat16:
+        LAUNCHES[f"{name}_bf16"] += 1
 
 
 @contextlib.contextmanager
@@ -155,6 +168,9 @@ def library() -> ctypes.CDLL:
                                        + [i64, f32, i32, i32, i32, vp],
             "scenerf_empty_launch": [i32, vp],
         }
+        for name in ("gather_levels", "gather_levels_bwd", "bn_forward", "bn_backward"):
+            # the bf16 instantiations take the f32 entries' arguments
+            signatures[f"scenerf_{name}_bf16"] = signatures[f"scenerf_{name}_f32"]
         for name, argtypes in signatures.items():
             fn = getattr(lib, name)
             fn.argtypes = argtypes

@@ -174,6 +174,11 @@ def sort_composite(sd: torch.Tensor, dv: torch.Tensor, density: torch.Tensor,
     if dv.shape != (R, P) or density.shape != (R, P) or rgb.shape != (R, P, 3):
         raise ValueError(f"sort_composite: shapes {tuple(sd.shape)}, {tuple(dv.shape)}, "
                          f"{tuple(density.shape)}, {tuple(rgb.shape)}")
+    # kernel C has an f32 instantiation only; the caller converts (a bf16
+    # field's density and rgb where JAX's promotion would), this does not
+    for t in (sd, dv, density, rgb, *((som.means, som.stds) if som is not None else ())):
+        if t.dtype != torch.float32:
+            raise ValueError(f"sort_composite takes f32 tensors, got {t.dtype}")
     if not build.use_kernel(sd):
         out = sort_composite_plain(sd, dv, density, rgb)
         if som is not None:
@@ -187,8 +192,8 @@ def sort_composite(sd: torch.Tensor, dv: torch.Tensor, density: torch.Tensor,
     dev = sd.device
     ins = [t.contiguous() for t in (sd, dv, density, rgb)]
     for t in ins:
-        if t.device != dev or t.dtype != torch.float32:
-            raise ValueError("sort_composite kernel takes f32 tensors on one device")
+        if t.device != dev:
+            raise ValueError("sort_composite kernel takes tensors on one device")
     keys = _OUT_KEYS + (SOM_KEYS if som is not None else ())
     if torch.is_grad_enabled() and any(t.requires_grad for t in ins):
         return dict(zip(keys, _SortComposite.apply(*ins, som)))

@@ -32,8 +32,8 @@
 // - Levels are read through the read-only path, the output written with
 //   streaming stores (st.global.cs), which keep the write-once latent from
 //   evicting the level lines that neighbouring points read next.
-// - Wide levels (>= 160 channels) go through a cp.async ring in shared
-//   memory: two chunks of a point-level's corner rows in flight while the
+// - Wide levels (rows of >= 640 bytes: 160 f32 or 320 bf16 channels) go
+//   through a cp.async ring of 16-byte slots in shared memory: two chunks of a point-level's corner rows in flight while the
 //   third is interpolated (off-map corners zero-filled by the copy), in the
 //   training and GT-depth launches (-15 to -20% there). The serve chunk's
 //   320,000 points instead run 4 rounds of points per warp, walking 4
@@ -44,6 +44,13 @@
 // 2480 channels, repeat cells. The interpolation uses explicitly rounded
 // multiplies and adds, in the same order as the plain PyTorch version, so
 // the two agree bit for bit.
+//
+// Levels and the output are f32, or bf16 on the mixed-precision path (one
+// instantiation each; the coordinates and all arithmetic are f32 in both):
+// a bf16 lane moves 8 channels per 16-byte vector where f32 moves 4, so the
+// host sizes the lane groups by 16-byte vectors, and each output is
+// interpolated in f32 from exactly converted corner values and rounded to
+// bf16 once, as the plain version does it.
 #include "gather_common.cuh"
 
 namespace scenerf {
@@ -67,14 +74,44 @@ __device__ __forceinline__ float4 bilerp4(float4 a, float4 b, float4 c, float4 d
                      bilerp(a.z, b.z, c.z, d.z, k), bilerp(a.w, b.w, c.w, d.w, k));
 }
 
+__device__ __forceinline__ Bf16x8 bilerp4(const Bf16x8& a, const Bf16x8& b, const Bf16x8& c,
+                                          const Bf16x8& d, const Corners& k) {
+  Bf16x8 o;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) o.v[j] = bilerp(a.v[j], b.v[j], c.v[j], d.v[j], k);
+  return o;
+}
+
 __device__ __forceinline__ void store4_cs(float* p, float4 v) {
   __stcs(reinterpret_cast<float4*>(p), v);
 }
+__device__ __forceinline__ void store4_cs(bf16* p, const Bf16x8& v) {
+  uint4 q;
+  bf16* h = reinterpret_cast<bf16*>(&q);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) h[j] = __float2bfloat16_rn(v.v[j]);
+  __stcs(reinterpret_cast<uint4*>(p), q);
+}
 __device__ __forceinline__ void store1_cs(float* p, float v) { __stcs(p, v); }
+__device__ __forceinline__ void store1_cs(bf16* p, float v) {
+  __stcs(reinterpret_cast<unsigned short*>(p), __bfloat16_as_ushort(__float2bfloat16_rn(v)));
+}
+
+__device__ __forceinline__ void zero(float4& v) { v = make_float4(0.f, 0.f, 0.f, 0.f); }
+__device__ __forceinline__ void zero(Bf16x8& v) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v.v[j] = 0.f;
+}
 
 template <typename T>
-__device__ __forceinline__ float4 corner4(const T* base, int64_t off, int c) {
-  return off >= 0 ? load4(base + off + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+__device__ __forceinline__ typename Elem<T>::Vec corner4(const T* base, int64_t off, int c) {
+  typename Elem<T>::Vec v;
+  if (off >= 0) {
+    v = load4(base + off + c);
+  } else {
+    zero(v);
+  }
+  return v;
 }
 
 template <typename T>
@@ -82,12 +119,12 @@ __device__ __forceinline__ float corner1(const T* base, int64_t off, int c) {
   return off >= 0 ? load1(base + off + c) : 0.f;
 }
 
-// One level of one point, 4 channels a lane: the vectors sub, sub + G, ...
+// One level of one point, a 16-byte vector a lane: the vectors sub, sub + G, ...
 template <typename T, int G>
 __device__ __forceinline__ void level_vec(const T* base, const Corners& k, int nv, int sub,
                                           T* o) {
   for (int v = sub; v < nv; v += G) {
-    const int c = 4 * v;
+    const int c = Elem<T>::kVec * v;
     store4_cs(o + c, bilerp4(corner4(base, k.o00, c), corner4(base, k.o10, c),
                              corner4(base, k.o01, c), corner4(base, k.o11, c), k));
   }
@@ -117,14 +154,20 @@ __device__ __forceinline__ void level_scalar(const T* base, const Corners& k, in
   }
 }
 
-// Wide levels through cp.async: a ring of kStages chunks of 32 channel
+// Wide levels through cp.async: a ring of kStages chunks of 32 16-byte
 // vectors x 4 corners per warp in shared memory; each lane copies and later
 // reads only its own slots, and off-map corners are zero-filled by the copy.
 constexpr int kStages = 3;
-constexpr int kAsyncMinChannels = 160;
+constexpr int kAsyncMinBytes = 640;  // a level row of at least this goes through the ring
 struct AsyncRing {
   float4 v[kStages][4][kWarpSize];
 };
+
+// a ring slot as the level's vector
+template <typename T>
+__device__ __forceinline__ typename Elem<T>::Vec slot_vec(const float4& slot) {
+  return unpack(*reinterpret_cast<const typename Elem<T>::Raw*>(&slot));
+}
 
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem, int src_bytes) {
   const unsigned dst = static_cast<unsigned>(__cvta_generic_to_shared(smem));
@@ -137,8 +180,10 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
-__device__ __forceinline__ void level_async(AsyncRing& ring, const float* base, const Corners& k,
-                                            int nv, int lane, float* o) {
+template <typename T>
+__device__ __forceinline__ void level_async(AsyncRing& ring, const T* base, const Corners& k,
+                                            int nv, int lane, T* o) {
+  constexpr int kVec = Elem<T>::kVec;
   const int n_chunks = (nv + kWarpSize - 1) / kWarpSize;
   const int64_t offs[4] = {k.o00, k.o10, k.o01, k.o11};
   auto issue = [&](int chunk) {
@@ -146,7 +191,7 @@ __device__ __forceinline__ void level_async(AsyncRing& ring, const float* base, 
 #pragma unroll
     for (int j = 0; j < 4; ++j) {
       const bool in = v < nv && offs[j] >= 0;
-      cp_async16(&ring.v[chunk % kStages][j][lane], in ? base + offs[j] + 4 * v : base,
+      cp_async16(&ring.v[chunk % kStages][j][lane], in ? base + offs[j] + kVec * v : base,
                  in ? 16 : 0);
     }
   };
@@ -161,8 +206,9 @@ __device__ __forceinline__ void level_async(AsyncRing& ring, const float* base, 
     const int v = chunk * kWarpSize + lane;
     if (v < nv) {
       const int s = chunk % kStages;
-      store4_cs(o + 4 * v, bilerp4(ring.v[s][0][lane], ring.v[s][1][lane], ring.v[s][2][lane],
-                                   ring.v[s][3][lane], k));
+      store4_cs(o + kVec * v,
+                bilerp4(slot_vec<T>(ring.v[s][0][lane]), slot_vec<T>(ring.v[s][1][lane]),
+                        slot_vec<T>(ring.v[s][2][lane]), slot_vec<T>(ring.v[s][3][lane]), k));
     }
   }
 }
@@ -193,10 +239,10 @@ gather_levels_kernel(Levels<T> lv, const float* __restrict__ ix, const float* __
       T* o = orow + lv.col[l];
       if (!lv.vec[l]) {
         level_scalar<T, G>(lv.val[l], k, C, sub, o);
-      } else if (kAsync && C >= kAsyncMinChannels) {
-        level_async(ring, lv.val[l], k, C / 4, lane, o);
+      } else if (kAsync && C * (int)sizeof(T) >= kAsyncMinBytes) {
+        level_async<T>(ring, lv.val[l], k, C / Elem<T>::kVec, lane, o);
       } else {
-        level_vec<T, G>(lv.val[l], k, C / 4, sub, o);
+        level_vec<T, G>(lv.val[l], k, C / Elem<T>::kVec, sub, o);
       }
     }
   }
@@ -221,47 +267,63 @@ cudaError_t launch(const Levels<T>& lv, const float* ix, const float* iy, int n_
   return cudaGetLastError();
 }
 
-}  // namespace
-}  // namespace scenerf
-
-// level_ptrs[l]: device pointer of the contiguous [H, W, C] f32 map l;
-// hwcc[4 * l ...]: H, W, C and the output column offset of level l.
-// ix, iy: [n_levels, n_points] f32; out: [n_points, out_cols] f32.
-// lanes: lanes per point (1, 2, 4, ..., 32); rounds: point groups a warp
-// serves one after another; async_wide: wide levels through cp.async.
-SCENERF_API int scenerf_gather_levels_f32(const void* const* level_ptrs, const int* hwcc,
-                                          int n_levels, const float* ix, const float* iy,
-                                          int n_points, float* out, int out_cols, int lanes,
-                                          int rounds, int async_wide, void* stream) {
-  using namespace scenerf;
-  using namespace scenerf::gather;
+template <typename T>
+int gather_entry(const void* const* level_ptrs, const int* hwcc, int n_levels, const float* ix,
+                 const float* iy, int n_points, T* out, int out_cols, int lanes, int rounds,
+                 int async_wide, void* stream) {
   if (n_levels < 1 || n_levels > kMaxLevels || n_points < 0 || rounds < 1) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_points == 0) return (int)cudaSuccess;
-  Levels<float> lv = {};
+  constexpr int kVec = Elem<T>::kVec;
+  Levels<T> lv = {};
   lv.n = n_levels;
   for (int l = 0; l < n_levels; ++l) {
-    lv.val[l] = static_cast<const float*>(level_ptrs[l]);
+    lv.val[l] = static_cast<const T*>(level_ptrs[l]);
     lv.H[l] = hwcc[4 * l + 0];
     lv.W[l] = hwcc[4 * l + 1];
     lv.C[l] = hwcc[4 * l + 2];
     lv.col[l] = hwcc[4 * l + 3];
-    lv.vec[l] = (lv.C[l] % 4 == 0) && (lv.col[l] % 4 == 0) && (out_cols % 4 == 0) &&
+    lv.vec[l] = (lv.C[l] % kVec == 0) && (lv.col[l] % kVec == 0) && (out_cols % kVec == 0) &&
                 (reinterpret_cast<uintptr_t>(lv.val[l]) % 16 == 0) &&
                 (reinterpret_cast<uintptr_t>(out) % 16 == 0);
   }
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool aw = async_wide != 0;
   switch (lanes) {
-    case 1: return (int)launch<float, 1>(lv, ix, iy, n_points, rounds, aw, out, out_cols, s);
-    case 2: return (int)launch<float, 2>(lv, ix, iy, n_points, rounds, aw, out, out_cols, s);
-    case 4: return (int)launch<float, 4>(lv, ix, iy, n_points, rounds, aw, out, out_cols, s);
-    case 8: return (int)launch<float, 8>(lv, ix, iy, n_points, rounds, aw, out, out_cols, s);
-    case 16: return (int)launch<float, 16>(lv, ix, iy, n_points, rounds, aw, out, out_cols, s);
-    case 32: return (int)launch<float, 32>(lv, ix, iy, n_points, rounds, aw, out, out_cols, s);
+    case 1: return (int)launch<T, 1>(lv, ix, iy, n_points, rounds, aw, out, out_cols, s);
+    case 2: return (int)launch<T, 2>(lv, ix, iy, n_points, rounds, aw, out, out_cols, s);
+    case 4: return (int)launch<T, 4>(lv, ix, iy, n_points, rounds, aw, out, out_cols, s);
+    case 8: return (int)launch<T, 8>(lv, ix, iy, n_points, rounds, aw, out, out_cols, s);
+    case 16: return (int)launch<T, 16>(lv, ix, iy, n_points, rounds, aw, out, out_cols, s);
+    case 32: return (int)launch<T, 32>(lv, ix, iy, n_points, rounds, aw, out, out_cols, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+}  // namespace scenerf
+
+// level_ptrs[l]: device pointer of the contiguous [H, W, C] map l, f32 (the
+// _f32 entry) or bf16 (_bf16); hwcc[4 * l ...]: H, W, C and the output column
+// offset of level l. ix, iy: [n_levels, n_points] f32; out: [n_points,
+// out_cols] of the levels' type. lanes: lanes per point (1, 2, 4, ..., 32);
+// rounds: point groups a warp serves one after another; async_wide: wide
+// levels through cp.async.
+SCENERF_API int scenerf_gather_levels_f32(const void* const* level_ptrs, const int* hwcc,
+                                          int n_levels, const float* ix, const float* iy,
+                                          int n_points, float* out, int out_cols, int lanes,
+                                          int rounds, int async_wide, void* stream) {
+  return scenerf::gather_entry<float>(level_ptrs, hwcc, n_levels, ix, iy, n_points, out,
+                                      out_cols, lanes, rounds, async_wide, stream);
+}
+
+SCENERF_API int scenerf_gather_levels_bf16(const void* const* level_ptrs, const int* hwcc,
+                                           int n_levels, const float* ix, const float* iy,
+                                           int n_points, __nv_bfloat16* out, int out_cols,
+                                           int lanes, int rounds, int async_wide, void* stream) {
+  return scenerf::gather_entry<__nv_bfloat16>(level_ptrs, hwcc, n_levels, ix, iy, n_points, out,
+                                              out_cols, lanes, rounds, async_wide, stream);
 }
 
 SCENERF_API const char* scenerf_error_string(int code) {

@@ -33,7 +33,7 @@
 // - Wide launches (32 lanes per point, aligned levels, no coordinate
 //   gradients, enough work: the pyramid's chunks and anchors) take the
 //   run-merging mapping below: a warp walks 32 consecutive points of one
-//   level and one 128-channel slice, sums the weighted cotangent in
+//   level and one slice of 32 vectors (128 f32 channels), sums the weighted cotangent in
 //   registers while the points stay in one cell, and issues the atomics
 //   when the cell changes (2.9x faster at the training chunk).
 // - The rest take the per-point mapping: the lane groups of kernel G (G
@@ -47,6 +47,12 @@
 // bits of d_level, depend on the schedule: compare by tolerance. The corner
 // weights are the plain version's autograd products, (g * (1 - wy)) * (1 -
 // wx) and so on, with explicitly rounded multiplies.
+//
+// On the mixed-precision path the levels and the cotangent are bf16 (one
+// instantiation each): a lane reads 8 cotangent channels per 16-byte vector,
+// converts them exactly to f32, and adds into the same f32 gradient buffers
+// with the same f32 atomics (two vector atomics per 8 channels); the
+// coordinate gradients stay f32.
 #include "gather_common.cuh"
 
 namespace scenerf {
@@ -59,8 +65,24 @@ __device__ __forceinline__ float4 mul4(float4 a, float s) {
                      __fmul_rn(a.w, s));
 }
 
+__device__ __forceinline__ Bf16x8 mul4(const Bf16x8& a, float s) {
+  Bf16x8 o;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) o.v[j] = __fmul_rn(a.v[j], s);
+  return o;
+}
+
 __device__ __forceinline__ void red4(float* g, int64_t off, int c, float4 v) {
   if (off >= 0) atomicAdd(reinterpret_cast<float4*>(g + off + c), v);
+}
+
+__device__ __forceinline__ void red4(float* g, int64_t off, int c, const Bf16x8& v) {
+  if (off >= 0) {
+    atomicAdd(reinterpret_cast<float4*>(g + off + c),
+              make_float4(v.v[0], v.v[1], v.v[2], v.v[3]));
+    atomicAdd(reinterpret_cast<float4*>(g + off + c + 4),
+              make_float4(v.v[4], v.v[5], v.v[6], v.v[7]));
+  }
 }
 
 __device__ __forceinline__ void red1(float* g, int64_t off, int c, float v) {
@@ -78,9 +100,36 @@ __device__ __forceinline__ void coord_terms(float go, float v00, float v10, floa
   sy = __fadd_rn(sy, __fmul_rn(go, __fsub_rn(bot, top)));
 }
 
+// the (d_ix, d_iy) terms of one vector's channels
+__device__ __forceinline__ void coord_terms4(float4 go, float4 a, float4 b, float4 e, float4 f,
+                                             const Corners& k, float& sx, float& sy) {
+  coord_terms(go.x, a.x, b.x, e.x, f.x, k, sx, sy);
+  coord_terms(go.y, a.y, b.y, e.y, f.y, k, sx, sy);
+  coord_terms(go.z, a.z, b.z, e.z, f.z, k, sx, sy);
+  coord_terms(go.w, a.w, b.w, e.w, f.w, k, sx, sy);
+}
+__device__ __forceinline__ void coord_terms4(const Bf16x8& go, const Bf16x8& a, const Bf16x8& b,
+                                             const Bf16x8& e, const Bf16x8& f, const Corners& k,
+                                             float& sx, float& sy) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) coord_terms(go.v[j], a.v[j], b.v[j], e.v[j], f.v[j], k, sx, sy);
+}
+
+__device__ __forceinline__ void zero(float4& v) { v = make_float4(0.f, 0.f, 0.f, 0.f); }
+__device__ __forceinline__ void zero(Bf16x8& v) {
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v.v[j] = 0.f;
+}
+
 template <typename T>
-__device__ __forceinline__ float4 corner4(const T* base, int64_t off, int c) {
-  return off >= 0 ? load4(base + off + c) : make_float4(0.f, 0.f, 0.f, 0.f);
+__device__ __forceinline__ typename Elem<T>::Vec corner4(const T* base, int64_t off, int c) {
+  typename Elem<T>::Vec v;
+  if (off >= 0) {
+    v = load4(base + off + c);
+  } else {
+    zero(v);
+  }
+  return v;
 }
 
 template <typename T>
@@ -99,8 +148,9 @@ template <typename T, int G>
 __global__ void __launch_bounds__(kThreads)
 gather_levels_bwd_kernel(Levels<T> lv, const float* __restrict__ ix,
                          const float* __restrict__ iy, int n_points,
-                         const float* __restrict__ dout, int out_cols,
+                         const T* __restrict__ dout, int out_cols,
                          float* __restrict__ d_ix, float* __restrict__ d_iy) {
+  constexpr int kVec = Elem<T>::kVec;
   const int lane = threadIdx.x % kWarpSize;
   const int sub = lane % G, q = lane / G;
   const int64_t first =
@@ -111,7 +161,7 @@ gather_levels_bwd_kernel(Levels<T> lv, const float* __restrict__ ix,
   tc.load(ix, iy, lv.n, n_points, first, lane);
   const int64_t p = first + q;
   const bool active = p < n_points;
-  const float* grow = dout + (active ? p : 0) * (int64_t)out_cols;
+  const T* grow = dout + (active ? p : 0) * (int64_t)out_cols;
   const bool want_xy = d_ix != nullptr;
 
   for (int l = 0; l < lv.n; ++l) {
@@ -120,31 +170,27 @@ gather_levels_bwd_kernel(Levels<T> lv, const float* __restrict__ ix,
     const float2 xy = tc.at(l, q);          // every lane: it shuffles
     const int C = lv.C[l];
     const Corners k = corners(xy.x, xy.y, lv.H[l], lv.W[l], C);
-    const float* gcol = grow + lv.col[l];
+    const T* gcol = grow + lv.col[l];
     const T* v = lv.val[l];
     float sx = 0.f, sy = 0.f;
     if (active && lv.vec[l]) {
-      for (int c = 4 * sub; c < C; c += 4 * G) {
-        const float4 go = __ldcs(reinterpret_cast<const float4*>(gcol + c));
+      for (int c = kVec * sub; c < C; c += kVec * G) {
+        const auto go = unpack(load4_cs_raw(gcol + c));
         if (g != nullptr) {
-          const float4 gt = mul4(go, k.uy), gb = mul4(go, k.wy);  // row pairs
+          const auto gt = mul4(go, k.uy), gb = mul4(go, k.wy);  // row pairs
           red4(g, k.o00, c, mul4(gt, k.ux));
           red4(g, k.o10, c, mul4(gt, k.wx));
           red4(g, k.o01, c, mul4(gb, k.ux));
           red4(g, k.o11, c, mul4(gb, k.wx));
         }
         if (want_xy) {
-          const float4 a = corner4(v, k.o00, c), b = corner4(v, k.o10, c);
-          const float4 e = corner4(v, k.o01, c), f = corner4(v, k.o11, c);
-          coord_terms(go.x, a.x, b.x, e.x, f.x, k, sx, sy);
-          coord_terms(go.y, a.y, b.y, e.y, f.y, k, sx, sy);
-          coord_terms(go.z, a.z, b.z, e.z, f.z, k, sx, sy);
-          coord_terms(go.w, a.w, b.w, e.w, f.w, k, sx, sy);
+          coord_terms4(go, corner4(v, k.o00, c), corner4(v, k.o10, c), corner4(v, k.o01, c),
+                       corner4(v, k.o11, c), k, sx, sy);
         }
       }
     } else if (active) {
       for (int c = sub; c < C; c += G) {
-        const float go = __ldcs(gcol + c);
+        const float go = load1_cs(gcol + c);
         if (g != nullptr) {
           const float gt = __fmul_rn(go, k.uy), gb = __fmul_rn(go, k.wy);
           red1(g, k.o00, c, __fmul_rn(gt, k.ux));
@@ -195,12 +241,21 @@ __device__ __forceinline__ float4 add4(float4 a, float4 b) {
   return make_float4(__fadd_rn(a.x, b.x), __fadd_rn(a.y, b.y), __fadd_rn(a.z, b.z),
                      __fadd_rn(a.w, b.w));
 }
+__device__ __forceinline__ Bf16x8 add4(const Bf16x8& a, const Bf16x8& b) {
+  Bf16x8 o;
+#pragma unroll
+  for (int j = 0; j < 8; ++j) o.v[j] = __fadd_rn(a.v[j], b.v[j]);
+  return o;
+}
 
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 gather_levels_bwd_runs_kernel(Levels<T> lv, Units units, const float* __restrict__ ix,
                               const float* __restrict__ iy, int n_points,
-                              const float* __restrict__ dout, int out_cols) {
+                              const T* __restrict__ dout, int out_cols) {
+  using Vec = typename Elem<T>::Vec;
+  using Raw = typename Elem<T>::Raw;
+  constexpr int kVec = Elem<T>::kVec;
   const int lane = threadIdx.x % kWarpSize;
   const int64_t unit = (int64_t)blockIdx.x * (kThreads / kWarpSize) + threadIdx.x / kWarpSize;
   const int per_tile = units.first[lv.n];
@@ -210,25 +265,28 @@ gather_levels_bwd_runs_kernel(Levels<T> lv, Units units, const float* __restrict
   int l = 0;
   while (r >= units.first[l + 1]) ++l;
   const int C = lv.C[l];
-  const int c = 4 * ((r - units.first[l]) * kWarpSize + lane);  // this lane's 4 channels
+  const int c = kVec * ((r - units.first[l]) * kWarpSize + lane);  // this lane's channels
   const bool on = c < C;
   float* g = lv.grad[l];
   const int n_in = (int)min((int64_t)kTile, (int64_t)n_points - first);
   const int64_t at = (int64_t)l * n_points + first + lane;
   const float cx = lane < n_in ? __ldg(ix + at) : 0.f;
   const float cy = lane < n_in ? __ldg(iy + at) : 0.f;
-  const float* drow = dout + first * (int64_t)out_cols + lv.col[l] + (on ? c : 0);
-  const float4 zero = make_float4(0.f, 0.f, 0.f, 0.f);
+  const T* drow = dout + first * (int64_t)out_cols + lv.col[l] + (on ? c : 0);
 
-  float4 acc[4] = {zero, zero, zero, zero};
+  Vec acc[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) zero(acc[i]);
   int64_t cur[4] = {-1, -1, -1, -1};
   for (int t0 = 0; t0 < n_in; t0 += kAhead) {
-    float4 go[kAhead];
+    Raw go[kAhead];  // as loaded: a bf16 vector converts to f32 at its use
 #pragma unroll
     for (int j = 0; j < kAhead; ++j) {
-      go[j] = on && t0 + j < n_in
-                  ? __ldcs(reinterpret_cast<const float4*>(drow + (int64_t)(t0 + j) * out_cols))
-                  : zero;
+      if (on && t0 + j < n_in) {
+        go[j] = load4_cs_raw(drow + (int64_t)(t0 + j) * out_cols);
+      } else {
+        go[j] = Raw{};
+      }
     }
 #pragma unroll
     for (int j = 0; j < kAhead; ++j) {
@@ -245,9 +303,10 @@ gather_levels_bwd_runs_kernel(Levels<T> lv, Units units, const float* __restrict
         cur[2] = k.o01;
         cur[3] = k.o11;
 #pragma unroll
-        for (int i = 0; i < 4; ++i) acc[i] = zero;
+        for (int i = 0; i < 4; ++i) zero(acc[i]);
       }
-      const float4 gt = mul4(go[j], k.uy), gb = mul4(go[j], k.wy);  // row pairs
+      const Vec gj = unpack(go[j]);
+      const Vec gt = mul4(gj, k.uy), gb = mul4(gj, k.wy);  // row pairs
       acc[0] = add4(acc[0], mul4(gt, k.ux));
       acc[1] = add4(acc[1], mul4(gt, k.wx));
       acc[2] = add4(acc[2], mul4(gb, k.ux));
@@ -262,7 +321,7 @@ gather_levels_bwd_runs_kernel(Levels<T> lv, Units units, const float* __restrict
 
 template <typename T, int G>
 cudaError_t launch(const Levels<T>& lv, const float* ix, const float* iy, int n_points,
-                   const float* dout, int out_cols, float* d_ix, float* d_iy,
+                   const T* dout, int out_cols, float* d_ix, float* d_iy,
                    cudaStream_t stream) {
   const int64_t warps = ((int64_t)n_points + Lanes<G>::kPts - 1) / Lanes<G>::kPts;
   const int64_t blocks = (warps + kThreads / kWarpSize - 1) / (kThreads / kWarpSize);
@@ -271,41 +330,28 @@ cudaError_t launch(const Levels<T>& lv, const float* ix, const float* iy, int n_
   return cudaGetLastError();
 }
 
-}  // namespace
-}  // namespace scenerf
-
-// level_vals[l]: device pointer of the contiguous [H, W, C] f32 map l (read
-// only when d_ix is not null); level_grads[l]: its [H, W, C] f32 gradient,
-// added into, or null for a level that needs none; hwcc[4 * l ...]: H, W, C
-// and the column offset of level l in dout. ix, iy: [n_levels, n_points]
-// f32; dout: [n_points, out_cols] f32; d_ix, d_iy: [n_levels, n_points] f32,
-// or both null when the coordinates need no gradient. lanes: lanes per point
-// (1, 2, 4, ..., 32). The run-merging mapping serves launches of 32 lanes
-// per point, 16-byte aligned levels and no coordinate gradients that give it
-// at least kRunsMinWarps warps; the rest take the per-point mapping, and so
-// does every launch with per_point = 1 (to measure what merging buys).
-SCENERF_API int scenerf_gather_levels_bwd_f32(
-    const void* const* level_vals, void* const* level_grads, const int* hwcc, int n_levels,
-    const float* ix, const float* iy, int n_points, const float* dout, int out_cols,
-    float* d_ix, float* d_iy, int lanes, int per_point, void* stream) {
-  using namespace scenerf;
-  using namespace scenerf::gather;
+template <typename T>
+int gather_bwd_entry(const void* const* level_vals, void* const* level_grads, const int* hwcc,
+                     int n_levels, const float* ix, const float* iy, int n_points,
+                     const T* dout, int out_cols, float* d_ix, float* d_iy, int lanes,
+                     int per_point, void* stream) {
   if (n_levels < 1 || n_levels > kMaxLevels || n_points < 0 ||
       ((d_ix == nullptr) != (d_iy == nullptr))) {
     return (int)cudaErrorInvalidValue;
   }
   if (n_points == 0) return (int)cudaSuccess;
-  Levels<float> lv = {};
+  constexpr int kVec = Elem<T>::kVec;
+  Levels<T> lv = {};
   lv.n = n_levels;
   for (int l = 0; l < n_levels; ++l) {
-    lv.val[l] = static_cast<const float*>(level_vals[l]);
+    lv.val[l] = static_cast<const T*>(level_vals[l]);
     lv.grad[l] = static_cast<float*>(level_grads[l]);
     lv.H[l] = hwcc[4 * l + 0];
     lv.W[l] = hwcc[4 * l + 1];
     lv.C[l] = hwcc[4 * l + 2];
     lv.col[l] = hwcc[4 * l + 3];
     if (d_ix != nullptr && lv.val[l] == nullptr) return (int)cudaErrorInvalidValue;
-    lv.vec[l] = (lv.C[l] % 4 == 0) && (lv.col[l] % 4 == 0) && (out_cols % 4 == 0) &&
+    lv.vec[l] = (lv.C[l] % kVec == 0) && (lv.col[l] % kVec == 0) && (out_cols % kVec == 0) &&
                 (reinterpret_cast<uintptr_t>(dout) % 16 == 0) &&
                 (reinterpret_cast<uintptr_t>(lv.grad[l]) % 16 == 0) &&
                 (reinterpret_cast<uintptr_t>(lv.val[l]) % 16 == 0);
@@ -315,23 +361,56 @@ SCENERF_API int scenerf_gather_levels_bwd_f32(
   Units units = {};
   for (int l = 0; l < n_levels; ++l) {
     runs = runs && (lv.grad[l] == nullptr || lv.vec[l]);
-    const int chunks = lv.grad[l] == nullptr ? 0 : (lv.C[l] / 4 + kWarpSize - 1) / kWarpSize;
+    const int chunks =
+        lv.grad[l] == nullptr ? 0 : (lv.C[l] / kVec + kWarpSize - 1) / kWarpSize;
     units.first[l + 1] = units.first[l] + chunks;
   }
   const int64_t warps = ((int64_t)n_points + kTile - 1) / kTile * units.first[n_levels];
   if (runs && warps >= kRunsMinWarps) {
     const int64_t blocks = (warps + kThreads / kWarpSize - 1) / (kThreads / kWarpSize);
-    gather_levels_bwd_runs_kernel<float><<<(unsigned)blocks, kThreads, 0, s>>>(
+    gather_levels_bwd_runs_kernel<T><<<(unsigned)blocks, kThreads, 0, s>>>(
         lv, units, ix, iy, n_points, dout, out_cols);
     return (int)cudaGetLastError();
   }
   switch (lanes) {
-    case 1: return (int)launch<float, 1>(lv, ix, iy, n_points, dout, out_cols, d_ix, d_iy, s);
-    case 2: return (int)launch<float, 2>(lv, ix, iy, n_points, dout, out_cols, d_ix, d_iy, s);
-    case 4: return (int)launch<float, 4>(lv, ix, iy, n_points, dout, out_cols, d_ix, d_iy, s);
-    case 8: return (int)launch<float, 8>(lv, ix, iy, n_points, dout, out_cols, d_ix, d_iy, s);
-    case 16: return (int)launch<float, 16>(lv, ix, iy, n_points, dout, out_cols, d_ix, d_iy, s);
-    case 32: return (int)launch<float, 32>(lv, ix, iy, n_points, dout, out_cols, d_ix, d_iy, s);
+    case 1: return (int)launch<T, 1>(lv, ix, iy, n_points, dout, out_cols, d_ix, d_iy, s);
+    case 2: return (int)launch<T, 2>(lv, ix, iy, n_points, dout, out_cols, d_ix, d_iy, s);
+    case 4: return (int)launch<T, 4>(lv, ix, iy, n_points, dout, out_cols, d_ix, d_iy, s);
+    case 8: return (int)launch<T, 8>(lv, ix, iy, n_points, dout, out_cols, d_ix, d_iy, s);
+    case 16: return (int)launch<T, 16>(lv, ix, iy, n_points, dout, out_cols, d_ix, d_iy, s);
+    case 32: return (int)launch<T, 32>(lv, ix, iy, n_points, dout, out_cols, d_ix, d_iy, s);
     default: return (int)cudaErrorInvalidValue;
   }
+}
+
+}  // namespace
+}  // namespace scenerf
+
+// level_vals[l]: device pointer of the contiguous [H, W, C] map l, f32 (the
+// _f32 entry) or bf16 (_bf16), read only when d_ix is not null;
+// level_grads[l]: its [H, W, C] f32 gradient, added into, or null for a level
+// that needs none; hwcc[4 * l ...]: H, W, C and the column offset of level l
+// in dout. ix, iy: [n_levels, n_points] f32; dout: [n_points, out_cols] of the
+// levels' type; d_ix, d_iy: [n_levels, n_points] f32, or both null when the
+// coordinates need no gradient. lanes: lanes per point (1, 2, 4, ..., 32).
+// The run-merging mapping serves launches of 32 lanes per point, 16-byte
+// aligned levels and no coordinate gradients that give it at least
+// kRunsMinWarps warps; the rest take the per-point mapping, and so does
+// every launch with per_point = 1 (to measure what merging buys).
+SCENERF_API int scenerf_gather_levels_bwd_f32(
+    const void* const* level_vals, void* const* level_grads, const int* hwcc, int n_levels,
+    const float* ix, const float* iy, int n_points, const float* dout, int out_cols,
+    float* d_ix, float* d_iy, int lanes, int per_point, void* stream) {
+  return scenerf::gather_bwd_entry<float>(level_vals, level_grads, hwcc, n_levels, ix, iy,
+                                          n_points, dout, out_cols, d_ix, d_iy, lanes,
+                                          per_point, stream);
+}
+
+SCENERF_API int scenerf_gather_levels_bwd_bf16(
+    const void* const* level_vals, void* const* level_grads, const int* hwcc, int n_levels,
+    const float* ix, const float* iy, int n_points, const __nv_bfloat16* dout, int out_cols,
+    float* d_ix, float* d_iy, int lanes, int per_point, void* stream) {
+  return scenerf::gather_bwd_entry<__nv_bfloat16>(level_vals, level_grads, hwcc, n_levels, ix,
+                                                  iy, n_points, dout, out_cols, d_ix, d_iy,
+                                                  lanes, per_point, stream);
 }

@@ -2,6 +2,7 @@
 // staging of a warp's coordinates, and the four bilinear corners of a point.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <stdint.h>
 
 #include "common.cuh"
@@ -15,7 +16,7 @@ constexpr int kThreads = 256;  // 8 warps per block
 // Channel-last levels [H, W, C] and where each one's columns start in the
 // [N, out_cols] latent (or its cotangent). `vec`: the level's rows, its
 // gradient's rows and its column slice are all 16-byte aligned, so a lane
-// moves 4 channels at a time; otherwise 1.
+// moves one 16-byte vector (Elem<T>::kVec channels) at a time; otherwise 1.
 template <typename T>
 struct Levels {
   const T* val[kMaxLevels];  // values (kernel G; G-bwd reads them for coord grads)
@@ -112,12 +113,66 @@ __device__ __forceinline__ Corners corners(float x, float y, int H, int W, int C
   return k;
 }
 
-// Element access by type. Only f32 is instantiated; a bf16 level type adds
-// overloads of these, not another kernel.
+// Element access by type: levels, the latent and its cotangent are f32 or
+// bf16 (the mixed-precision path); coordinates, weights, arithmetic and the
+// gradient buffers are f32. A 16-byte vector holds 4 f32 or 8 bf16
+// channels; in registers it is a float4, or a Bf16x8 of 8 floats (a bf16
+// value converts exactly to f32, and an output rounds to bf16 once, at its
+// store, with __float2bfloat16_rn).
+using bf16 = __nv_bfloat16;
+
+struct Bf16x8 {
+  float v[8];
+};
+
+template <typename T>
+struct Elem;
+template <>
+struct Elem<float> {
+  using Vec = float4;  // a vector in registers
+  using Raw = float4;  // a vector as loaded
+  static constexpr int kVec = 4;
+};
+template <>
+struct Elem<bf16> {
+  using Vec = Bf16x8;
+  using Raw = uint4;
+  static constexpr int kVec = 8;
+};
+
+__device__ __forceinline__ float4 unpack(float4 r) { return r; }
+__device__ __forceinline__ Bf16x8 unpack(uint4 r) {
+  Bf16x8 o;
+  const bf16* h = reinterpret_cast<const bf16*>(&r);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) o.v[j] = __bfloat162float(h[j]);
+  return o;
+}
+
 __device__ __forceinline__ float4 load4(const float* p) {
   return __ldg(reinterpret_cast<const float4*>(p));
 }
+__device__ __forceinline__ Bf16x8 load4(const bf16* p) {
+  return unpack(__ldg(reinterpret_cast<const uint4*>(p)));
+}
 __device__ __forceinline__ float load1(const float* p) { return __ldg(p); }
+__device__ __forceinline__ float load1(const bf16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(__ldg(reinterpret_cast<const unsigned short*>(p))));
+}
+
+// a streamed (read-once) vector or element: the cotangent
+__device__ __forceinline__ float4 load4_cs(const float* p) {
+  return __ldcs(reinterpret_cast<const float4*>(p));
+}
+__device__ __forceinline__ uint4 load4_cs_raw(const bf16* p) {
+  return __ldcs(reinterpret_cast<const uint4*>(p));
+}
+__device__ __forceinline__ float4 load4_cs_raw(const float* p) { return load4_cs(p); }
+__device__ __forceinline__ float load1_cs(const float* p) { return __ldcs(p); }
+__device__ __forceinline__ float load1_cs(const bf16* p) {
+  return __bfloat162float(__ushort_as_bfloat16(
+      __ldcs(reinterpret_cast<const unsigned short*>(p))));
+}
 
 }  // namespace gather
 }  // namespace scenerf

@@ -36,11 +36,11 @@
 // r and d_r where the activation needs them.
 //
 // Design: one tiling for all four kernels. A thread owns VW consecutive
-// channels (VW = 4, one 16-byte vector, where C % 4 == 0 and every pointer is
-// 16-byte aligned, else 1) and walks the rows; TW threads cover a row (or a
-// tile of it, when C is wider than 256 vectors), RB rows per block, so a warp
-// reads consecutive addresses whatever C is: at C = 80 a block of 12 rows x 20
-// threads reads 12 whole rows. The per-channel vectors load once per thread,
+// channels (one 16-byte vector, VW = 4 in f32 or 8 in bf16, where C % VW == 0
+// and every pointer is 16-byte aligned, else 1) and walks the rows; TW
+// threads cover a row (or a tile of it, when C is wider than 256 vectors), RB
+// rows per block, so a warp reads consecutive addresses whatever C is: at C =
+// 80 in f32 a block of 12 rows x 20 threads reads 12 whole rows. The per-channel vectors load once per thread,
 // into registers. The row loop keeps 4 independent loads in flight per
 // thread. The reductions sum in f32 per thread, then over the block's rows in
 // shared memory, into one partial per block and channel; the finalize sums
@@ -52,8 +52,15 @@
 // planes across the threads, scalar loads; the outputs keep the input's
 // layout.
 //
-// Every kernel is templated on the element type T with f32 accumulation;
-// only T = float is instantiated.
+// Every kernel is templated on the element type T of x, r, y, dy, dx and d_r
+// (f32, and bf16 for the mixed-precision path), always with f32 arithmetic and
+// accumulation; the statistics, the per-channel vectors, the parameter
+// gradients and the running statistics stay f32. A vector is 16 bytes: VW = 4
+// f32 or 8 bf16 channels per load. In bf16 every value is converted to f32
+// when it is loaded (__bfloat162float) and each output is rounded to bf16
+// once, when it is stored (__float2bfloat16_rn): z, act(z), dx and g are f32
+// in between. ops/norm.py's plain version rounds at the same points.
+#include <cuda_bf16.h>
 #include <math.h>
 #include <stdint.h>
 
@@ -96,10 +103,27 @@ Tile make_tile(int64_t M, int C, int vw, int max_blocks) {
   return t;
 }
 
+using bf16 = __nv_bfloat16;
+
+// one element to f32 and back (bf16: the conversion intrinsics, round to
+// nearest even)
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(bf16 v) { return __bfloat162float(v); }
+template <typename T>
+__device__ __forceinline__ T from_f32(float v);
+template <>
+__device__ __forceinline__ float from_f32<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ bf16 from_f32<bf16>(float v) { return __float2bfloat16_rn(v); }
+
+// channels of one 16-byte vector
+template <typename T>
+constexpr int kVecWidth = 16 / (int)sizeof(T);
+
 template <typename T, int VW>
 __device__ __forceinline__ void load_vec(const T* __restrict__ p, float (&v)[VW]) {
 #pragma unroll
-  for (int j = 0; j < VW; ++j) v[j] = (float)p[j];
+  for (int j = 0; j < VW; ++j) v[j] = to_f32(p[j]);
 }
 
 template <>
@@ -108,15 +132,32 @@ __device__ __forceinline__ void load_vec<float, 4>(const float* __restrict__ p, 
   v[0] = q.x; v[1] = q.y; v[2] = q.z; v[3] = q.w;
 }
 
+template <>
+__device__ __forceinline__ void load_vec<bf16, 8>(const bf16* __restrict__ p, float (&v)[8]) {
+  const uint4 q = *reinterpret_cast<const uint4*>(p);
+  const bf16* h = reinterpret_cast<const bf16*>(&q);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) v[j] = __bfloat162float(h[j]);
+}
+
 template <typename T, int VW>
 __device__ __forceinline__ void store_vec(T* __restrict__ p, const float (&v)[VW]) {
 #pragma unroll
-  for (int j = 0; j < VW; ++j) p[j] = (T)v[j];
+  for (int j = 0; j < VW; ++j) p[j] = from_f32<T>(v[j]);
 }
 
 template <>
 __device__ __forceinline__ void store_vec<float, 4>(float* __restrict__ p, const float (&v)[4]) {
   *reinterpret_cast<float4*>(p) = make_float4(v[0], v[1], v[2], v[3]);
+}
+
+template <>
+__device__ __forceinline__ void store_vec<bf16, 8>(bf16* __restrict__ p, const float (&v)[8]) {
+  uint4 q;
+  bf16* h = reinterpret_cast<bf16*>(&q);
+#pragma unroll
+  for (int j = 0; j < 8; ++j) h[j] = __float2bfloat16_rn(v[j]);
+  *reinterpret_cast<uint4*>(p) = q;
 }
 
 // z = x mul + add (+ r), each step rounded, in the plain version's order: N2
@@ -181,7 +222,7 @@ template <int VW>
 __device__ __forceinline__ void block_partials(float (&a)[2][VW], int tx, int ty, int TW,
                                                int RB, bool active, int c0, int C,
                                                float* __restrict__ partials) {
-  __shared__ float sm[2][kThreads * 4];
+  __shared__ float sm[2][kThreads * VW];
   const int slot = (ty * TW + tx) * VW;
 #pragma unroll
   for (int k = 0; k < 2; ++k) {
@@ -497,7 +538,7 @@ bn_stats_cf_kernel(const T* __restrict__ x, int64_t B, int C, int64_t S,
   const int c = blockIdx.y;
   float a[2][1] = {{0.0f}, {0.0f}};
   SCENERF_PLANES({
-    const float v = (float)x[at];
+    const float v = to_f32(x[at]);
     a[0][0] += v;
     a[1][0] = fmaf(v, v, a[1][0]);
   })
@@ -527,8 +568,8 @@ bn_apply_cf_kernel(const T* __restrict__ x, const T* __restrict__ res, T* __rest
     }
   }
   SCENERF_PLANES({
-    const float z = pre_act((float)x[at], mul, add);
-    y[at] = (T)act_fwd<ACT>(RES ? __fadd_rn(z, (float)res[at]) : z);
+    const float z = pre_act(to_f32(x[at]), mul, add);
+    y[at] = from_f32<T>(act_fwd<ACT>(RES ? __fadd_rn(z, to_f32(res[at])) : z));
   })
 }
 
@@ -563,8 +604,8 @@ bn_bwd_apply_cf_kernel(const T* __restrict__ x, const T* __restrict__ res,
   SCENERF_PLANES({
     float xv[1], g[1];
     grad_at<T, 1, ACT, RES>(x, res, dy, at, mul, add, xv, g);
-    dx[at] = (T)fmaf(g[0], mul[0], fmaf(beta, xv[0], alpha));
-    if (DRES) dres[at] = (T)g[0];
+    dx[at] = from_f32<T>(fmaf(g[0], mul[0], fmaf(beta, xv[0], alpha)));
+    if (DRES) dres[at] = from_f32<T>(g[0]);
   })
 }
 
@@ -724,18 +765,61 @@ Geometry geometry(int64_t M, int C, int64_t plane) {
   return Geometry{M, C, plane > 0 ? M / plane : 0, plane, plane > 0};
 }
 
+// the entries' bodies for element type T: one 16-byte vector per load where
+// the channels and every pointer allow it, else one channel
+template <typename T>
+int forward_entry(const T* x, const T* res, T* y, long long M, int C, long long plane,
+                  const float* weight, const float* bias, float* run_mean, float* run_var,
+                  float* stats, float* work, long long work_cap, float momentum,
+                  float one_minus_momentum, float eps, int act, int train, int stages,
+                  void* stream) {
+  if (!valid(M, C, plane, act, work_cap) || (train && stats == nullptr)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (M == 0) return (int)cudaSuccess;
+  const Geometry g = geometry(M, C, plane);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  constexpr int kW = kVecWidth<T>;
+  if (!g.cf && C % kW == 0 && aligned16(x) && aligned16(res) && aligned16(y)) {
+    return (int)forward<T, kW>(x, res, y, g, weight, bias, run_mean, run_var, stats, work,
+                               momentum, one_minus_momentum, eps, act, train, stages, s);
+  }
+  return (int)forward<T, 1>(x, res, y, g, weight, bias, run_mean, run_var, stats, work,
+                            momentum, one_minus_momentum, eps, act, train, stages, s);
+}
+
+template <typename T>
+int backward_entry(const T* x, const T* res, const T* dy, T* dx, T* dres, long long M, int C,
+                   long long plane, const float* weight, const float* stats, float* grads,
+                   float* work, long long work_cap, float eps, int act, int train, int stages,
+                   void* stream) {
+  if (!valid(M, C, plane, act, work_cap)) return (int)cudaErrorInvalidValue;
+  if (M == 0) return (int)cudaSuccess;
+  const Geometry g = geometry(M, C, plane);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  constexpr int kW = kVecWidth<T>;
+  if (!g.cf && C % kW == 0 && aligned16(x) && aligned16(res) && aligned16(dy) &&
+      aligned16(dx) && aligned16(dres)) {
+    return (int)backward<T, kW>(x, res, dy, dx, dres, g, weight, stats, grads, work, eps, act,
+                                train, stages, s);
+  }
+  return (int)backward<T, 1>(x, res, dy, dx, dres, g, weight, stats, grads, work, eps, act,
+                             train, stages, s);
+}
+
 }  // namespace
 }  // namespace scenerf
 
-// x, res (or null), y: [M, C] f32 of one layout: channel-last contiguous
-// (plane 0), or channel-first, [M / plane, C, plane] contiguous (plane > 0).
-// weight, bias, run_mean, run_var: [C] f32. stats: [5, C] f32 (mean, mean2 -
-// mean^2, rsqrt, mul, add): written by N1 in train mode, read by N2; in eval
-// mode N2 writes the fold there when stats is not null. work: at least 2 *
-// 528 * C floats of scratch. act: 0 identity, 1 SiLU, 2 leaky ReLU (slope
-// 0.01). train: 1 batch statistics (N1 + its finalize, which also updates
-// run_mean/run_var in place, then N2), 0 running statistics (N2 alone).
-// stages: bit 0 N1 (train only), bit 1 N2 (3 for the whole forward).
+// x, res (or null), y: [M, C] of one layout, f32 (the _f32 entry) or bf16
+// (the _bf16 entry): channel-last contiguous (plane 0), or channel-first,
+// [M / plane, C, plane] contiguous (plane > 0). weight, bias, run_mean,
+// run_var: [C] f32. stats: [5, C] f32 (mean, mean2 - mean^2, rsqrt, mul, add):
+// written by N1 in train mode, read by N2; in eval mode N2 writes the fold
+// there when stats is not null. work: at least 2 * 528 * C floats of scratch.
+// act: 0 identity, 1 SiLU, 2 leaky ReLU (slope 0.01). train: 1 batch
+// statistics (N1 + its finalize, which also updates run_mean/run_var in
+// place, then N2), 0 running statistics (N2 alone). stages: bit 0 N1 (train
+// only), bit 1 N2 (3 for the whole forward).
 SCENERF_API int scenerf_bn_forward_f32(const float* x, const float* res, float* y,
                                        long long M, int C, long long plane,
                                        const float* weight, const float* bias,
@@ -743,43 +827,48 @@ SCENERF_API int scenerf_bn_forward_f32(const float* x, const float* res, float* 
                                        float* work, long long work_cap, float momentum,
                                        float one_minus_momentum, float eps, int act, int train,
                                        int stages, void* stream) {
-  using namespace scenerf;
-  if (!valid(M, C, plane, act, work_cap) || (train && stats == nullptr)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (M == 0) return (int)cudaSuccess;
-  const Geometry g = geometry(M, C, plane);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!g.cf && C % 4 == 0 && aligned16(x) && aligned16(res) && aligned16(y)) {
-    return (int)forward<float, 4>(x, res, y, g, weight, bias, run_mean, run_var, stats, work,
-                                  momentum, one_minus_momentum, eps, act, train, stages, s);
-  }
-  return (int)forward<float, 1>(x, res, y, g, weight, bias, run_mean, run_var, stats, work,
-                                momentum, one_minus_momentum, eps, act, train, stages, s);
+  return scenerf::forward_entry<float>(x, res, y, M, C, plane, weight, bias, run_mean, run_var,
+                                       stats, work, work_cap, momentum, one_minus_momentum, eps,
+                                       act, train, stages, stream);
+}
+
+SCENERF_API int scenerf_bn_forward_bf16(const __nv_bfloat16* x, const __nv_bfloat16* res,
+                                        __nv_bfloat16* y, long long M, int C, long long plane,
+                                        const float* weight, const float* bias,
+                                        float* run_mean, float* run_var, float* stats,
+                                        float* work, long long work_cap, float momentum,
+                                        float one_minus_momentum, float eps, int act, int train,
+                                        int stages, void* stream) {
+  return scenerf::forward_entry<__nv_bfloat16>(x, res, y, M, C, plane, weight, bias, run_mean,
+                                               run_var, stats, work, work_cap, momentum,
+                                               one_minus_momentum, eps, act, train, stages,
+                                               stream);
 }
 
 // x, res (or null), dy, dx, dres (or null: no residual gradient written):
-// [M, C] f32 of the layout `plane` gives (as above); weight [C]; stats: the
-// forward's [5, C]; grads: [4, C] f32 out (dweight, dbias, then dx's alpha
-// and beta). res is read only where the activation needs z (with the
-// identity, d_r = dy: the caller passes dres null). stages: bit 0 N3 and its
-// finalize, bit 1 N4.
+// [M, C] of the layout `plane` gives (as above), all f32 (_f32) or all bf16
+// (_bf16); weight [C] f32; stats: the forward's [5, C] f32; grads: [4, C] f32
+// out (dweight, dbias, then dx's alpha and beta). res is read only where the
+// activation needs z (with the identity, d_r = dy: the caller passes dres
+// null). stages: bit 0 N3 and its finalize, bit 1 N4.
 SCENERF_API int scenerf_bn_backward_f32(const float* x, const float* res, const float* dy,
                                         float* dx, float* dres, long long M, int C,
                                         long long plane, const float* weight,
                                         const float* stats, float* grads, float* work,
                                         long long work_cap, float eps, int act, int train,
                                         int stages, void* stream) {
-  using namespace scenerf;
-  if (!valid(M, C, plane, act, work_cap)) return (int)cudaErrorInvalidValue;
-  if (M == 0) return (int)cudaSuccess;
-  const Geometry g = geometry(M, C, plane);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (!g.cf && C % 4 == 0 && aligned16(x) && aligned16(res) && aligned16(dy) &&
-      aligned16(dx) && aligned16(dres)) {
-    return (int)backward<float, 4>(x, res, dy, dx, dres, g, weight, stats, grads, work, eps,
-                                   act, train, stages, s);
-  }
-  return (int)backward<float, 1>(x, res, dy, dx, dres, g, weight, stats, grads, work, eps,
-                                 act, train, stages, s);
+  return scenerf::backward_entry<float>(x, res, dy, dx, dres, M, C, plane, weight, stats, grads,
+                                        work, work_cap, eps, act, train, stages, stream);
+}
+
+SCENERF_API int scenerf_bn_backward_bf16(const __nv_bfloat16* x, const __nv_bfloat16* res,
+                                         const __nv_bfloat16* dy, __nv_bfloat16* dx,
+                                         __nv_bfloat16* dres, long long M, int C,
+                                         long long plane, const float* weight,
+                                         const float* stats, float* grads, float* work,
+                                         long long work_cap, float eps, int act, int train,
+                                         int stages, void* stream) {
+  return scenerf::backward_entry<__nv_bfloat16>(x, res, dy, dx, dres, M, C, plane, weight,
+                                                stats, grads, work, work_cap, eps, act, train,
+                                                stages, stream);
 }

@@ -18,6 +18,15 @@ caller hands to each of those gathers: their backwards add into one f32
 gradient buffer per level, zeroed once, and the node gives the buffers to
 autograd once, so no backward launch zeroes a full level gradient and
 autograd sums none.
+
+Levels are f32, or bf16 on the mixed-precision path (all levels of one
+gather alike; the coords are f32 always). In bf16 the gather interpolates in
+f32, from corner values converted exactly and f32 weights, and rounds each
+output to bf16 once; JAX's `bilinear_sample` on a bf16 level rounds the
+weights to bf16 as well (`scenerf_tpu/geometry.py:135-136`) and
+interpolates in bf16. The backward reads the bf16 cotangent and adds into
+the same f32 gradient buffers; autograd gets each level's gradient in the
+level's dtype, cast once per pyramid (per step), not per gather.
 """
 from __future__ import annotations
 
@@ -30,23 +39,56 @@ from scenerf_tpu_torch import geometry as geo
 from scenerf_tpu_torch.ops import build
 
 
+# the level types the kernels are instantiated for, and their entries' suffix
+DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
 def gather_levels_plain(levels: Sequence[torch.Tensor], ix: torch.Tensor,
                         iy: torch.Tensor) -> torch.Tensor:
-    """`geometry.bilinear_sample` per level, then `torch.cat`."""
-    return torch.cat([geo.bilinear_sample(lv, ix[i], iy[i])
+    """`geometry.bilinear_sample` per level, then `torch.cat`; a bf16 level
+    is sampled in f32 and the result rounded to bf16 once."""
+    return torch.cat([geo.bilinear_sample(_compute(lv), ix[i], iy[i]).to(lv.dtype)
                       for i, lv in enumerate(levels)], dim=-1)
+
+
+def _compute_dtype(lv: torch.Tensor) -> torch.dtype:
+    """The dtype a level is sampled and its gradient summed in: f32 for
+    bf16, else its own."""
+    return torch.promote_types(lv.dtype, torch.float32)
+
+
+def _compute(lv: torch.Tensor) -> torch.Tensor:
+    return lv.to(_compute_dtype(lv))
+
+
+def levels_dtype(levels: Sequence[torch.Tensor], kernel: bool = False) -> torch.dtype:
+    """The one element type of a gather's levels; raises on a mix, and for
+    the kernels (`kernel`) on a type without an instantiation."""
+    dtypes = {lv.dtype for lv in levels}
+    if len(dtypes) != 1 or (kernel and not dtypes <= set(DTYPES)):
+        what = "levels of one dtype" + (", f32 or bf16" if kernel else "")
+        raise ValueError(f"gather_levels takes {what}; got {[lv.dtype for lv in levels]}")
+    return dtypes.pop()
 
 
 # a launch that would run fewer warps than this widens its lane groups
 MIN_WARPS = 1024
 
 
-def lanes_per_point(widths: Sequence[int], n_points: Optional[int] = None) -> int:
+def channels_per_vector(dtype: torch.dtype) -> int:
+    """Channels of one 16-byte vector: what a lane of kernels G and G-bwd
+    moves at a time (4 f32, 8 bf16)."""
+    return 16 // torch.empty((), dtype=dtype).element_size()
+
+
+def lanes_per_point(widths: Sequence[int], n_points: Optional[int] = None,
+                    dtype: torch.dtype = torch.float32) -> int:
     """Lanes of a warp that serve one point in kernels G and G-bwd: the next
-    power of two >= ceil(max width / 4) (each lane moves 4 channels), in
-    [1, 32]; for `n_points` so few that the launch would run fewer than
-    MIN_WARPS warps, doubled until it does not (or 32)."""
-    need = min(-(-max(widths) // 4), 32)
+    power of two >= ceil(max width / v) (each lane moves v channels, one
+    16-byte vector of `dtype`), in [1, 32]; for `n_points` so few that the
+    launch would run fewer than MIN_WARPS warps, doubled until it does not
+    (or 32)."""
+    need = min(-(-max(widths) // channels_per_vector(dtype)), 32)
     lanes = 1
     while lanes < need:
         lanes *= 2
@@ -72,7 +114,7 @@ def _level_meta(levels: Sequence[torch.Tensor], n_points: int):
     for lv in levels:
         meta += [lv.shape[0], lv.shape[1], lv.shape[2], col]
         col += lv.shape[2]
-    lanes = lanes_per_point([lv.shape[2] for lv in levels], n_points)
+    lanes = lanes_per_point([lv.shape[2] for lv in levels], n_points, levels[0].dtype)
     return (ctypes.c_int * len(meta))(*meta), col, lanes
 
 
@@ -91,13 +133,14 @@ def _launch_forward(levels: Sequence[torch.Tensor], ix: torch.Tensor,
                     iy: torch.Tensor) -> torch.Tensor:
     n_levels, n_points = ix.shape
     hwcc, width, lanes, rounds, async_wide = forward_launch_args(levels, n_points)
-    out = torch.empty((n_points, width), dtype=torch.float32, device=ix.device)
+    dtype = levels_dtype(levels, kernel=True)
+    out = torch.empty((n_points, width), dtype=dtype, device=ix.device)
     ptrs = (ctypes.c_void_p * n_levels)(*[lv.data_ptr() for lv in levels])
-    status = build.library().scenerf_gather_levels_f32(
+    status = getattr(build.library(), f"scenerf_gather_levels_{DTYPES[dtype]}")(
         ptrs, hwcc, n_levels, ix.data_ptr(), iy.data_ptr(), n_points, out.data_ptr(), width,
         lanes, rounds, async_wide, build.stream_handle(ix.device))
     build.check(status, "gather_levels")
-    build.LAUNCHES["gather_levels"] += 1
+    build.count_launch("gather_levels", dtype)
     return out
 
 
@@ -105,43 +148,48 @@ def gather_levels_backward(levels: Sequence[torch.Tensor], ix: torch.Tensor,
                            iy: torch.Tensor, d_out: torch.Tensor,
                            d_levels: Sequence[Optional[torch.Tensor]],
                            coords_need_grad: bool):
-    """Launch kernel G-bwd for the cotangent `d_out` [N, sum C_l] of
-    `gather_levels(levels, ix, iy)`: add the level gradients into `d_levels`
-    (f32 buffers shaped as the levels; None for a level that needs none) and
-    return (d_ix, d_iy), both None unless `coords_need_grad`."""
+    """Launch kernel G-bwd for the cotangent `d_out` [N, sum C_l] (of the
+    levels' dtype) of `gather_levels(levels, ix, iy)`: add the level
+    gradients into `d_levels` (f32 buffers shaped as the levels; None for a
+    level that needs none) and return (d_ix, d_iy), both None unless
+    `coords_need_grad`."""
     n_levels, n_points = ix.shape
+    dtype = levels_dtype(levels, kernel=True)
     hwcc, width, lanes = _level_meta(levels, n_points)
-    if d_out.shape != (n_points, width):
-        raise ValueError(f"gather_levels_backward: cotangent {tuple(d_out.shape)}, "
-                         f"expected {(n_points, width)}")
+    if d_out.shape != (n_points, width) or d_out.dtype != dtype:
+        raise ValueError(f"gather_levels_backward: cotangent {d_out.dtype} "
+                         f"{tuple(d_out.shape)}, expected {dtype} {(n_points, width)}")
     for lv, d in zip(levels, d_levels):
         if d is not None and (d.shape != lv.shape or d.dtype != torch.float32
                               or d.device != lv.device or not d.is_contiguous()):
             raise ValueError("gather_levels_backward: a level gradient buffer must be a "
                              f"contiguous f32 {tuple(lv.shape)} on {lv.device}")
-    d_out = d_out.to(torch.float32).contiguous()
+    d_out = d_out.contiguous()
     d_ix = torch.empty_like(ix) if coords_need_grad else None
     d_iy = torch.empty_like(iy) if coords_need_grad else None
     vals = (ctypes.c_void_p * n_levels)(*[lv.data_ptr() for lv in levels])
     grads = (ctypes.c_void_p * n_levels)(*[build.ptr(g) for g in d_levels])
-    status = build.library().scenerf_gather_levels_bwd_f32(
+    status = getattr(build.library(), f"scenerf_gather_levels_bwd_{DTYPES[dtype]}")(
         vals, grads, hwcc, n_levels, ix.data_ptr(), iy.data_ptr(), n_points,
         d_out.data_ptr(), width, build.ptr(d_ix), build.ptr(d_iy), lanes, 0,
         build.stream_handle(ix.device))
     build.check(status, "gather_levels_bwd")
-    build.LAUNCHES["gather_levels_bwd"] += 1
+    build.count_launch("gather_levels_bwd", dtype)
     return d_ix, d_iy
 
 
 def _plain_backward(levels, ix, iy, d_out, d_levels, coords_need_grad: bool):
     """G-bwd's plain version with G-bwd's contract: autograd of
-    `gather_levels_plain`, its level gradients added into `d_levels`."""
+    `gather_levels_plain`, its level gradients added into `d_levels` (in
+    f32: a bf16 level is differentiated through its f32 copy)."""
     with torch.enable_grad():
-        lvs = [lv.detach().requires_grad_(d is not None) for lv, d in zip(levels, d_levels)]
+        lvs = [_compute(lv.detach()).requires_grad_(d is not None)
+               for lv, d in zip(levels, d_levels)]
         x = ix.detach().requires_grad_(coords_need_grad)
         y = iy.detach().requires_grad_(coords_need_grad)
         wrt = [t for t in (*lvs, x, y) if t.requires_grad]
-        grads = iter(torch.autograd.grad(gather_levels_plain(lvs, x, y), wrt, d_out))
+        out = gather_levels_plain(lvs, x, y).to(d_out.dtype)
+        grads = iter(torch.autograd.grad(out, wrt, d_out))
     for d in d_levels:
         if d is not None:
             d.add_(next(grads))
@@ -155,13 +203,14 @@ class _GradBuffers:
     first gather backward that needs them, taken by the pyramid node."""
 
     def __init__(self, levels: Sequence[torch.Tensor]):
-        self._like = [(lv.shape, lv.device) if lv.requires_grad else None for lv in levels]
+        self._like = [(lv.shape, _compute_dtype(lv), lv.device) if lv.requires_grad else None
+                      for lv in levels]
         self._buffers: Optional[List[Optional[torch.Tensor]]] = None
 
     def get(self) -> List[Optional[torch.Tensor]]:
         if self._buffers is None:
             self._buffers = [None if like is None else
-                             torch.zeros(like[0], dtype=torch.float32, device=like[1])
+                             torch.zeros(like[0], dtype=like[1], device=like[2])
                              for like in self._like]
         return self._buffers
 
@@ -185,22 +234,24 @@ class PyramidGrads:
 
 class _PyramidNode(torch.autograd.Function):
     """Forward: the levels as they are, and the token. Backward: the shared
-    buffers (plus any level gradient from a consumer other than a gather)."""
+    f32 buffers (plus any level gradient from a consumer other than a
+    gather), each cast once to its level's dtype."""
 
     @staticmethod
     def forward(ctx, buffers: _GradBuffers, *levels):
         ctx.buffers = buffers
+        ctx.dtypes = [lv.dtype for lv in levels]
         ctx.set_materialize_grads(False)
-        return (levels[0].new_zeros(()), *levels)
+        return (levels[0].new_zeros((), dtype=torch.float32), *levels)
 
     @staticmethod
     def backward(ctx, d_token, *d_levels):
         buffers = ctx.buffers.take() or [None] * len(d_levels)
         out = []
-        for buf, d in zip(buffers, d_levels):
+        for buf, d, dtype in zip(buffers, d_levels, ctx.dtypes):
             if d is not None:
                 buf = d if buf is None else buf.add_(d)
-            out.append(buf)
+            out.append(None if buf is None else buf.to(dtype))
         return (None, *out)
 
 
@@ -239,13 +290,15 @@ class _GatherLevels(torch.autograd.Function):
         if ctx.buffers is not None:
             d_levels = ctx.buffers.get()
         else:
-            d_levels = [torch.zeros_like(lv) if need else None
-                        for lv, need in zip(levels, needs[4:])]
+            d_levels = [torch.zeros(lv.shape, dtype=_compute_dtype(lv), device=lv.device)
+                        if need else None for lv, need in zip(levels, needs[4:])]
         backward = gather_levels_backward if ctx.kernel else _plain_backward
         d_ix, d_iy = backward(levels, ix, iy, d_out, d_levels, coords)
         if ctx.buffers is not None:
-            d_levels, token = [None] * len(levels), d_out.new_zeros(())
+            d_levels, token = [None] * len(levels), d_out.new_zeros((), dtype=torch.float32)
         else:
+            # the level's dtype, once per gather (a gather on no shared pyramid)
+            d_levels = [None if d is None else d.to(lv.dtype) for d, lv in zip(d_levels, levels)]
             token = None
         return (None, d_ix if needs[1] else None, d_iy if needs[2] else None, token,
                 *d_levels)
@@ -263,16 +316,18 @@ def gather_levels(levels: Sequence[torch.Tensor], ix: torch.Tensor, iy: torch.Te
                               or any(a is not b for a, b in zip(levels, grads.levels))):
         raise ValueError("gather_levels: `grads` belongs to another pyramid")
     shared = grads is not None and torch.is_grad_enabled()
+    levels_dtype(levels)
     if not build.use_kernel(ix):
         if shared:
             return _GatherLevels.apply(grads.buffers, ix, iy, grads.token, *levels)
         return gather_levels_plain(levels, ix, iy)
 
     dev = ix.device
+    levels_dtype(levels, kernel=True)
     for lv in levels:
-        if lv.device != dev or lv.dtype != torch.float32 or lv.dim() != 3:
-            raise ValueError("gather_levels kernel takes f32 [H, W, C] levels on "
-                             f"{dev}; got {lv.dtype} {tuple(lv.shape)} on {lv.device}")
+        if lv.device != dev or lv.dim() != 3:
+            raise ValueError(f"gather_levels kernel takes [H, W, C] levels on {dev}; got "
+                             f"{tuple(lv.shape)} on {lv.device}")
         if not lv.is_contiguous():
             raise ValueError("gather_levels kernel takes contiguous levels")
     if ix.dtype != torch.float32 or iy.dtype != torch.float32 or iy.device != dev:

@@ -2,7 +2,9 @@
 residual add (kernels N1-N4 in `csrc/norm.cu`), and its plain PyTorch version.
 
 `batch_norm_act(x, weight, bias, running_mean, running_var, training,
-momentum, eps, act, residual)` computes, over a channel-last x [..., C] f32,
+momentum, eps, act, residual)` computes, over a channel-last x [..., C] (f32,
+or bf16 on the mixed-precision path; weight, bias and the running statistics
+f32 always),
 
     y = act(x * mul + add (+ residual)),   mul = weight * rsqrt(var + eps),
                                            add = bias - mean * mul
@@ -33,6 +35,19 @@ The stage functions `stats_plain`, `apply_plain`, `bwd_reduce_plain` and
 `bwd_apply_plain` are the plain versions of N1-N4 one by one (the same
 per-channel [5, C] statistics and [4, C] gradients the kernels pass on);
 composed, they give the gradient autograd gives `batch_norm_act_plain`.
+
+bf16. x, the residual, y and the cotangents dy, dx, d_residual are bf16; the
+statistics, mul/add, the parameter gradients and the running statistics f32.
+The kernels and the plain versions round at the same points: every bf16
+value converts exactly to f32, z = x mul + add (+ r), act(z), g = dy act'(z)
+and dx = g mul + alpha + beta x are computed in f32, and y, dx and
+d_residual (= g) are each rounded to bf16 once, as they are stored. JAX's
+`FusedBatchNorm(dtype=bfloat16)` (`scenerf_tpu/encoder/norm.py:76-78`)
+rounds at more points: it casts mul and add to bf16, rounds x * mul and the
+sum with add to bf16, then adds the residual and applies the activation in
+bf16 (each op rounded), and its autodiff computes dx and the per-channel
+sums from bf16 products. So the port's bf16 y sits within one bf16 spacing
+of the f32 result, and JAX's within a few.
 """
 from __future__ import annotations
 
@@ -91,10 +106,11 @@ def batch_norm_act_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tens
         mean, var = running_mean, running_var
     mul = weight * torch.rsqrt(var + eps)
     add = bias - mean * mul
-    z = x * mul.to(x.dtype) + add.to(x.dtype)
+    cd = torch.promote_types(x.dtype, torch.float32)  # bf16 computes in f32
+    z = x.to(cd) * mul.to(cd) + add.to(cd)
     if residual is not None:
-        z = z + residual
-    return activation(z, act)
+        z = z + residual.to(cd)
+    return activation(z, act).to(x.dtype)
 
 
 # ---------------------------------------------------------------- stages
@@ -131,14 +147,16 @@ def fold_plain(weight: torch.Tensor, bias: torch.Tensor, running_mean: torch.Ten
 
 
 def _pre_activation(x, stats, residual):
-    z = x * stats[MUL] + stats[ADD]
-    return z if residual is None else z + residual
+    """z in f32 (a bf16 x and residual convert exactly) or wider."""
+    cd = torch.promote_types(x.dtype, stats.dtype)
+    z = x.to(cd) * stats[MUL] + stats[ADD]
+    return z if residual is None else z + residual.to(cd)
 
 
 def apply_plain(x: torch.Tensor, stats: torch.Tensor, act: str,
                 residual: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """N2: act(x * mul + add (+ residual))."""
-    return activation(_pre_activation(x, stats, residual), act)
+    """N2: act(x * mul + add (+ residual)), rounded to x's dtype."""
+    return activation(_pre_activation(x, stats, residual), act).to(x.dtype)
 
 
 def bwd_reduce_plain(x: torch.Tensor, dy: torch.Tensor, stats: torch.Tensor,
@@ -168,9 +186,12 @@ def bwd_reduce_plain(x: torch.Tensor, dy: torch.Tensor, stats: torch.Tensor,
 def bwd_apply_plain(x: torch.Tensor, dy: torch.Tensor, stats: torch.Tensor,
                     grads: torch.Tensor, act: str, residual: Optional[torch.Tensor] = None
                     ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """N4: (dx = g mul + alpha + beta x, d_residual = g)."""
-    g = dy * activation_grad(_pre_activation(x, stats, residual), act)
-    return g * stats[MUL] + grads[ALPHA] + grads[BETA] * x, g
+    """N4: (dx = g mul + alpha + beta x, d_residual = g), rounded to x's
+    dtype."""
+    z = _pre_activation(x, stats, residual)
+    g = dy.to(z.dtype) * activation_grad(z, act)
+    dx = g * stats[MUL] + grads[ALPHA] + grads[BETA] * x.to(z.dtype)
+    return dx.to(x.dtype), g.to(x.dtype)
 
 
 def kink_ties(x: torch.Tensor, stats: torch.Tensor, act: str,
@@ -183,9 +204,9 @@ def kink_ties(x: torch.Tensor, stats: torch.Tensor, act: str,
     the mask is empty."""
     if act != "leaky":
         return torch.zeros(x.shape, dtype=torch.bool, device=x.device)
-    summands = (x * stats[MUL]).abs() + stats[ADD].abs()
+    summands = (x.float() * stats[MUL]).abs() + stats[ADD].abs()
     if residual is not None:
-        summands = summands + residual.abs()
+        summands = summands + residual.float().abs()
     spacing = torch.nextafter(summands, torch.full_like(summands, float("inf"))) - summands
     return _pre_activation(x, stats, residual).abs() <= spacings * spacing
 
@@ -222,16 +243,26 @@ def plane(t: torch.Tensor) -> Optional[int]:
     return None
 
 
+# the element types the kernels are instantiated for, and their entries' suffix
+DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def _entry(x: torch.Tensor, direction: str):
+    """The library entry of `direction` for x's element type."""
+    return getattr(build.library(), f"scenerf_bn_{direction}_{DTYPES[x.dtype]}")
+
+
 def _check(x: torch.Tensor, residual: Optional[torch.Tensor], *vectors: torch.Tensor) -> int:
     """Raise on what the kernels do not take; the layout (`plane`)."""
     layout = plane(x) if x.dim() >= 1 else None
-    if x.dtype != torch.float32 or layout is None:
-        raise ValueError(f"batch_norm_act kernel takes an f32 tensor, contiguous channel-last "
-                         f"or channel-first; got {x.dtype} {tuple(x.shape)} strides {x.stride()}")
+    if x.dtype not in DTYPES or layout is None:
+        raise ValueError(f"batch_norm_act kernel takes an f32 or bf16 tensor, contiguous "
+                         f"channel-last or channel-first; got {x.dtype} {tuple(x.shape)} "
+                         f"strides {x.stride()}")
     if residual is not None and (residual.shape != x.shape or residual.dtype != x.dtype
                                  or plane(residual) != layout
                                  or residual.device != x.device):
-        raise ValueError("batch_norm_act kernel: the residual must be an f32 tensor of x's "
+        raise ValueError("batch_norm_act kernel: the residual must be a tensor of x's dtype, "
                          "shape, layout and device")
     for v in vectors:
         if (v.dtype != torch.float32 or v.shape != x.shape[-1:] or not v.is_contiguous()
@@ -259,7 +290,7 @@ def launch_forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     if stats is None and (training or want_stats):
         stats = torch.empty((5, C), dtype=torch.float32, device=dev)
     work = _workspace(dev, stream, C)
-    status = build.library().scenerf_bn_forward_f32(
+    status = _entry(x, "forward")(
         x.data_ptr(), build.ptr(residual), y.data_ptr(), x.numel() // C, C, layout,
         weight.data_ptr(),
         bias.data_ptr(), running_mean.data_ptr(), running_var.data_ptr(), build.ptr(stats),
@@ -267,9 +298,9 @@ def launch_forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         int(training), stages, stream)
     build.check(status, "batch_norm_act forward")
     if training and stages & 1:
-        build.LAUNCHES["bn_stats"] += 1
+        build.count_launch("bn_stats", x.dtype)
     if stages & 2:
-        build.LAUNCHES["bn_apply"] += 1
+        build.count_launch("bn_apply", x.dtype)
     return y, stats
 
 
@@ -289,8 +320,8 @@ def launch_backward(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor,
         raise ValueError(f"batch_norm_act backward: cotangent {dy.dtype} {tuple(dy.shape)} "
                          f"for x {x.dtype} {tuple(x.shape)}")
     layout = plane(x)
-    if layout is None:
-        raise ValueError(f"batch_norm_act backward: x of strides {x.stride()}")
+    if layout is None or x.dtype not in DTYPES:
+        raise ValueError(f"batch_norm_act backward: x {x.dtype} of strides {x.stride()}")
     if plane(dy) != layout:
         # autograd's cotangents (an expanded ones_like, a slice) vary: dy takes x's layout
         global cotangent_copies
@@ -309,16 +340,16 @@ def launch_backward(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor,
         d_res = torch.empty_like(x)
     write_res = d_res is not None and act != "identity"
     work = _workspace(dev, stream, C)
-    status = build.library().scenerf_bn_backward_f32(
+    status = _entry(x, "backward")(
         x.data_ptr(), build.ptr(residual), dy.data_ptr(), dx.data_ptr(),
         d_res.data_ptr() if write_res else None, x.numel() // C, C, layout, weight.data_ptr(),
         stats.data_ptr(), grads.data_ptr(), work.data_ptr(), work.numel(), eps,
         ACTS.index(act), int(training), stages, stream)
     build.check(status, "batch_norm_act backward")
     if stages & 1:
-        build.LAUNCHES["bn_bwd_reduce"] += 1
+        build.count_launch("bn_bwd_reduce", x.dtype)
     if stages & 2:
-        build.LAUNCHES["bn_bwd_apply"] += 1
+        build.count_launch("bn_bwd_apply", x.dtype)
     return dx, grads, d_res
 
 

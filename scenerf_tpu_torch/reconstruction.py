@@ -3,7 +3,10 @@ CLI (`cli/reconstruction.py`, `cli/evaluation.py`) and `chip_smoke.py`:
 render a frame's pose sweep, upsample it to full resolution, fuse it into the
 KITTI TSDF grid (kernel T) and score the occupancy against the voxel GT.
 Counterpart of `scenerf_tpu/cli/reconstruction.py:25-119,172-213` and
-`scenerf_tpu/cli/evaluation.py:450-465`.
+`scenerf_tpu/cli/evaluation.py:450-465`. The sweep runs in the model's
+compute dtype (a checkpoint's config carries it: bf16 encodes and fields
+for `compute_dtype="bfloat16"`); its depth and color come out f32, so the
+upsampling and kernel T take f32 as before.
 """
 from __future__ import annotations
 

@@ -11,6 +11,10 @@ chunks, with the noise drawn once for all rays and sliced. Outside
 `torch.no_grad` the render carries gradients (the kernels' backwards are
 autograd Functions); `with_som=True`, the training render, adds the RaySOM
 (its EM, kernel S's, inside the sort-composite launch) and its KL.
+
+On the mixed-precision path the pyramid, the latent and the field MLPs are
+bf16; the sample positions, the Gaussian means and stds, the density and
+rgb that reach the sort-composite kernel, and everything after it are f32.
 """
 from __future__ import annotations
 
@@ -149,7 +153,9 @@ def render_ray_block(
     vd = viewdir_infer[:, None, :].expand(r, P, 3).reshape(-1, 3)
     z, x_in = featurize_points(pyramid, pts.detach().reshape(-1, 3), vd, cam_K, inv_K,
                                cfg.sphere, cfg.n_pe_freqs, pyramid_grads)
-    density, rgb = radiance_outputs(mlp(z, x_in))
+    # in the field's dtype; f32 from here on, where JAX's promotion takes them
+    # against the f32 distances and weights of the composite
+    density, rgb = (t.float() for t in radiance_outputs(mlp(z, x_in)))
     som_in = (SomInputs(g_means, g_stds, cfg.som_sigma, cfg.som_mask_threshold)
               if with_som else None)
     out = sort_composite(sd, dv, density.reshape(r, P), rgb.reshape(r, P, 3), som=som_in)

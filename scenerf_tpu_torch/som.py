@@ -110,9 +110,9 @@ def em_launch_args(m: torch.Tensor, s: torch.Tensor, P: int, som_sigma: float,
     if not 1 <= C <= MAX_PROTOS or P > 64:
         raise ValueError(f"ray_som kernel takes at most {MAX_PROTOS} components and "
                          f"64 samples per ray, got {C} and {P}")
-    if s.shape != (R, C) or s.device != m.device:
-        raise ValueError("ray_som kernel takes [R, C] means and stds on one device")
-    ins = [t.detach().to(torch.float32).contiguous() for t in (m, s)]
+    if s.shape != (R, C) or s.device != m.device or {m.dtype, s.dtype} != {torch.float32}:
+        raise ValueError("ray_som kernel takes f32 [R, C] means and stds on one device")
+    ins = [t.detach().contiguous() for t in (m, s)]
     outs = [torch.empty((R, C), dtype=torch.float32, device=m.device) for _ in range(3)]
     return ins, (C, 2.0 * som_sigma ** 2, C * 1e-8, mask_threshold), outs
 
@@ -125,10 +125,11 @@ def som_em(m: torch.Tensor, s: torch.Tensor, d: torch.Tensor, alphas: torch.Tens
         return som_em_plain(m, s, d, alphas, som_sigma, mask_threshold)
     R, P = d.shape
     ms, scalars, outs = em_launch_args(m, s, P, som_sigma, mask_threshold)
-    samples = [t.detach().to(torch.float32).contiguous() for t in (d, alphas)]
+    samples = [t.detach().contiguous() for t in (d, alphas)]
     if ms[0].shape[0] != R or alphas.shape != (R, P) or any(
-            t.device != d.device for t in (*ms, samples[1])):
-        raise ValueError("ray_som kernel takes [R, C] means/stds and [R, P] samples on one device")
+            t.device != d.device or t.dtype != torch.float32 for t in (*ms, *samples)):
+        raise ValueError("ray_som kernel takes f32 [R, C] means/stds and [R, P] samples on "
+                         "one device")
     C = scalars[0]
     status = build.library().scenerf_ray_som_f32(
         *(t.data_ptr() for t in (*ms, *samples)), R, C, P, *scalars[1:],

@@ -4,9 +4,10 @@ goes on one NVIDIA GPU.
     python3 scripts/profile_serve_torch.py [--poses 1] [--out build/profile/serve_trace.json]
     python3 scripts/profile_serve_torch.py --train [--out build/profile/train_trace.json]
     python3 scripts/profile_serve_torch.py --train --root DIR   # another checkout's package
+    python3 scripts/profile_serve_torch.py --train --dtype bfloat16   # the bf16 compute path
 
-Builds SceneRF(kitti()) with seeded random weights (f32, TF32 off, as
-chip_smoke.py does). Serve: encodes one synthetic frame and renders one
+Builds SceneRF(kitti(compute_dtype=--dtype)) with seeded random weights (f32
+parameters; the float32 path by default; TF32 off, as chip_smoke.py does). Serve: encodes one synthetic frame and renders one
 warm-up pose, then profiles one encode and `--poses` poses of the stride-2
 sweep. Train: takes one warm-up step of `Trainer` on `make_batch` (4 sources
 x 1200 rays), then profiles one step. Prints the device time by kernel (top
@@ -34,7 +35,7 @@ KINDS = (  # first match wins, on the device kernel's name; cuDNN's convolutions
     ("port kernels (G, G-bwd, C, C-bwd, S, K5)",
      r"gather_levels|sort_composite|ray_som|bn_(stats|apply|bwd)"),
     ("convolution (cuDNN)", r"conv|fprop|dgrad|wgrad|implicit|winograd|fft|cudnn"),
-    ("GEMM (cuBLAS)", r"gemm|cutlass|splitK"),
+    ("GEMM (cuBLAS)", r"gemm|cutlass|splitK|nvjet"),
     ("reduction", r"reduce|norm|softmax|cumprod|cumsum|scan|sort|radix"),
     ("index / gather / scatter", r"index|gather|scatter|embedding"),
 )
@@ -54,6 +55,8 @@ def main() -> None:
     ap.add_argument("--out", default=None)
     ap.add_argument("--root", default=str(ROOT),
                     help="checkout whose scenerf_tpu_torch to profile (default: this one)")
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
+                    help="the config's compute_dtype")
     args = ap.parse_args()
     out = args.out or f"build/profile/{'train' if args.train else 'serve'}_trace.json"
     sys.path.insert(0, str(Path(args.root).resolve()))
@@ -74,7 +77,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
-    cfg = C.kitti()
+    cfg = C.kitti(compute_dtype=args.dtype)
     torch.manual_seed(0)
     with torch.device(dev):
         model = SceneRF(cfg).eval()
@@ -115,7 +118,7 @@ def main() -> None:
     events = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.device_time for e in events) / 1e3
     wall_ms = (t2 - t0) * 1e3
-    print(f"card: {card}")
+    print(f"card: {card}; compute dtype {args.dtype}")
     print(f"profiled window: {window} = {wall_ms:.1f} ms wall (under the profiler); "
           f"device kernel time {busy_ms:.1f} ms in {len(events)} kernels, busy share "
           f"{busy_ms / wall_ms:.1%}; peak device memory "

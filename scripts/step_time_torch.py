@@ -1,14 +1,15 @@
 """Wall time of KITTI training steps of the PyTorch port on one NVIDIA GPU,
 for comparing two checkouts in one call (run them in turns: A, B, B, A).
 
-    python3 scripts/step_time_torch.py [--root DIR] [--steps 4]
+    python3 scripts/step_time_torch.py [--root DIR] [--steps 4] [--dtype bfloat16]
 
 Imports `scenerf_tpu_torch` from --root (default: this checkout; its kernels
-build under DIR/build/kernels), builds SceneRF(kitti()) with seeded random
-weights (f32, TF32 off, as chip_smoke.py) and a Trainer, takes one warm-up
-step on make_batch and then times --steps steps: host clock around each
-step, ended by synchronize. Prints each step's ms, their median, the peak
-device memory of the timed steps, and the card's name and power limit.
+build under DIR/build/kernels), builds SceneRF(kitti(compute_dtype=--dtype))
+with seeded random weights (f32 parameters; float32, the default, or the
+bf16 compute path; TF32 off, as chip_smoke.py) and a Trainer, takes one
+warm-up step on make_batch and then times --steps steps: host clock around
+each step, ended by synchronize. Prints each step's ms, their median, the
+peak device memory of the timed steps, and the card's name and power limit.
 """
 from __future__ import annotations
 
@@ -24,6 +25,8 @@ def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
     ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--dtype", choices=("float32", "bfloat16"), default="float32",
+                    help="the config's compute_dtype")
     args = ap.parse_args()
     root = Path(args.root).resolve()
     sys.path.insert(0, str(root))
@@ -42,7 +45,7 @@ def main() -> None:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    cfg = C.kitti()
+    cfg = C.kitti(compute_dtype=args.dtype)
     torch.manual_seed(0)
     with torch.device(dev):
         model = SceneRF(cfg)
@@ -58,7 +61,8 @@ def main() -> None:
         trainer.train_step(batch, gen)
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
-    print(f"{root}: {statistics.median(times):.1f} ms per step (median of {args.steps}; "
+    print(f"{root} ({args.dtype}): {statistics.median(times):.1f} ms per step (median of "
+          f"{args.steps}; "
           f"{['%.1f' % t for t in times]}), peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; card: {card}")
 

@@ -53,8 +53,9 @@ def test_config_matches_jax_fields():
         assert (t.d_in, t.n_pts_per_ray) == (j.d_in, j.n_pts_per_ray)
         assert t.sphere.h_fov == j.sphere.h_fov and t.sphere.v_min == j.sphere.v_min
     assert C.kitti(compute_dtype="bfloat16").dtype == torch.bfloat16
-    with pytest.raises(NotImplementedError, match="float32"):
-        SceneRF(C.tiny(compute_dtype="bfloat16"))  # bf16 is not ported yet
+    # the mixed precision builds with f32 parameters and f32 BN statistics
+    model = SceneRF(C.tiny(compute_dtype="bfloat16"))
+    assert {t.dtype for t in model.state_dict().values()} == {torch.float32}
 
 
 @pytest.mark.parametrize("fn", ["cam_pts_2_pix", "transform_points", "rotate_vectors"])

@@ -813,3 +813,201 @@ def test_bn_kernels_channel_first_match_plain(dev, shape, act, training):
     assert got[0].stride() == x.stride() and got[3].stride() == x.stride()
     var = x.reshape(-1, C).var(0, unbiased=False) if training else rv
     _bn_check(got, want, x, dy, w, var, 1e-5, f"channel-first {shape} {act}")
+
+
+# ---------------------------------------------------------------- bf16 instantiations
+
+BF16 = torch.bfloat16
+BF16_DX_REL_L2 = 4e-3  # bf16 dx, d_residual: one rounding each (2^-8), statistics in another order
+
+
+@pytest.mark.parametrize("n", [40000, 700])
+@pytest.mark.parametrize("widths", [(2, 4, 8, 16, 32), (80, 160, 320, 640, 1280), (3,),
+                                    (5, 12, 7), (24,), (48, 224)])
+def test_gather_kernel_bf16_bit_equal(dev, widths, n):
+    """Kernel G's bf16 instantiation (bf16 levels and output, f32 coords and
+    weights, each output rounded once) bit-equal to its plain version: the
+    8-channel vectors (C a multiple of 8), the scalar loop (C = 2, 3, 5, 7,
+    12), the cp.async ring (rows of >= 640 bytes: 320 bf16 channels) at one
+    round per warp, and coords off the map; the lane groups sized by 8
+    channels a lane."""
+    g = torch.Generator(device=dev).manual_seed(len(widths) + n)
+    levels = [torch.randn(9 + i, 13 + 2 * i, c, generator=g, device=dev).to(BF16)
+              for i, c in enumerate(widths)]
+    ix, iy = _coords(g, levels, n, dev)
+    build.reset_launch_counts()
+    got = gather_levels(levels, ix, iy)
+    want = gather_levels_plain(levels, ix, iy)
+    torch.cuda.synchronize()
+    assert got.dtype == BF16 and build.LAUNCHES["gather_levels_bf16"] == 1
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
+    if n == 40000:
+        assert G.lanes_per_point(widths, n, BF16) == min(
+            32, 1 << (-(-max(widths) // 8) - 1).bit_length())
+
+
+def test_gather_kernel_bf16_misaligned_and_mixed(dev):
+    """A bf16 level 2 bytes off 16-byte alignment takes the scalar loop (same
+    result as the plain version); an f32 level beside bf16 ones raises, and
+    so does an f16 level (no instantiation)."""
+    g = torch.Generator(device=dev).manual_seed(2)
+    buf = torch.randn(1 + 6 * 7 * 16, generator=g, device=dev).to(BF16)
+    level = buf[1:].view(6, 7, 16)
+    ix, iy = _coords(g, [level], 300, dev)
+    torch.testing.assert_close(gather_levels([level], ix, iy),
+                               gather_levels_plain([level], ix, iy), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="one dtype"):
+        gather_levels([level, level.float()], torch.cat([ix, ix]), torch.cat([iy, iy]))
+    with pytest.raises(ValueError, match="f32 or bf16"):  # no f16 instantiation
+        gather_levels([level.half()], ix, iy)
+
+
+@pytest.mark.parametrize("case", ["pyramid", "tiny", "image", "contended", "misaligned"])
+def test_gather_bwd_kernel_bf16_matches_plain(dev, case):
+    """Kernel G-bwd's bf16 instantiation: the bf16 cotangent read and
+    converted exactly, f32 atomics into f32 gradient buffers (rtol 1e-5
+    against the plain backward's f32 sums), the run-merging mapping at the
+    KITTI widths ("pyramid": 2001 points), the per-point vector and scalar
+    paths, coordinate gradients in f32 (rtol 1e-4) on a 3-channel bf16
+    image, and a small level every point lands on."""
+    g = torch.Generator(device=dev).manual_seed(11)
+    widths = {"pyramid": (80, 160, 320, 640, 1280), "tiny": (2, 4, 8, 16, 32), "image": (3,),
+              "contended": (1280,), "misaligned": (16,)}[case]
+    n = {"pyramid": 2001, "contended": 20000}.get(case, 1500)
+    if case == "contended":
+        levels = [torch.randn(3, 4, 1280, generator=g, device=dev).to(BF16)]
+    elif case == "misaligned":
+        buf = torch.randn(1 + 9 * 13 * 16, generator=g, device=dev).to(BF16)
+        levels = [buf[1:].view(9, 13, 16)]
+    else:
+        levels = [torch.randn(9 + i, 13 + 2 * i, c, generator=g, device=dev).to(BF16)
+                  for i, c in enumerate(widths)]
+    ix, iy = _coords(g, levels, n, dev)
+    d_out = torch.randn(n, sum(widths), generator=g, device=dev).to(BF16)
+    coords = case == "image"
+    got = [torch.zeros(lv.shape, device=dev) for lv in levels]
+    want = [torch.zeros(lv.shape, device=dev) for lv in levels]
+    build.reset_launch_counts()
+    got_xy = G.gather_levels_backward(levels, ix, iy, d_out, got, coords)
+    want_xy = G._plain_backward(levels, ix, iy, d_out, want, coords)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["gather_levels_bwd_bf16"] == 1
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5 * float(b.abs().max()))
+    if coords:
+        for a, b in zip(got_xy, want_xy):
+            torch.testing.assert_close(a, b, rtol=1e-4, atol=1e-5 * float(b.abs().max()))
+    with pytest.raises(ValueError, match="cotangent"):
+        G.gather_levels_backward(levels, ix, iy, d_out.float(), got, False)
+
+
+def test_gather_bf16_autograd_casts_once_per_pyramid(dev):
+    """Gathers on a bf16 pyramid through its shared buffers: the level
+    gradients reach autograd as bf16, each the f32 buffer's sum rounded
+    once (equal to the plain gathers' f32 sums, rounded, within one bf16
+    spacing, beside the f32 sums' own differences), and the gathers' own
+    outputs bf16."""
+    g = torch.Generator(device=dev).manual_seed(4)
+    widths = (80, 160, 320, 640, 1280)
+    base = [torch.randn(6 + 3 * i, 9 + 4 * i, c, generator=g, device=dev).to(BF16)
+            for i, c in enumerate(widths)]
+    xy = [_coords(g, base, n, dev) for n in (1200, 300, 700)]
+    cots = [torch.randn(x.shape[1], sum(widths), generator=g, device=dev).to(BF16)
+            for x, _ in xy]
+    leaves = [lv.clone().requires_grad_(True) for lv in base]
+    pyramid, pgrads = G.share_pyramid_grads(leaves)
+    outs = [gather_levels(pyramid, x, y, grads=pgrads) for x, y in xy]
+    assert all(o.dtype == BF16 for o in outs)
+    torch.autograd.backward(outs, cots)
+    want = [torch.zeros(lv.shape, device=dev) for lv in base]
+    for (x, y), cot in zip(xy, cots):
+        G._plain_backward(base, x, y, cot, want, False)
+    torch.cuda.synchronize()
+    for lv, w in zip(leaves, want):
+        assert lv.grad.dtype == BF16
+        # one bf16 rounding (2^-7 relative at most) of sums that differ in
+        # their f32 order (atol 1e-5 of the largest, as in f32)
+        torch.testing.assert_close(lv.grad.float(), w, rtol=2.0 ** -7,
+                                   atol=1e-5 * float(w.abs().max()))
+
+
+@pytest.mark.parametrize("training", [True, False])
+@pytest.mark.parametrize("res", [False, True])
+@pytest.mark.parametrize("act", ["identity", "silu", "leaky"])
+@pytest.mark.parametrize("M,C", [(1, 80), (7, 3), (1000, 12), (2501, 80), (468, 3840),
+                                 (4514, "channel-first")])
+def test_bn_kernels_bf16_match_plain(dev, M, C, act, res, training):
+    """Kernel K5's bf16 instantiation (N1-N4 with bf16 x, residual, y, dy,
+    dx, d_residual; f32 statistics, parameter gradients and running
+    statistics) against the plain bf16 version and its autograd, which round
+    at the same points: y within one bf16 spacing (2^-7 relative) beside the
+    f32 statistics' own differences (atol 1e-6 of the summands |x mul| + |y|
+    + |r|: where z cancels to near 0 they move its rounding), running
+    statistics rtol 1e-5, dweight and dbias relative L2 <= 1e-4 (f32 sums of the same
+    products), dx and d_residual <= BF16_DX_REL_L2; 8 channels a vector (C =
+    80, 3840), the scalar path (C = 3, 12), M = 1 and a channel-first input."""
+    if C == "channel-first":
+        g = torch.Generator(device=dev).manual_seed(24)
+        cf = lambda: torch.randn(2, 24, 37, 61, generator=g, device=dev).permute(0, 2, 3, 1)  # noqa: E731
+        x, r, dy = cf() * 2 + 0.5, cf(), cf()
+        C = 24
+        w, b, rv = (torch.rand(C, generator=g, device=dev) + 0.5 for _ in range(3))
+        rm = torch.rand(C, generator=g, device=dev) * 0.4 - 0.2
+    else:
+        x, w, b, rm, rv, r, dy = _bn_inputs(dev, M, C, True, seed=5)
+    x, r, dy = (t.to(BF16) for t in (x, r, dy))
+    r = r if res else None
+    got, want, launches = _bn_both(x, w, b, rm, rv, r, dy, training, act)
+    n_stats = int(training)
+    assert (launches["bn_stats_bf16"], launches["bn_apply_bf16"], launches["bn_bwd_reduce_bf16"],
+            launches["bn_bwd_apply_bf16"]) == (n_stats, 1, 1, 1), launches
+    y, rm_k, rv_k, dx, dw, db, dr = got
+    y0, rm_p, rv_p, dx0, dw0, db0, dr0 = want
+    assert y.dtype == dx.dtype == BF16 and dw.dtype == torch.float32
+    assert y.stride() == x.stride()
+    var = x.float().reshape(-1, C).var(0, unbiased=False) if training else rv
+    mul = float((w * torch.rsqrt(var + 1e-5)).abs().max())
+    scale = float(x.float().abs().max()) * mul + float(y0.float().abs().max()) + (
+        0.0 if r is None else float(r.float().abs().max()))
+    torch.testing.assert_close(y.float(), y0.float(), rtol=2.0 ** -7, atol=1e-6 * scale)
+    for a, b_ in ((rm_k, rm_p), (rv_k, rv_p)):
+        torch.testing.assert_close(a, b_, rtol=1e-5, atol=1e-6 * float(b_.abs().max()))
+    one_row = x[..., 0].numel() == 1
+    for a, b_, tol in ((dw, dw0, 1e-4), (db, db0, 1e-4), (dx, dx0, BF16_DX_REL_L2),
+                       (dr, dr0, BF16_DX_REL_L2)):
+        if b_ is None:
+            assert a is None
+            continue
+        assert bool(torch.isfinite(a.float()).all())
+        if one_row and b_ is not db0:  # 0 up to rounding: held to the terms' scale
+            floor = float(dy.float().norm()) * float(w.abs().max() / (rv.min() + 1e-5) ** 0.5)
+            assert float((a.float() - b_.float()).norm()) <= tol * floor
+            continue
+        assert _rel_l2(a.float(), b_.float(), 0.0) <= tol, (M, C, act, res, training)
+
+
+def test_tiny_bf16_train_step_on_card(dev):
+    """One `tiny` bf16 training step on the card (kernels G, G-bwd and K5 in
+    bf16, C / C-bwd / S in f32) against the same step on the CPU (the plain
+    bf16 versions; the convolutions and products there are the CPU's bf16
+    ones): loss within 5e-3, every gradient f32 and finite, and the bf16
+    instantiations launched (the reprojection gathers on the f32 images
+    stay f32)."""
+    cfg = C.tiny(compute_dtype="bfloat16")
+    torch.manual_seed(0)
+    model = SceneRF(cfg)
+    cpu = Trainer(cfg, device="cpu", model=model)
+    card = Trainer(cfg, device=dev, model=SceneRF(cfg))
+    card.model.load_state_dict(model.state_dict())
+    batch = make_batch(cfg, seed=1)
+    noise = model.draw_noise(1, cfg.n_sources, torch.Generator().manual_seed(4), "cpu")
+    build.reset_launch_counts()
+    got = card.train_step(batch, noise={k: v.to(dev) for k, v in noise.items()})
+    torch.cuda.synchronize()
+    for k in ("gather_levels", "gather_levels_bwd"):
+        assert 1 <= build.LAUNCHES[f"{k}_bf16"] < build.LAUNCHES[k], build.LAUNCHES
+    assert all(build.LAUNCHES[k] >= 1 for k in ("sort_composite", "sort_composite_bwd"))
+    want = cpu.train_step(batch, noise=noise)
+    torch.testing.assert_close(got["total_loss"].cpu(), want["total_loss"], rtol=5e-3, atol=0)
+    for name, p in card.model.named_parameters():
+        assert p.grad.dtype == torch.float32 and bool(torch.isfinite(p.grad).all()), name
