@@ -63,11 +63,14 @@ Phases (each prints one line and raises on failure):
  12. kernel K5 (N1-N4: batch norm statistics, affine + activation +
      residual, and their backward) at every distinct batch norm configuration
      of the encoder and decoder (shape, activation, residual, layout; the
-     sites recorded in phases 4 and 10): each kernel against its plain
-     version on the same inputs, the fused op in train mode against autograd
-     of the plain version (the cotangent zeroed at the leaky-ReLU's kink
-     ties), eval mode within 2 f32 spacings; each kernel's time alone, by
-     events and plain, its bound, F.batch_norm + activation; their sums over
+     sites recorded in phases 4 and 10): each stage against its plain
+     version on the same inputs, each direction as the training step
+     launches it (one launch on the cluster path: the path printed) against
+     the plain stages, the fused op in train mode against autograd of the
+     plain version (the cotangent zeroed at the leaky-ReLU's kink ties), eval
+     mode within 2 f32 spacings; the time alone of each direction and of
+     each stage, by events and plain, the bounds (3 and 5 passes, and the
+     one-launch design's 2 and 3), F.batch_norm + activation; their sums over
      a training step's 192 sites and an encode's; the host time of one call
  13. bf16: the JAX package's flagship training configuration,
      kitti(n_sources=4, ray_chunk=1200, n_gt_depth=256,
@@ -84,10 +87,11 @@ Phases (each prints one line and raises on failure):
      loss within TRAIN16_LOSS_RTOL of the f32 step from the same weights and
      draws; K5 and G in bf16 on the train-mode encode (levels, encoder
      gradients) against f64, at most ENCODE_F64_RATIO x the plain bf16
-     version's error; N1-N4 in bf16 at every distinct batch norm
-     configuration against their plain bf16 versions, timed alone beside
-     their bf16 bounds; ms per step, rays/s, peak memory, encode ms and ms
-     per pose beside the f32 phases' numbers
+     version's error; N1-N4 and each direction as the step launches it in
+     bf16 at every distinct batch norm configuration against their plain
+     bf16 versions, timed alone beside their bf16 bounds and bf16
+     F.batch_norm + activation, the path of each; ms per step, rays/s, peak
+     memory, encode ms and ms per pose beside the f32 phases' numbers
 Then one JSON line of per-kernel results (each bf16 kernel's bf16 results
 under "bf16"), the card line, and the last line
 {"ok": true, "device": {...}}. It exits non-zero, printing no result, when no
@@ -124,6 +128,7 @@ TRAIN_KERNELS = ("gather_levels", "gather_levels_bwd", "sort_composite", "sort_c
                  "ray_som", "bn_stats", "bn_apply", "bn_bwd_reduce", "bn_bwd_apply")
 RECON_KERNELS = ("gather_levels", "sort_composite", "tsdf_integrate", "bn_apply")
 BN_KERNELS = ("bn_stats", "bn_apply", "bn_bwd_reduce", "bn_bwd_apply")
+BN_FUSED = ("bn_forward_fused", "bn_backward_fused")  # K5's one-launch cluster path
 BN_SITES = 192             # FusedBatchNorm modules of the B7 spherical U-Net
 BN_RTOL = 1e-5             # y, running statistics, the statistics (sums in another order)
 BN_REL_L2 = 1e-4           # dx, dweight, dbias, d_residual, dx's coefficients
@@ -493,6 +498,7 @@ def main() -> None:
     # (NM.plane: 0 channel-last, > 0 channel-first, None neither) and its
     # activation and residual (kernel K5's launch configurations)
     bn_sites = {"eval": [], "train": []}
+    train_fwd_paths = []  # the path each training site's forward takes (NM.launch_path)
 
     def site_hooks(path: str) -> list:
         def record_site(mod, args, kwargs):
@@ -500,6 +506,8 @@ def main() -> None:
             res_in = args[1] if len(args) > 1 else kwargs.get("residual")
             bn_sites[path].append((tuple(x_in.shape), mod.act, res_in is not None, mod.eps,
                                    mod.momentum, NM.plane(x_in)))
+            if path == "train":
+                train_fwd_paths.append(NM.launch_path(x_in, "forward", mod.act, res_in).path)
 
         return [m.register_forward_pre_hook(record_site, with_kwargs=True)
                 for m in model.modules() if isinstance(m, FusedBatchNorm)]
@@ -1011,6 +1019,15 @@ def main() -> None:
     if bn_train != [BN_SITES * TRAIN_STEPS] * 4:
         fail(f"train: K5 launches {dict(zip(BN_KERNELS, bn_train))} in {TRAIN_STEPS} steps; "
              f"expected {BN_SITES} of each per step")
+    # the sites whose forward takes the one-launch cluster path (N1 and N2
+    # in one launch; the backward's N3 and N4 too where its tiles fit)
+    fused_fwd = train_fwd_paths.count("cluster")
+    bn_fused = {k: launches[k] / TRAIN_STEPS for k in BN_FUSED}
+    if not (bn_fused["bn_forward_fused"] == fused_fwd >= 1
+            and 1 <= bn_fused["bn_backward_fused"] <= BN_SITES):
+        fail(f"train: K5 cluster launches per step {bn_fused}; expected {fused_fwd} forward "
+             f"(the plan's) and 1 to {BN_SITES} backward")
+    k5_per_step = sum(2 * BN_SITES - bn_fused[k] for k in BN_FUSED)
     bn_copies = NM.cotangent_copies
     # a conv bias that feeds a train-mode batch norm is subtracted again: zero gradient
     zero = [n for n, seen in seen_nonzero.items()
@@ -1027,8 +1044,9 @@ def main() -> None:
           f"{cfg.n_pts_per_ray} samples, f32: loss {['%.5f' % v for v in losses]}; finite; "
           f"{len(params)} parameter tensors, all with nonzero gradients; {moved} BN running "
           f"statistics moved; main-path launches {launches} (K5: {BN_SITES} forward and "
-          f"{BN_SITES} backward per step; inputs {layouts('train')}; {bn_copies} cotangents "
-          f"copied to their input's layout)")
+          f"{BN_SITES} backward per step, of which {bn_fused} per step in one launch, "
+          f"{k5_per_step:.0f} K5 kernels a step; inputs {layouts('train')}; {bn_copies} "
+          f"cotangents copied to their input's layout)")
     print(f"[10 train] {adam_text}")
 
     # step 0 again on the plain versions but K5's kernels: the step's loss
@@ -1372,6 +1390,29 @@ def main() -> None:
         err["bn_bwd_apply"] = check_l2(f"N4 {what} dx", dx_k, dx_p)
         if has_res:
             err["bn_bwd_apply"] = max(err["bn_bwd_apply"], check_l2(f"N4 {what} d_r", dr_k, dr_p))
+        # each direction as the training step launches it (one launch on the
+        # cluster path): the statistics, y on its own statistics, the
+        # gradients and dx on its own gradients
+        paths = {d: NM.launch_path(x, d, act, r).path for d in ("forward", "backward")}
+        rf = run()
+        y_f, st_f = NM.launch_forward(x, w, b, *rf, True, mom, eps, act, r)
+        err["bn_forward_fused"] = max(
+            *(check_close(f"{paths['forward']} forward {what} statistics row {i}", st_f[i],
+                          st_p[i]) for i in range(5)),
+            check_close(f"{paths['forward']} forward {what} running mean", rf[0], rp[0]),
+            check_close(f"{paths['forward']} forward {what} running var", rf[1], rp[1]),
+            check_close(f"{paths['forward']} forward {what} y", y_f,
+                        NM.apply_plain(x, st_f, act, r)))
+        dx_f, gr_f, dr_f = NM.launch_backward(x, dy, w, st_p, True, eps, act, r,
+                                              residual_grad=has_res)
+        dx_fp, dr_fp = NM.bwd_apply_plain(x, dy, st_p, gr_f, act, r)
+        err["bn_backward_fused"] = max(
+            *(check_l2(f"{paths['backward']} backward {what} row {i}", gr_f[i], gr_p[i])
+              for i in range(4)),
+            check_l2(f"{paths['backward']} backward {what} dx", dx_f, dx_fp),
+            *((check_l2(f"{paths['backward']} backward {what} d_r", dr_f, dr_fp),)
+              if has_res else ()))
+        del y_f, dx_f, dr_f, dx_fp, dr_fp
         # the fused op, train mode: the kernels' Function against autograd of
         # the plain version (the gradient through mean and var included); the
         # cotangent zeroed at the leaky-ReLU's kink ties (z within rounding of
@@ -1422,6 +1463,12 @@ def main() -> None:
         alone = {k: graph_ms(kern) for k, (kern, _) in stage_calls.items()}
         alone["bn_apply_eval"] = graph_ms(lambda: NM.launch_forward(
             x, w, b, rm, rv, False, mom, eps, act, r, want_stats=False, y=y_buf))
+        # each direction as the training step launches it
+        alone["train_fwd"] = graph_ms(lambda: NM.launch_forward(
+            x, w, b, *scratch, True, mom, eps, act, r, y=y_buf, stats=st_buf))
+        alone["train_bwd"] = graph_ms(lambda: NM.launch_backward(
+            x, dy, w, st_p, True, eps, act, r, residual_grad=has_res, grads=gr_buf, dx=dx_buf,
+            d_res=dr_buf))
         n = x.numel()
         bounds = {
             "bn_stats": bound(nb(x), 3 * n),
@@ -1430,6 +1477,10 @@ def main() -> None:
             "bn_bwd_reduce": bound(nb(x, dy, r_act), (5 + act_grad_ops[act]) * n),
             "bn_bwd_apply": bound(nb(x, dy, r_act, x, r_act if has_res else None),
                                   (6 + act_grad_ops[act]) * n),
+            # the one-launch design's least: x (and r) read once, y written
+            "train_fwd": bound(nb(x, r, y_buf), (7 + act_ops[act]) * n),
+            "train_bwd": bound(nb(x, dy, r_act, x, r_act if has_res else None),
+                               (11 + 2 * act_grad_ops[act]) * n),
         }
         leaf_x = x.clone().requires_grad_(True)
         leaf_w, leaf_b = w.clone().requires_grad_(True), b.clone().requires_grad_(True)
@@ -1463,7 +1514,7 @@ def main() -> None:
         lib_stats_ms = cuda_ms(lambda: torch.var_mean(lib_in(x), reduce_dims, correction=0))
         bn_rows.append(dict(
             shape=list(shape), act=act, residual=has_res, eps=eps, momentum=mom,
-            channel_first=bool(layout), sites=count, kink_ties=int(ties.sum()),
+            channel_first=bool(layout), sites=count, kink_ties=int(ties.sum()), paths=paths,
             max_abs_err=err, eval_spacings=eval_spacings, op_rel_l2=op_l2,
             device_ms=alone, bound_ms={k: v["bound_ms"] for k, v in bounds.items()},
             stage_ms=stage_ms, stage_plain_ms=stage_plain_ms,
@@ -1473,9 +1524,14 @@ def main() -> None:
             library_ms=dict(train_fwd=lib_fwd_ms, train_bwd=lib_step - lib_fwd_ms,
                             var_mean=lib_stats_ms)))
         row = bn_rows[-1]
-        print(f"[12 kernel K5] {what} x{count['train']} train, x{count['eval']} eval: N1 {alone['bn_stats'] * 1e3:.1f} N2 "
+        print(f"[12 kernel K5] {what} x{count['train']} train, x{count['eval']} eval: paths "
+              f"{paths['forward']} / {paths['backward']}; train forward "
+              f"{alone['train_fwd'] * 1e3:.1f} backward {alone['train_bwd'] * 1e3:.1f} us alone "
+              f"(one-launch bounds {bounds['train_fwd']['bound_ms'] * 1e3:.1f} / "
+              f"{bounds['train_bwd']['bound_ms'] * 1e3:.1f}); stages alone N1 "
+              f"{alone['bn_stats'] * 1e3:.1f} N2 "
               f"{alone['bn_apply'] * 1e3:.1f} (eval {alone['bn_apply_eval'] * 1e3:.1f}) N3 "
-              f"{alone['bn_bwd_reduce'] * 1e3:.1f} N4 {alone['bn_bwd_apply'] * 1e3:.1f} us alone; "
+              f"{alone['bn_bwd_reduce'] * 1e3:.1f} N4 {alone['bn_bwd_apply'] * 1e3:.1f} us; "
               f"bounds {bounds['bn_stats']['bound_ms'] * 1e3:.1f} / "
               f"{bounds['bn_apply']['bound_ms'] * 1e3:.1f} / "
               f"{bounds['bn_bwd_reduce']['bound_ms'] * 1e3:.1f} / "
@@ -1527,13 +1583,20 @@ def main() -> None:
     del xs, rs, mod
 
     bn_step = dict(
-        forward_ms=per_step(lambda r_: r_["device_ms"]["bn_stats"] + r_["device_ms"]["bn_apply"]),
-        backward_ms=per_step(lambda r_: r_["device_ms"]["bn_bwd_reduce"]
-                             + r_["device_ms"]["bn_bwd_apply"]),
+        forward_ms=per_step(lambda r_: r_["device_ms"]["train_fwd"]),
+        backward_ms=per_step(lambda r_: r_["device_ms"]["train_bwd"]),
+        stages_forward_ms=per_step(lambda r_: r_["device_ms"]["bn_stats"]
+                                   + r_["device_ms"]["bn_apply"]),
+        stages_backward_ms=per_step(lambda r_: r_["device_ms"]["bn_bwd_reduce"]
+                                    + r_["device_ms"]["bn_bwd_apply"]),
         eval_ms=per_step(lambda r_: r_["device_ms"]["bn_apply_eval"], "eval"),
         forward_bound_ms=per_step(lambda r_: r_["bound_ms"]["bn_stats"] + r_["bound_ms"]["bn_apply"]),
         backward_bound_ms=per_step(lambda r_: r_["bound_ms"]["bn_bwd_reduce"]
                                    + r_["bound_ms"]["bn_bwd_apply"]),
+        forward_min_bound_ms=per_step(lambda r_: r_["bound_ms"]["train_fwd"]),
+        backward_min_bound_ms=per_step(lambda r_: r_["bound_ms"]["train_bwd"]),
+        cluster_sites={d: sum(row["sites"]["train"] for row in bn_rows
+                              if row["paths"][d] == "cluster") for d in ("forward", "backward")},
         eval_bound_ms=per_step(lambda r_: r_["bound_ms"]["bn_apply_eval"], "eval"),
         forward_events_ms=per_step(lambda r_: r_["events_ms"]["train_fwd"]),
         backward_events_ms=per_step(lambda r_: r_["events_ms"]["train_bwd"]),
@@ -1547,9 +1610,13 @@ def main() -> None:
     print(f"[12 kernel K5] per training step over the {bn_step['sites']} sites "
           f"({bn_step['configurations']} configurations; inputs: train {layouts('train')}, eval "
           f"{layouts('eval')}; {bn_step['cotangent_copies_in_train']} cotangents copied "
-          f"in {TRAIN_STEPS} steps): kernels alone forward {bn_step['forward_ms']:.3f} ms "
-          f"(bound {bn_step['forward_bound_ms']:.3f}), backward {bn_step['backward_ms']:.3f} ms "
-          f"(bound {bn_step['backward_bound_ms']:.3f}); eval encode {bn_step['eval_ms']:.3f} ms "
+          f"in {TRAIN_STEPS} steps; the cluster path at {bn_step['cluster_sites']} sites): "
+          f"kernels alone forward {bn_step['forward_ms']:.3f} ms (bound "
+          f"{bn_step['forward_bound_ms']:.3f}, one-launch {bn_step['forward_min_bound_ms']:.3f}; "
+          f"stages one by one {bn_step['stages_forward_ms']:.3f}), backward "
+          f"{bn_step['backward_ms']:.3f} ms (bound {bn_step['backward_bound_ms']:.3f}, one-launch "
+          f"{bn_step['backward_min_bound_ms']:.3f}; stages {bn_step['stages_backward_ms']:.3f}); "
+          f"eval encode {bn_step['eval_ms']:.3f} ms "
           f"(bound {bn_step['eval_bound_ms']:.3f}); events forward / backward "
           f"{bn_step['forward_events_ms']:.2f} / {bn_step['backward_events_ms']:.2f} ms, plain "
           f"{bn_step['plain_forward_ms']:.2f} / {bn_step['plain_backward_ms']:.2f}, "
@@ -1565,9 +1632,19 @@ def main() -> None:
             bound_by="bytes",
             library_ms=main_bn["library_ms"]["var_mean"] if name == "bn_stats" else None,
             per_step=bn_step, at_shapes=[{k: row[k] for k in (
-                "shape", "act", "residual", "channel_first", "sites", "device_ms", "bound_ms",
-                "events_ms", "plain_ms", "library_ms")} for row in bn_rows]
+                "shape", "act", "residual", "channel_first", "sites", "paths", "device_ms",
+                "bound_ms", "events_ms", "plain_ms", "library_ms")} for row in bn_rows]
             if name == "bn_stats" else None)
+    # the one-launch cluster path, at the largest configuration that takes it
+    for name, d, key in (("bn_forward_fused", "forward", "train_fwd"),
+                         ("bn_backward_fused", "backward", "train_bwd")):
+        row = next(r_ for r_ in bn_rows if r_["paths"][d] == "cluster" and r_["sites"]["train"])
+        results[name] = dict(
+            shape=row["shape"], act=row["act"], residual=row["residual"],
+            max_abs_err=max(r_["max_abs_err"][name] for r_ in bn_rows),
+            ms=row["events_ms"][key], plain_ms=row["plain_ms"][key],
+            device_ms=row["device_ms"][key], bound_ms=row["bound_ms"][key], bound_by="bytes",
+            library_ms=row["library_ms"][key])
 
     # ---- 13. bf16 --------------------------------------------------------
     # the JAX package's flagship training configuration (bench.py's, minus its
@@ -1782,6 +1859,9 @@ def main() -> None:
     train16_peak = torch.cuda.max_memory_allocated()
     launches16_per_step = {k: train16_launches[k] / TRAIN_STEPS for k in train16_launches}
     bn16 = [train16_launches[f"{k}_bf16"] for k in BN_KERNELS]
+    bn16_fused = {k: train16_launches[f"{k}_bf16"] / TRAIN_STEPS for k in BN_FUSED}
+    if not all(1 <= v <= BN_SITES for v in bn16_fused.values()):
+        fail(f"train bf16: K5 cluster launches per step {bn16_fused}")
     if bn16 != [BN_SITES * TRAIN_STEPS] * 4 or [train16_launches[k] for k in BN_KERNELS] != bn16:
         fail(f"bf16 train: K5 launches {train16_launches}; expected {BN_SITES} bf16 launches "
              f"of each of N1-N4 per step")
@@ -1926,6 +2006,37 @@ def main() -> None:
             if e_ > BF16_DX_REL_L2:
                 fail(f"K5 N4 {what} {name_}: relative L2 {e_:.3e} > {BF16_DX_REL_L2}")
         err["bn_bwd_apply"] = float((dx_k.float() - dx_p.float()).abs().max())
+        # each direction as the training step launches it (one launch on the
+        # cluster path), against the plain stages on its own statistics and
+        # gradients
+        paths = {d: NM.launch_path(x, d, act, r).path for d in ("forward", "backward")}
+        rf, rfp = [rm.clone(), rv.clone()], [rm.clone(), rv.clone()]
+        y_f, st_f = NM.launch_forward(x, w, b, *rf, True, mom, eps, act, r)
+        NM.stats_plain(x, w, b, *rfp, mom, eps)
+        err["bn_forward_fused"] = max(
+            *(check_close(f"{paths['forward']} forward {what} statistics row {i}", st_f[i],
+                          st_p[i]) for i in range(5)),
+            check_close(f"{paths['forward']} forward {what} running mean", rf[0], rfp[0]),
+            check_close(f"{paths['forward']} forward {what} running var", rf[1], rfp[1]))
+        y_fp = NM.apply_plain(x, st_f, act, r)
+        spac_f = (y_f.float() - y_fp.float()).abs() / torch.exp2(
+            torch.floor(torch.log2(y_fp.float().abs().clamp(min=1e-30))) - 7)
+        if float(spac_f.max()) > 1.0:
+            fail(f"K5 {paths['forward']} forward {what}: y {float(spac_f.max()):.2f} bf16 "
+                 f"spacings from the plain version")
+        dx_f, gr_f, dr_f = NM.launch_backward(x, dy, w, st_p, True, eps, act, r,
+                                              residual_grad=has_res)
+        err["bn_backward_fused"] = max(check_l2(f"{paths['backward']} backward {what} row {i}",
+                                                gr_f[i], gr_p[i]) for i in range(4))
+        dx_fp, dr_fp = NM.bwd_apply_plain(x, dy, st_p, gr_f, act, r)
+        for name_, a_, b_ in (("dx", dx_f, dx_fp), ("d_r", dr_f, dr_fp)):
+            if b_ is None or (name_ == "d_r" and not has_res):
+                continue
+            e_ = float((a_.float() - b_.float()).norm() / max(float(b_.float().norm()), 1e-30))
+            if e_ > BF16_DX_REL_L2:
+                fail(f"K5 {paths['backward']} backward {what} {name_}: relative L2 {e_:.3e} > "
+                     f"{BF16_DX_REL_L2}")
+        del y_f, y_fp, spac_f, dx_f, dr_f, dx_fp, dr_fp
         scratch = [rm.clone(), rv.clone()]
         y_buf, st_buf, gr_buf, dx_buf = torch.empty_like(x), st_p.clone(), gr_p.clone(), \
             torch.empty_like(x)
@@ -1948,6 +2059,11 @@ def main() -> None:
         alone = {k: graph_ms(kern) for k, (kern, _) in calls.items()}
         alone["bn_apply_eval"] = graph_ms(lambda: NM.launch_forward(
             x, w, b, rm, rv, False, mom, eps, act, r, want_stats=False, y=y_buf))
+        alone["train_fwd"] = graph_ms(lambda: NM.launch_forward(
+            x, w, b, *scratch, True, mom, eps, act, r, y=y_buf, stats=st_buf))
+        alone["train_bwd"] = graph_ms(lambda: NM.launch_backward(
+            x, dy, w, st_p, True, eps, act, r, residual_grad=has_res, grads=gr_buf, dx=dx_buf,
+            d_res=dr_buf))
         nb = lambda *ts: nbytes(*(t for t in ts if t is not None))  # noqa: E731
         r_act = r if act != "identity" else None
         n = x.numel()
@@ -1958,10 +2074,30 @@ def main() -> None:
             "bn_bwd_reduce": bound(nb(x, dy, r_act), (5 + act_grad_ops[act]) * n)["bound_ms"],
             "bn_bwd_apply": bound(nb(x, dy, r_act, x, r_act if has_res else None),
                                   (6 + act_grad_ops[act]) * n)["bound_ms"],
+            "train_fwd": bound(nb(x, r, y_buf), (7 + act_ops[act]) * n)["bound_ms"],
+            "train_bwd": bound(nb(x, dy, r_act, x, r_act if has_res else None),
+                               (11 + 2 * act_grad_ops[act]) * n)["bound_ms"],
         }
+        # the library's yardstick: F.batch_norm(training=True) on the bf16
+        # tensor with the f32 parameters, then the activation (and the
+        # residual), forward and forward + backward by events
+        lx = (x.movedim(-1, 1) if layout else x.reshape(-1, Cn)).detach().requires_grad_(True)
+        lr_ = None if r is None else (r.movedim(-1, 1) if layout else r.reshape(-1, Cn))
+        lw, lb = w.clone().requires_grad_(True), b.clone().requires_grad_(True)
+        ldy = dy.movedim(-1, 1) if layout else dy.reshape(-1, Cn)
+
+        def lib16():
+            z = F.batch_norm(lx, scratch[0], scratch[1], lw, lb, training=True,
+                             momentum=1.0 - mom, eps=eps)
+            return lib_act[act](z if lr_ is None else z + lr_)
+
+        lib16_fwd = cuda_ms(lib16)
+        lib16_step = cuda_ms(lambda: lib16().backward(ldy))
         row = dict(shape=list(shape), act=act, residual=has_res, channel_first=bool(layout),
                    sites={p: count16[p].get(key, 0) for p in count16}, max_abs_err=err,
-                   device_ms=alone, bound_ms=bounds16)
+                   device_ms=alone, bound_ms=bounds16, paths=paths,
+                   library_ms=dict(train_fwd=lib16_fwd, train_bwd=lib16_step - lib16_fwd))
+        del lx, lr_, ldy
         if not rows16:  # the largest configuration: events and the plain versions
             row["stage_ms"] = {k: cuda_ms(kern) for k, (kern, _) in calls.items()}
             row["stage_plain_ms"] = {k: cuda_ms(plain) for k, (_, plain) in calls.items()}
@@ -1973,25 +2109,53 @@ def main() -> None:
         return sum(row["sites"][path] * get(row) for row in rows16)
 
     bn16_step = dict(
-        forward_ms=per_step16(lambda r_: r_["device_ms"]["bn_stats"] + r_["device_ms"]["bn_apply"]),
-        backward_ms=per_step16(lambda r_: r_["device_ms"]["bn_bwd_reduce"]
-                               + r_["device_ms"]["bn_bwd_apply"]),
+        forward_ms=per_step16(lambda r_: r_["device_ms"]["train_fwd"]),
+        backward_ms=per_step16(lambda r_: r_["device_ms"]["train_bwd"]),
+        stages_forward_ms=per_step16(lambda r_: r_["device_ms"]["bn_stats"]
+                                     + r_["device_ms"]["bn_apply"]),
+        stages_backward_ms=per_step16(lambda r_: r_["device_ms"]["bn_bwd_reduce"]
+                                      + r_["device_ms"]["bn_bwd_apply"]),
         eval_ms=per_step16(lambda r_: r_["device_ms"]["bn_apply_eval"], "eval"),
         forward_bound_ms=per_step16(lambda r_: r_["bound_ms"]["bn_stats"]
                                     + r_["bound_ms"]["bn_apply"]),
         backward_bound_ms=per_step16(lambda r_: r_["bound_ms"]["bn_bwd_reduce"]
                                      + r_["bound_ms"]["bn_bwd_apply"]),
+        forward_min_bound_ms=per_step16(lambda r_: r_["bound_ms"]["train_fwd"]),
+        backward_min_bound_ms=per_step16(lambda r_: r_["bound_ms"]["train_bwd"]),
         eval_bound_ms=per_step16(lambda r_: r_["bound_ms"]["bn_apply_eval"], "eval"),
-        configurations=len(rows16))
+        library_forward_ms=per_step16(lambda r_: r_["library_ms"]["train_fwd"]),
+        library_backward_ms=per_step16(lambda r_: r_["library_ms"]["train_bwd"]),
+        cluster_sites={d: sum(r_["sites"]["train"] for r_ in rows16
+                              if r_["paths"][d] == "cluster") for d in ("forward", "backward")},
+        launches_per_step=bn16_fused, configurations=len(rows16))
+    for r_ in rows16:
+        print(f"[13 kernel K5 bf16] {r_['shape']} {r_['act']}{' + residual' if r_['residual'] else ''}"
+              f"{' channel-first' if r_['channel_first'] else ''} x{r_['sites']['train']} train: "
+              f"paths {r_['paths']['forward']} / {r_['paths']['backward']}; alone forward "
+              f"{r_['device_ms']['train_fwd'] * 1e3:.2f} backward "
+              f"{r_['device_ms']['train_bwd'] * 1e3:.2f} us (stages N1-N4 "
+              f"{', '.join('%.2f' % (r_['device_ms'][k] * 1e3) for k in BN_KERNELS)}); bounds "
+              f"{(r_['bound_ms']['bn_stats'] + r_['bound_ms']['bn_apply']) * 1e3:.2f} / "
+              f"{(r_['bound_ms']['bn_bwd_reduce'] + r_['bound_ms']['bn_bwd_apply']) * 1e3:.2f}, "
+              f"one-launch {r_['bound_ms']['train_fwd'] * 1e3:.2f} / "
+              f"{r_['bound_ms']['train_bwd'] * 1e3:.2f} us; F.batch_norm + act "
+              f"{r_['library_ms']['train_fwd']:.3f} / {r_['library_ms']['train_bwd']:.3f} ms")
     print(f"[13 kernel K5 bf16] {len(rows16)} configurations (train sites "
           f"{sum(r_['sites']['train'] for r_ in rows16)}, eval "
-          f"{sum(r_['sites']['eval'] for r_ in rows16)}): N1-N4 against the plain bf16 "
-          f"versions (y within 1 bf16 spacing, dx and d_r relative L2 <= {BF16_DX_REL_L2}); per "
-          f"training step alone forward {bn16_step['forward_ms']:.3f} ms (bf16 bound "
-          f"{bn16_step['forward_bound_ms']:.3f}; f32 {bn_step['forward_ms']:.3f}), backward "
-          f"{bn16_step['backward_ms']:.3f} ms (bound {bn16_step['backward_bound_ms']:.3f}; f32 "
-          f"{bn_step['backward_ms']:.3f}); eval encode {bn16_step['eval_ms']:.3f} ms (bound "
-          f"{bn16_step['eval_bound_ms']:.3f}; f32 {bn_step['eval_ms']:.3f})")
+          f"{sum(r_['sites']['eval'] for r_ in rows16)}; the cluster path at "
+          f"{bn16_step['cluster_sites']} train sites, {bn16_fused} launches per step): N1-N4 "
+          f"and each direction as the step launches it against the plain bf16 versions (y "
+          f"within 1 bf16 spacing, dx and d_r relative L2 <= {BF16_DX_REL_L2}); per training "
+          f"step alone forward {bn16_step['forward_ms']:.3f} ms (bf16 bound "
+          f"{bn16_step['forward_bound_ms']:.3f}, one-launch {bn16_step['forward_min_bound_ms']:.3f}"
+          f"; stages one by one {bn16_step['stages_forward_ms']:.3f}; f32 "
+          f"{bn_step['forward_ms']:.3f}), backward {bn16_step['backward_ms']:.3f} ms (bound "
+          f"{bn16_step['backward_bound_ms']:.3f}, one-launch "
+          f"{bn16_step['backward_min_bound_ms']:.3f}; stages "
+          f"{bn16_step['stages_backward_ms']:.3f}; f32 {bn_step['backward_ms']:.3f}); eval "
+          f"encode {bn16_step['eval_ms']:.3f} ms (bound {bn16_step['eval_bound_ms']:.3f}; f32 "
+          f"{bn_step['eval_ms']:.3f}); F.batch_norm + act (bf16, events) "
+          f"{bn16_step['library_forward_ms']:.2f} / {bn16_step['library_backward_ms']:.2f} ms")
     main16 = rows16[0]
     for name in BN_KERNELS:
         b16[name] = dict(shape=main16["shape"], act=main16["act"], residual=main16["residual"],
@@ -1999,7 +2163,14 @@ def main() -> None:
                          ms=main16["stage_ms"][name], plain_ms=main16["stage_plain_ms"][name],
                          device_ms=main16["device_ms"][name], bound_ms=main16["bound_ms"][name],
                          bound_by="bytes", per_step=bn16_step if name == "bn_stats" else None,
-                         at_shapes=rows16 if name == "bn_stats" else None)
+                         library_ms=None, at_shapes=rows16 if name == "bn_stats" else None)
+    for name, d, key in (("bn_forward_fused", "forward", "train_fwd"),
+                         ("bn_backward_fused", "backward", "train_bwd")):
+        row = next(r_ for r_ in rows16 if r_["paths"][d] == "cluster" and r_["sites"]["train"])
+        b16[name] = dict(shape=row["shape"], act=row["act"], residual=row["residual"],
+                         max_abs_err=max(r_["max_abs_err"][name] for r_ in rows16),
+                         device_ms=row["device_ms"][key], bound_ms=row["bound_ms"][key],
+                         bound_by="bytes", library_ms=row["library_ms"][key])
     for name in b16:
         b16[name]["launches"] = train16_launches[f"{name}_bf16"]
         b16[name]["launches_by_path"] = {"serve": serve16_launches[f"{name}_bf16"],
@@ -2018,7 +2189,7 @@ def main() -> None:
         "tsdf_integrate": ("scenerf_tpu_torch/ops/csrc/tsdf.cu",
                            "scenerf_tpu/fusion/tsdf.py:44"),
         **{k: ("scenerf_tpu_torch/ops/csrc/norm.cu", "scenerf_tpu/encoder/norm.py:31")
-           for k in BN_KERNELS},
+           for k in BN_KERNELS + BN_FUSED},
     }
     # launches: on the training path, or for T the reconstruction path's
     main_launches = {**launches, "tsdf_integrate": recon_launches["tsdf_integrate"]}

@@ -31,11 +31,13 @@ LAUNCHES = {"gather_levels": 0, "gather_levels_bwd": 0, "sort_composite": 0,
             "sort_composite_bwd": 0, "ray_som": 0, "tsdf_integrate": 0,
             # of the ray_som launches, those inside kernel C's (training) launch
             "ray_som_in_sort_composite": 0,
-            # kernel K5 (batch norm + activation): N1-N4
-            "bn_stats": 0, "bn_apply": 0, "bn_bwd_reduce": 0, "bn_bwd_apply": 0}
+            # kernel K5 (batch norm + activation): N1-N4; of those, the one-launch
+            # cluster path's (counted under both its stages' keys too)
+            "bn_stats": 0, "bn_apply": 0, "bn_bwd_reduce": 0, "bn_bwd_apply": 0,
+            "bn_forward_fused": 0, "bn_backward_fused": 0}
 # of those launches, the ones of a bf16 instantiation (counted under both keys)
 BF16_KERNELS = ("gather_levels", "gather_levels_bwd", "bn_stats", "bn_apply", "bn_bwd_reduce",
-                "bn_bwd_apply")
+                "bn_bwd_apply", "bn_forward_fused", "bn_backward_fused")
 LAUNCHES.update({f"{k}_bf16": 0 for k in BF16_KERNELS})
 
 _lib = None
@@ -163,9 +165,10 @@ def library() -> ctypes.CDLL:
                                     vp, vp, vp, vp],
             "scenerf_tsdf_integrate_f32": [vp] * 7 + [i32] * 6 + [f32] * 6 + [i32, vp],
             "scenerf_bn_forward_f32": [vp, vp, vp, i64, i32, i64] + [vp] * 6
-                                      + [i64, f32, f32, f32, i32, i32, i32, vp],
+                                      + [i64, f32, f32, f32, i32, i32, i32]
+                                      + [i32, i32, i64, i64, vp],
             "scenerf_bn_backward_f32": [vp] * 5 + [i64, i32, i64] + [vp] * 4
-                                       + [i64, f32, i32, i32, i32, vp],
+                                       + [i64, f32, i32, i32, i32] + [i32, i32, i64, i64, vp],
             "scenerf_empty_launch": [i32, vp],
         }
         for name in ("gather_levels", "gather_levels_bwd", "bn_forward", "bn_backward"):
@@ -175,6 +178,8 @@ def library() -> ctypes.CDLL:
             fn = getattr(lib, name)
             fn.argtypes = argtypes
             fn.restype = i32
+        lib.scenerf_bn_work_floats.argtypes = [i64, i32, i64, i32, i32]
+        lib.scenerf_bn_work_floats.restype = i64
         lib.scenerf_error_string.argtypes = [i32]
         lib.scenerf_error_string.restype = ctypes.c_char_p
         _lib = lib

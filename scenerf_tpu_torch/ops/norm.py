@@ -31,6 +31,14 @@ is contiguous channel-last, or channel-first (a convolution's NCHW output
 seen as [B, H, W, C]: the eval encoder's stem gives one), and raise on any
 other layout rather than copy it; the outputs take the input's layout.
 
+`plan` picks each launch's path on the host, once per shape: a channel-last
+training site whose tiles fit in the shared memory of a thread-block
+cluster takes one launch per direction (N1 + N2, or N3 + N4, with the
+statistics reduced on chip; counted under both stages' keys and under
+`bn_forward_fused` / `bn_backward_fused`); every other launch takes the
+streaming kernels, a reduction that finalizes in its last block and then the
+elementwise pass. A launch the card refuses raises; nothing falls back.
+
 The stage functions `stats_plain`, `apply_plain`, `bwd_reduce_plain` and
 `bwd_apply_plain` are the plain versions of N1-N4 one by one (the same
 per-channel [5, C] statistics and [4, C] gradients the kernels pass on);
@@ -51,7 +59,8 @@ of the f32 result, and JAX's within a few.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import functools
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
@@ -64,7 +73,74 @@ LEAKY_SLOPE = 0.01
 MEAN, VAR_RAW, INV, MUL, ADD = range(5)
 # rows of the per-channel gradients [4, C] N3's finalize writes
 DWEIGHT, DBIAS, ALPHA, BETA = range(4)
-RED_BLOCKS = 528  # csrc/norm.cu kRedBlocks: a reduction's [RED_BLOCKS, 2C] partials
+
+# The cluster path's limits on an NVIDIA H100 (csrc/norm.cu refuses a plan
+# beyond what the card takes): 512 threads a block, 16 warps; a cluster of at
+# most 16 blocks (above 8 the non-portable size); 228 KB of shared memory an
+# SM with 1 KB reserved a block, so a block of at most 115,712 bytes leaves
+# room for a second one on its SM (227 KB the most one block may take).
+THREADS, WARPS = 512, 16
+CLUSTER_MAX = 16
+SMEM_PAIR = 115_712
+SMEM_BLOCK = 232_448
+SMS = 132              # the H100's SMs: a cluster plan grows to fill them
+SLICE_BYTES = 32       # a cluster's channel slice: one 32-byte sector of each row
+
+
+class Plan(NamedTuple):
+    """A launch's path: "cluster" (one launch a direction), "streaming" or
+    "channel-first"; for the cluster path its tiling: blocks a cluster
+    (`cluster`), packs of a channel slice (`sv`: 16-byte vectors, or single
+    channels on the scalar path), rows a block, shared memory a block
+    (bytes), channel slices (clusters in the grid)."""
+    path: str
+    cluster: int = 0
+    sv: int = 0
+    rows: int = 0
+    smem: int = 0
+    slices: int = 0
+
+
+def cluster_smem(rows: int, sv: int, pack_bytes: int, arrays: int, width: int) -> int:
+    """Shared memory of a cluster block (csrc/norm.cu `cluster_layout`):
+    `arrays` tiles of rows x sv packs, each rounded up to 16 bytes, then f32
+    sums [2, width] and warp sums [WARPS, 2, width] (which later hold the
+    coefficients)."""
+    tile = -(-rows * sv * pack_bytes // 16) * 16
+    return arrays * tile + (2 + 2 * WARPS) * width * 4
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(M: int, C: int, itemsize: int, vector: bool, direction: str, act: str,
+         residual: bool, channel_first: bool = False, smem_max: int = SMEM_PAIR) -> Plan:
+    """The path of a training launch of all its stages over [M, C] (x of
+    `itemsize` bytes an element; `vector`: 16-byte loads, C a multiple of
+    16 / itemsize and every pointer 16-byte aligned). The cluster path where
+    a slice's tiles fit in at most CLUSTER_MAX blocks of at most `smem_max`
+    bytes: x, and the residual, in the forward; x, dy and, where z needs it,
+    the residual in the backward. The cluster is the smallest that fits,
+    doubled while the grid has fewer blocks than SMs and each block keeps
+    two rows a thread."""
+    if channel_first:
+        return Plan("channel-first")
+    pack = 16 if vector else itemsize
+    vw = pack // itemsize
+    vectors = C // vw
+    sv = min(SLICE_BYTES // pack, 1 << (vectors - 1).bit_length())
+    slices = -(-vectors // sv)
+    if direction == "forward":
+        arrays = 1 + residual
+    else:
+        arrays = 2 + (residual and act != "identity")
+    smem = lambda cs: cluster_smem(-(-M // cs), sv, pack, arrays, sv * vw)  # noqa: E731
+    cs = 1
+    while cs <= CLUSTER_MAX and smem(cs) > smem_max:
+        cs *= 2
+    if cs > CLUSTER_MAX:
+        return Plan("streaming")
+    while slices * cs < SMS and cs < CLUSTER_MAX and -(-M // (2 * cs)) >= 2 * THREADS // sv:
+        cs *= 2
+    return Plan("cluster", cs, sv, -(-M // cs), smem(cs), slices)
 
 
 def activation(z: torch.Tensor, act: str) -> torch.Tensor:
@@ -213,22 +289,60 @@ def kink_ties(x: torch.Tensor, stats: torch.Tensor, act: str,
 
 # ---------------------------------------------------------------- kernels
 
-_work = {}  # (device index, stream) -> f32 scratch of the reductions' partials
+_work = {}  # (device index, stream) -> f32 scratch of the streaming reductions
 cotangent_copies = 0  # backward launches whose cotangent was not contiguous
 
 
-def _workspace(device: torch.device, stream: int, C: int) -> torch.Tensor:
-    """The reductions' scratch for C channels, reused by every launch on one
-    stream (launches on a stream run in order, so one buffer serves them)."""
+def _workspace(device: torch.device, stream: int, need: int) -> torch.Tensor:
+    """The streaming reductions' scratch of at least `need` floats (the
+    library's `scenerf_bn_work_floats`: tickets, then partials), reused by
+    every launch on one stream (launches on a stream run in order, so one
+    buffer serves them). Zeroed when allocated: each launch leaves its
+    tickets at 0."""
     key = (device.index, stream)
-    need = 2 * RED_BLOCKS * C
     buf = _work.get(key)
     if buf is None or buf.numel() < need:
-        buf = torch.empty(need, dtype=torch.float32, device=device)
+        buf = torch.zeros(need, dtype=torch.float32, device=device)
         _work[key] = buf
         while len(_work) > 4:  # streams come and go (CUDA graph captures): keep the newest
             del _work[next(iter(_work))]
     return buf
+
+
+def _vector(x: torch.Tensor, layout: Optional[int], *tensors: Optional[torch.Tensor]) -> bool:
+    """The kernels' 16-byte loads: channel-last, C a multiple of the vector
+    width and every pointer 16-byte aligned."""
+    return (not layout and x.shape[-1] % (16 // x.element_size()) == 0
+            and all(t is None or t.data_ptr() % 16 == 0 for t in (x, *tensors)))
+
+
+def launch_path(x: torch.Tensor, direction: str, act: str,
+                residual: Optional[torch.Tensor] = None, training: bool = True,
+                stages: int = 3, *outputs: Optional[torch.Tensor]) -> Plan:
+    """The path a launch over x takes (`plan` for a training launch of both
+    stages; the streaming or channel-first kernels else); `outputs` (y, or
+    dy, dx, d_residual) count for the vector loads' alignment."""
+    layout = plane(x)
+    if not training or stages != 3:
+        return Plan("channel-first" if layout else "streaming")
+    return plan(x.numel() // x.shape[-1], x.shape[-1], x.element_size(),
+                _vector(x, layout, residual, *outputs), direction, act, residual is not None,
+                bool(layout))
+
+
+def _plan_args(p: Plan) -> tuple:
+    """The entries' cluster, sv, rows and smem arguments (0: streaming)."""
+    if p.path != "cluster":
+        return 0, 0, 0, 0
+    return p.cluster, p.sv, p.rows, p.smem
+
+
+def _work_for(x: torch.Tensor, layout: int, vector: bool, stream: int) -> torch.Tensor:
+    need = build.library().scenerf_bn_work_floats(x.numel() // x.shape[-1], x.shape[-1],
+                                                  layout, x.element_size(), int(vector))
+    if need < 0:
+        raise ValueError(f"batch_norm_act kernel: no workspace for {tuple(x.shape)}")
+    return _workspace(x.device, stream, need)
 
 
 def plane(t: torch.Tensor) -> Optional[int]:
@@ -277,10 +391,11 @@ def launch_forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                    momentum: float, eps: float, act: str,
                    residual: Optional[torch.Tensor] = None, want_stats: bool = True,
                    stages: int = 3, y: Optional[torch.Tensor] = None,
-                   stats: Optional[torch.Tensor] = None):
+                   stats: Optional[torch.Tensor] = None, path: Optional[Plan] = None):
     """Launch N1 (training, stage bit 0) and N2 (stage bit 1): (y, stats),
     stats [5, C] None in eval mode unless `want_stats`. `y` and `stats` may
-    be given (a later stage reuses an earlier one's)."""
+    be given (a later stage reuses an earlier one's); `path` overrides
+    `plan`'s choice."""
     layout = _check(x, residual, weight, bias, running_mean, running_var)
     C = x.shape[-1]
     dev = x.device
@@ -289,18 +404,23 @@ def launch_forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
         y = torch.empty_like(x)
     if stats is None and (training or want_stats):
         stats = torch.empty((5, C), dtype=torch.float32, device=dev)
-    work = _workspace(dev, stream, C)
+    vector = _vector(x, layout, residual, y)
+    p = path or launch_path(x, "forward", act, residual, training, stages, y)
+    work = (_work_for(x, layout, vector, stream)
+            if p.path != "cluster" and training and stages & 1 else None)
     status = _entry(x, "forward")(
         x.data_ptr(), build.ptr(residual), y.data_ptr(), x.numel() // C, C, layout,
         weight.data_ptr(),
         bias.data_ptr(), running_mean.data_ptr(), running_var.data_ptr(), build.ptr(stats),
-        work.data_ptr(), work.numel(), momentum, 1.0 - momentum, eps, ACTS.index(act),
-        int(training), stages, stream)
+        build.ptr(work), 0 if work is None else work.numel(), momentum, 1.0 - momentum, eps,
+        ACTS.index(act), int(training), stages, *_plan_args(p), stream)
     build.check(status, "batch_norm_act forward")
     if training and stages & 1:
         build.count_launch("bn_stats", x.dtype)
     if stages & 2:
         build.count_launch("bn_apply", x.dtype)
+    if p.path == "cluster":
+        build.count_launch("bn_forward_fused", x.dtype)
     return y, stats
 
 
@@ -308,12 +428,13 @@ def launch_backward(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor,
                     stats: torch.Tensor, training: bool, eps: float, act: str,
                     residual: Optional[torch.Tensor] = None, residual_grad: bool = False,
                     stages: int = 3, grads: Optional[torch.Tensor] = None,
-                    dx: Optional[torch.Tensor] = None, d_res: Optional[torch.Tensor] = None):
+                    dx: Optional[torch.Tensor] = None, d_res: Optional[torch.Tensor] = None,
+                    path: Optional[Plan] = None):
     """Launch N3 (stage bit 0) and N4 (stage bit 1) for the cotangent dy:
     (dx, grads [4, C], d_residual). d_residual is None unless
     `residual_grad`; with the identity it is dy itself (no pass writes it).
     `grads`, `dx` and `d_res` may be given (a later stage reuses an earlier
-    one's grads)."""
+    one's grads); `path` overrides `plan`'s choice."""
     C = x.shape[-1]
     dev = x.device
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != dev:
@@ -339,17 +460,22 @@ def launch_backward(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor,
     elif d_res is None:
         d_res = torch.empty_like(x)
     write_res = d_res is not None and act != "identity"
-    work = _workspace(dev, stream, C)
+    dres_out = d_res if write_res else None
+    vector = _vector(x, layout, residual, dy, dx, dres_out)
+    p = path or launch_path(x, "backward", act, residual, True, stages, dy, dx, dres_out)
+    work = _work_for(x, layout, vector, stream) if p.path != "cluster" and stages & 1 else None
     status = _entry(x, "backward")(
-        x.data_ptr(), build.ptr(residual), dy.data_ptr(), dx.data_ptr(),
-        d_res.data_ptr() if write_res else None, x.numel() // C, C, layout, weight.data_ptr(),
-        stats.data_ptr(), grads.data_ptr(), work.data_ptr(), work.numel(), eps,
-        ACTS.index(act), int(training), stages, stream)
+        x.data_ptr(), build.ptr(residual), dy.data_ptr(), dx.data_ptr(), build.ptr(dres_out),
+        x.numel() // C, C, layout, weight.data_ptr(), stats.data_ptr(), grads.data_ptr(),
+        build.ptr(work), 0 if work is None else work.numel(), eps, ACTS.index(act),
+        int(training), stages, *_plan_args(p), stream)
     build.check(status, "batch_norm_act backward")
     if stages & 1:
         build.count_launch("bn_bwd_reduce", x.dtype)
     if stages & 2:
         build.count_launch("bn_bwd_apply", x.dtype)
+    if p.path == "cluster":
+        build.count_launch("bn_backward_fused", x.dtype)
     return dx, grads, d_res
 
 

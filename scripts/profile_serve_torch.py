@@ -132,8 +132,8 @@ def main() -> None:
     port_ms, port_n = defaultdict(float), defaultdict(int)
     for e in events:
         m = re.search(r"(gather_levels(?:_bwd)?|sort_composite(?:_bwd)?|ray_som|bn_stats"
-                      r"|bn_apply|bn_bwd_reduce|bn_bwd_apply|bn_stats_finalize"
-                      r"|bn_bwd_finalize)(?:_runs)?_kernel", e.name)
+                      r"|bn_apply|bn_bwd_reduce|bn_bwd_apply|bn_forward_cluster"
+                      r"|bn_backward_cluster)(?:_runs)?_kernel", e.name)
         if m:
             port_ms[m.group(1)] += e.device_time / 1e3
             port_n[m.group(1)] += 1

@@ -8,7 +8,8 @@ functions they replace (on the CPU the wrappers dispatch to them):
   atol=1e-6.
 * kernel C, `ops.composite.sort_composite`: samples in a random order go to
   the port and in sorted order to JAX's `sort_samples_by_distance` +
-  `composite`; rtol=1e-5 on the outputs, argmin indices equal.
+  `composite`; rtol=1e-5 on the outputs, argmin indices equal, and
+  `closest_pts_to_depth` within CLOSEST_ULPS f32 spacings of its operands.
 """
 import jax
 import jax.numpy as jnp
@@ -32,6 +33,11 @@ from scenerf_tpu_torch.ops.gather import gather_levels, gather_levels_plain
 torch.set_num_threads(1)
 HYP = settings(max_examples=8, deadline=None, derandomize=True, database=None)
 # shapes come from small sets: each new shape costs JAX compiles
+# closest_pts_to_depth = |depth - sample| cancels: the two sides' depths (sums
+# of 64 products in another order) differ by up to 7 f32 spacings of depth
+# over 2,400 draws of `_samples`, and the difference keeps that absolute
+# error, which at tens of metres is more than rtol 1e-5 of a small result
+CLOSEST_ULPS = 16
 
 
 def _jax_pyramid(levels, sphere, coords):
@@ -128,9 +134,40 @@ def test_sort_composite_matches_sort_then_composite(R_, pts, clamp_ties, seed):
     sd, dv, density, rgb = _samples(rng, R_, n_uni, n_g, clamp_ties)
     got = sort_composite(_t(sd), _t(dv), _t(density), _t(rgb))
     want = _jax_sort_composite(*map(jnp.asarray, (sd, dv, density, rgb)))
-    for k in ("depth", "color", "alphas", "weights", "weights_at_depth",
-              "closest_pts_to_depth", "depth_volume"):
+    for k in ("depth", "color", "alphas", "weights", "weights_at_depth", "depth_volume"):
         np.testing.assert_allclose(got[k].numpy(), np.asarray(want[k]), rtol=1e-5,
                                    atol=1e-6, err_msg=k)
     for k in ("sensor_distance", "closest_idx"):
         np.testing.assert_array_equal(got[k].numpy(), np.asarray(want[k]), err_msg=k)
+    assert _closest_ok(got["closest_pts_to_depth"].numpy(), want).all()
+
+
+def _closest_ok(got_closest, want, idx=None):
+    """Per ray: `got_closest` within CLOSEST_ULPS f32 spacings of the larger
+    operand (|depth|, |sample|) of JAX's |depth - sample| at `idx` (JAX's
+    closest_idx by default)."""
+    idx = np.asarray(want["closest_idx"]) if idx is None else idx
+    depth = np.asarray(want["depth"])
+    sample = np.take_along_axis(np.asarray(want["depth_volume"]), idx[:, None], 1)[:, 0]
+    spacing = np.spacing(np.maximum(np.abs(depth), np.abs(sample)))
+    return np.abs(got_closest - np.abs(depth - sample)) <= CLOSEST_ULPS * spacing
+
+
+def test_closest_pts_check_rejects_a_one_sample_shift():
+    """The spacing tolerance of closest_pts_to_depth accepts the port's value
+    where rtol 1e-5 did not (R_=64, pts=(32, 32), clamp_ties, seed 1: one ray
+    1.9e-6 off, 4 spacings of its depth), and fails every ray whose
+    closest_idx is moved by one sample to a sample of another distance."""
+    rng = np.random.default_rng(1)
+    sd, dv, density, rgb = _samples(rng, 64, 32, 32, True)
+    got = sort_composite(_t(sd), _t(dv), _t(density), _t(rgb))
+    want = _jax_sort_composite(*map(jnp.asarray, (sd, dv, density, rgb)))
+    closest = got["closest_pts_to_depth"].numpy()
+    assert _closest_ok(closest, want).all()
+    idx = np.asarray(want["closest_idx"])
+    shifted = np.where(idx + 1 < sd.shape[1], idx + 1, idx - 1)
+    s_dv = np.asarray(want["depth_volume"])
+    moved = (np.take_along_axis(s_dv, shifted[:, None], 1)
+             != np.take_along_axis(s_dv, idx[:, None], 1))[:, 0]
+    assert moved.sum() >= 60
+    assert not _closest_ok(closest, want, shifted)[moved].any()

@@ -815,6 +815,202 @@ def test_bn_kernels_channel_first_match_plain(dev, shape, act, training):
     _bn_check(got, want, x, dy, w, var, 1e-5, f"channel-first {shape} {act}")
 
 
+# ---------------------------------------------------------------- K5's two paths
+
+
+def _boundary_m(C, itemsize, direction, act, res):
+    """The largest M whose launch `N.plan` puts on the cluster path (the next
+    M takes the streaming path)."""
+    lo, hi = 1, 1 << 22
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        vector = C % (16 // itemsize) == 0
+        if N.plan(mid, C, itemsize, vector, direction, act, res).path == "cluster":
+            lo = mid
+        else:
+            hi = mid
+    return lo
+
+
+def _both_paths(x, w, b, rm, rv, r, dy, act, path=None):
+    """The forward (stages 3) and the backward (stages 3, on the plain
+    statistics) through the wrappers on `path` (None: `N.plan`'s), against
+    the plain stages: the statistics and running statistics at rtol 1e-5;
+    y against the plain apply on the launch's own statistics (f32 rtol 1e-5,
+    bf16 within one bf16 spacing); the gradients at relative L2 <= 1e-4 and
+    dx, d_residual (against the plain apply on the launch's own gradients)
+    at 1e-4 in f32, BF16_DX_REL_L2 in bf16. Returns the launch counts and
+    the outputs."""
+    mom, eps = 0.9, 1e-5
+    build.reset_launch_counts()
+    run = [rm.clone(), rv.clone()]
+    y, st = N.launch_forward(x, w, b, *run, True, mom, eps, act, r, path=path)
+    rp = [rm.clone(), rv.clone()]
+    st_p = N.stats_plain(x, w, b, *rp, mom, eps)
+    dx, gr, d_r = N.launch_backward(x, dy, w, st_p, True, eps, act, r,
+                                    residual_grad=r is not None, path=path)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    # channel 0 is constant: the kernels' mean is exact (s / M in f64), so
+    # mean2 - mean^2 ties at 0 exactly; torch's CUDA mean multiplies by a
+    # rounded 1 / M and may miss 0.5 by a spacing, which moves rsqrt(var + eps)
+    # by 1e-3 relative there: channel 0 is held to the exact tie instead
+    assert float(st[N.VAR_RAW, 0]) == 0.0 and float(st[N.MEAN, 0]) == 0.5
+    torch.testing.assert_close(st[N.INV, 0], torch.tensor(eps, device=x.device) ** -0.5,
+                               rtol=2.5e-7, atol=0)
+    assert torch.equal(st[N.MUL, 0], w[0] * st[N.INV, 0])
+    assert torch.equal(st[N.ADD, 0], b[0] - st[N.MEAN, 0] * st[N.MUL, 0])
+    for a, b_ in [(st[i, 1:], st_p[i, 1:]) for i in range(5)] + [(st[N.MEAN], st_p[N.MEAN]),
+                                                                 (run[0], rp[0]),
+                                                                 (run[1], rp[1])]:
+        torch.testing.assert_close(a, b_, rtol=1e-5, atol=1e-6 * float(b_.abs().max()))
+    y_p = N.apply_plain(x, st, act, r)
+    if x.dtype == torch.float32:
+        torch.testing.assert_close(y, y_p, rtol=1e-5, atol=1e-6 * float(y_p.abs().max()))
+    else:
+        torch.testing.assert_close(y.float(), y_p.float(), rtol=2.0 ** -7,
+                                   atol=1e-6 * float(y_p.float().abs().max()))
+    gr_p = N.bwd_reduce_plain(x, dy, st_p, w, eps, act, True, r)
+    # with one row x is its own mean: dweight and dx are 0 up to rounding,
+    # held (as _bn_check holds them) against the scale of their terms; alpha
+    # and beta carry that rounding residue of sum g x - mean sum g times
+    # rsqrt(var + eps) / (var + eps) at var = 0 (3e7 at eps 1e-5): there
+    # they are held through dx, which the plain apply takes from them
+    one_row = x.numel() == x.shape[-1]
+    scale = float(dy.float().norm()) * float(st_p[N.INV].max()) * float(w.abs().max())
+    rows = (N.DWEIGHT, N.DBIAS) if one_row else range(4)
+    for i in rows:
+        floor = scale * (float(x.float().norm()) + 1.0) if one_row and i == N.DWEIGHT else \
+            1e-6 * float(gr_p.abs().max())
+        err = _rel_l2(gr[i], gr_p[i], floor)
+        assert err <= BN_REL_L2, (i, err)
+    assert bool(torch.isfinite(gr).all())
+    dx_p, dr_p = N.bwd_apply_plain(x, dy, st_p, gr, act, r)
+    lim = BN_REL_L2 if x.dtype == torch.float32 else BF16_DX_REL_L2
+    for a, b_, floor in ((dx, dx_p, scale if one_row else 1e-30),
+                         (d_r, dr_p if r is not None else None, 1e-30)):
+        if b_ is not None:
+            assert _rel_l2(a.float(), b_.float(), floor) <= lim
+    return launches, (y, st, gr, dx, d_r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("direction,act,res", [("forward", "silu", False),
+                                               ("forward", "leaky", True),
+                                               ("backward", "silu", False),
+                                               ("backward", "leaky", True)])
+def test_bn_paths_at_their_boundary(dev, dtype, direction, act, res):
+    """The largest M of a 288-channel site on the cluster path (one launch a
+    direction: `bn_*_fused` counted) and the next M, which takes the
+    streaming path (a reduction finalizing in its last block, then the
+    apply), both against the plain versions."""
+    C = 288
+    itemsize = torch.empty(0, dtype=dtype).element_size()
+    m = _boundary_m(C, itemsize, direction, act, res)
+    fused = "bn_forward_fused" if direction == "forward" else "bn_backward_fused"
+    for M, want in ((m, 1), (m + 1, 0)):
+        x, w, b, rm, rv, r, dy = _bn_inputs(dev, M, C, res)
+        x, r, dy = (None if t is None else t.to(dtype) for t in (x, r, dy))
+        launches, _ = _both_paths(x, w, b, rm, rv, r, dy, act)
+        assert launches[fused] == want, (M, launches)
+        assert (launches["bn_stats"], launches["bn_apply"], launches["bn_bwd_reduce"],
+                launches["bn_bwd_apply"]) == (1, 1, 1, 1), launches
+
+
+@pytest.mark.parametrize("path", ["plan", "streaming"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("res", [False, True])
+@pytest.mark.parametrize("act", ["identity", "silu", "leaky"])
+@pytest.mark.parametrize("M,C,offset", [(1, 80, 0), (7, 3, 0), (1000, 2, 0), (300, 12, 0),
+                                        (2501, 80, 1), (468, 3840, 0), (7191, 480, 0)])
+def test_bn_paths_edge_shapes(dev, M, C, offset, act, res, dtype, path):
+    """Both paths (the plan's, which is the cluster path at these sizes, and
+    the streaming path forced) at the edge shapes: one row, C = 2 and 3 (the
+    scalar path), C not a multiple of the vector width in bf16 (12), a base
+    one element off 16 bytes (scalar loads), the /32 and /8 sites; channel 0
+    constant (the variance tie)."""
+    x, w, b, rm, rv, r, dy = _bn_inputs(dev, M, C, res, seed=7)
+    views = []
+    for t in (x, r, dy):
+        if t is None:
+            views.append(None)
+            continue
+        buf = torch.empty(M * C + offset, device=dev, dtype=dtype)
+        v = buf[offset:].view(M, C)
+        v.copy_(t)
+        views.append(v)
+    x, r, dy = views
+    p = N.Plan("streaming") if path == "streaming" else None
+    launches, _ = _both_paths(x, w, b, rm, rv, r, dy, act, p)
+    itemsize = x.element_size()
+    vector = C % (16 // itemsize) == 0 and offset == 0
+    want = N.plan(M, C, itemsize, vector, "forward", act, res).path == "cluster" and p is None
+    assert launches["bn_forward_fused"] == int(want), launches
+
+
+@pytest.mark.parametrize("M,C", [(1848, 1344), (28365, 48), (678000, 80)])
+def test_bn_paths_deterministic_and_graph_replay(dev, M, C):
+    """The statistics, gradients and outputs bit-equal across two eager runs
+    and three replays of one CUDA graph of a forward + backward (bf16,
+    leaky + residual); the streaming reductions' tickets back at 0 after
+    the replays."""
+    x, w, b, rm, rv, r, dy = _bn_inputs(dev, M, C, True, seed=9)
+    x, r, dy = (t.to(torch.bfloat16) for t in (x, r, dy))
+    st_p = N.stats_plain(x, w, b, rm.clone(), rv.clone(), 0.9, 1e-5)
+
+    def step():
+        y, st = N.launch_forward(x, w, b, rm.clone(), rv.clone(), True, 0.9, 1e-5, "leaky", r)
+        dx, gr, d_r = N.launch_backward(x, dy, w, st_p, True, 1e-5, "leaky", r,
+                                        residual_grad=True)
+        return [y, st, dx, gr, d_r]
+
+    first, second = step(), step()
+    torch.cuda.synchronize()
+    for a, b_ in zip(first, second):
+        assert torch.equal(a, b_)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        step()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        outs = step()
+    for _ in range(3):
+        graph.replay()
+        torch.cuda.synchronize()
+        for a, b_ in zip(outs, first):
+            assert torch.equal(a, b_)
+    for buf in N._work.values():
+        assert int(buf[:256].view(torch.int32).count_nonzero()) == 0
+
+
+def test_bn_cluster_plan_refused_raises(dev):
+    """A cluster tiling the kernels or the card refuse raises (nothing falls
+    back): more than 16 blocks a cluster, shared memory other than the
+    kernel's layout, more shared memory than a block may have, too few rows
+    for M, a cluster plan for a stage launched alone."""
+    M, C = 1000, 80
+    x, w, b, rm, rv, r, dy = _bn_inputs(dev, M, C, False)
+    good = N.plan(M, C, 4, True, "forward", "silu", False)
+    assert good.path == "cluster"
+    bad = [good._replace(cluster=32, rows=-(-M // 32)),
+           good._replace(smem=good.smem + 16),
+           good._replace(rows=good.rows // 2)]
+    for p in bad:
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            N.launch_forward(x, w, b, rm.clone(), rv.clone(), True, 0.9, 1e-5, "silu", path=p)
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        N.launch_forward(x, w, b, rm.clone(), rv.clone(), True, 0.9, 1e-5, "silu", stages=1,
+                         path=good)
+    big = x.repeat(200, 1)
+    huge = good._replace(cluster=1, rows=big.shape[0],
+                         smem=N.cluster_smem(big.shape[0], good.sv, 16, 1, good.sv * 4))
+    assert huge.smem > N.SMEM_BLOCK
+    with pytest.raises(RuntimeError, match="CUDA error"):
+        N.launch_forward(big, w, b, rm.clone(), rv.clone(), True, 0.9, 1e-5, "silu", path=huge)
+
+
 # ---------------------------------------------------------------- bf16 instantiations
 
 BF16 = torch.bfloat16
