@@ -228,6 +228,47 @@ def nbytes(*tensors) -> int:
     return sum(t.numel() * t.element_size() for t in tensors)
 
 
+def k5_path_hooks(model, paths: dict) -> list:
+    """Hooks on every FusedBatchNorm of `model` that record the path
+    (`NM.launch_path`) each training launch of K5 takes: paths["forward"] as
+    the forward launches it, paths["backward"] from the cotangent autograd
+    hands the backward (one of another layout is copied into x's, as
+    `launch_backward` copies it)."""
+    import torch
+
+    from scenerf_tpu_torch.encoder.norm import FusedBatchNorm
+    from scenerf_tpu_torch.ops import norm as NM
+
+    def record(mod, args, kwargs, out):
+        x_in = args[0]
+        res_in = args[1] if len(args) > 1 else kwargs.get("residual")
+        paths["forward"].append(NM.launch_path(x_in, "forward", mod.act, res_in).path)
+        if out.requires_grad:
+            def on_cotangent(dy):
+                if NM.plane(dy) != NM.plane(x_in):
+                    dy = torch.empty_like(x_in)
+                paths["backward"].append(
+                    NM.launch_path(x_in, "backward", mod.act, res_in, True, 3, dy).path)
+
+            out.register_hook(on_cotangent)
+
+    return [m.register_forward_hook(record, with_kwargs=True)
+            for m in model.modules() if isinstance(m, FusedBatchNorm)]
+
+
+def k5_fused_check(launches: dict, paths: dict, suffix: str = "") -> dict:
+    """K5's one-launch counts per training step (`launches` over TRAIN_STEPS
+    steps) held to the sites `k5_path_hooks` saw take the cluster path in
+    one step, in each direction; the per-step counts."""
+    fused = {k: launches[k + suffix] / TRAIN_STEPS for k in BN_FUSED}
+    plan = {k: paths[d].count("cluster") for k, d in zip(BN_FUSED, ("forward", "backward"))}
+    if [len(paths[d]) for d in ("forward", "backward")] != [BN_SITES] * 2 or fused != plan \
+            or min(plan.values()) < 1:
+        fail(f"train{suffix}: K5 one-launch (cluster) launches per step {fused}; the plan puts "
+             f"{plan} of {[len(paths[d]) for d in ('forward', 'backward')]} sites there")
+    return fused
+
+
 def adamw_first_move(params, start_state, grads, lr: float):
     """The first AdamW step (zero weight decay) moves each weight by -lr g /
     (|g| + eps): per parameter, the largest excess of the move's distance
@@ -498,7 +539,7 @@ def main() -> None:
     # (NM.plane: 0 channel-last, > 0 channel-first, None neither) and its
     # activation and residual (kernel K5's launch configurations)
     bn_sites = {"eval": [], "train": []}
-    train_fwd_paths = []  # the path each training site's forward takes (NM.launch_path)
+    k5_paths = {"forward": [], "backward": []}  # each training site's K5 paths (step 0)
 
     def site_hooks(path: str) -> list:
         def record_site(mod, args, kwargs):
@@ -506,8 +547,6 @@ def main() -> None:
             res_in = args[1] if len(args) > 1 else kwargs.get("residual")
             bn_sites[path].append((tuple(x_in.shape), mod.act, res_in is not None, mod.eps,
                                    mod.momentum, NM.plane(x_in)))
-            if path == "train":
-                train_fwd_paths.append(NM.launch_path(x_in, "forward", mod.act, res_in).path)
 
         return [m.register_forward_pre_hook(record_site, with_kwargs=True)
                 for m in model.modules() if isinstance(m, FusedBatchNorm)]
@@ -975,7 +1014,8 @@ def main() -> None:
     build.reset_launch_counts()
     NM.cotangent_copies = 0
     for i in range(TRAIN_STEPS):
-        hooks = site_hooks("train") if i == 0 else []  # step 0's layouts; not timed warm
+        # step 0's layouts and K5 paths; not timed warm
+        hooks = site_hooks("train") + k5_path_hooks(model, k5_paths) if i == 0 else []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         metrics = trainer.train_step(batch, noise=noises[i])
@@ -1019,14 +1059,8 @@ def main() -> None:
     if bn_train != [BN_SITES * TRAIN_STEPS] * 4:
         fail(f"train: K5 launches {dict(zip(BN_KERNELS, bn_train))} in {TRAIN_STEPS} steps; "
              f"expected {BN_SITES} of each per step")
-    # the sites whose forward takes the one-launch cluster path (N1 and N2
-    # in one launch; the backward's N3 and N4 too where its tiles fit)
-    fused_fwd = train_fwd_paths.count("cluster")
-    bn_fused = {k: launches[k] / TRAIN_STEPS for k in BN_FUSED}
-    if not (bn_fused["bn_forward_fused"] == fused_fwd >= 1
-            and 1 <= bn_fused["bn_backward_fused"] <= BN_SITES):
-        fail(f"train: K5 cluster launches per step {bn_fused}; expected {fused_fwd} forward "
-             f"(the plan's) and 1 to {BN_SITES} backward")
+    # one launch (N1 + N2, N3 + N4) at each site the plan puts on the cluster path
+    bn_fused = k5_fused_check(launches, k5_paths)
     k5_per_step = sum(2 * BN_SITES - bn_fused[k] for k in BN_FUSED)
     bn_copies = NM.cotangent_copies
     # a conv bias that feeds a train-mode batch norm is subtracted again: zero gradient
@@ -1827,10 +1861,11 @@ def main() -> None:
     params16 = dict(model16.named_parameters())
     seen16 = {n: False for n in params16}
     step16_ms, losses16 = [], []
+    k5_paths16 = {"forward": [], "backward": []}  # each site's K5 paths (step 0)
     torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
     for i in range(TRAIN_STEPS):
-        hooks16 = site_hooks16("train") if i == 0 else []
+        hooks16 = site_hooks16("train") + k5_path_hooks(model16, k5_paths16) if i == 0 else []
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         metrics16 = trainer16.train_step(batch16, noise=noises16[i])
@@ -1859,9 +1894,7 @@ def main() -> None:
     train16_peak = torch.cuda.max_memory_allocated()
     launches16_per_step = {k: train16_launches[k] / TRAIN_STEPS for k in train16_launches}
     bn16 = [train16_launches[f"{k}_bf16"] for k in BN_KERNELS]
-    bn16_fused = {k: train16_launches[f"{k}_bf16"] / TRAIN_STEPS for k in BN_FUSED}
-    if not all(1 <= v <= BN_SITES for v in bn16_fused.values()):
-        fail(f"train bf16: K5 cluster launches per step {bn16_fused}")
+    bn16_fused = k5_fused_check(train16_launches, k5_paths16, "_bf16")
     if bn16 != [BN_SITES * TRAIN_STEPS] * 4 or [train16_launches[k] for k in BN_KERNELS] != bn16:
         fail(f"bf16 train: K5 launches {train16_launches}; expected {BN_SITES} bf16 launches "
              f"of each of N1-N4 per step")

@@ -100,13 +100,19 @@ namespace {
 constexpr int kThreads = 256;       // threads per block of the streaming kernels (at most)
 constexpr int kClusterThreads = 512;  // threads per block of the cluster kernels
 constexpr int kClusterWarps = kClusterThreads / kWarpSize;
+constexpr int kSMs = 132;           // an H100's SMs
 constexpr int kRedBlocks = 528;     // most blocks of a streaming reduction: 4 per SM
 constexpr int kPartialBytes = 128;  // a streaming reduction: a block per 128 bytes of a channel at most
 constexpr int kRedColumn = 32;      // channels of a streaming reduction's column of blocks
 constexpr int kWideRow = 128;       // N3 over at most this many channels: whole rows
+constexpr int64_t kWideBytes = 64 << 20;  // whole-row N3 over x this large: kRedBlocks blocks
 constexpr int kApplyBlocks = 1056;  // most blocks of an elementwise pass (N2, N4)
 constexpr int kUnroll = 4;          // rows in flight per thread
-constexpr int kTickets = 256;       // the workspace's head: one ticket per column of blocks
+constexpr int kMaxChannels = 65535;  // the widest C an entry takes
+// the workspace's head: a ticket for each column of blocks of the widest C
+// (a fixed size, so that no launch's partials overlap another's tickets in a
+// shared workspace), rounded up to 256 bytes
+constexpr int kTickets = ((kMaxChannels + kRedColumn - 1) / kRedColumn + 63) / 64 * 64;
 constexpr int kMaxCluster = 16;     // blocks of a cluster (above 8: non-portable)
 constexpr float kLeakySlope = 0.01f;
 
@@ -124,11 +130,18 @@ struct Tile {
   int gx;      // blocks along the rows
 };
 
-Tile make_tile(int64_t M, int C, int vw, int max_blocks, int max_tw = kThreads) {
+// a row in tiles of at most kThreads vectors, balanced; or (column > 0) in
+// columns of `column` vectors, the last one narrower
+Tile make_tile(int64_t M, int C, int vw, int max_blocks, int column = 0) {
   Tile t;
   t.V = C / vw;
-  t.gy = (t.V + max_tw - 1) / max_tw;
-  t.TW = (t.V + t.gy - 1) / t.gy;
+  if (column > 0) {
+    t.TW = min(column, t.V);
+    t.gy = (t.V + t.TW - 1) / t.TW;
+  } else {
+    t.gy = (t.V + kThreads - 1) / kThreads;
+    t.TW = (t.V + t.gy - 1) / t.gy;
+  }
   t.RB = kThreads / t.TW;
   const int64_t row_blocks = (M + t.RB - 1) / t.RB;
   const int64_t cap = max_blocks / t.gy > 0 ? max_blocks / t.gy : 1;
@@ -445,8 +458,7 @@ __device__ __forceinline__ void finalize_columns(const float* __restrict__ parti
 // whole rows on the vector path): lane l of a quad takes rows l, l + lanes,
 // ... as float4 loads, 8 in flight, so the last block reads the partials at
 // a few rows a lane; the sums are f64 and the lanes add in order, as above.
-// It raises the kernel's registers (~80), so only the whole-row N3, at half
-// the blocks, takes it; the 32-channel columns keep the scalar finalize.
+// The whole-row N3 takes it, the 32-channel columns the scalar finalize.
 template <typename Fin>
 __device__ __forceinline__ void finalize_columns4(const float* __restrict__ partials, int gx,
                                                   int C, int c0, int c1, const Fin& fin) {
@@ -614,9 +626,10 @@ __device__ __forceinline__ void grad_at(const T* __restrict__ x, const T* __rest
   grad_of<VW, ACT, RES && ACT != kIdentity>(xv, rv, mul, add, g);
 }
 
-// N3: partial sums of g and g x, the last block of a column finalizing it
+// N3: partial sums of g and g x, the last block of a column finalizing it;
+// at most 64 registers (4 blocks an SM), so kRedBlocks blocks run in one wave
 template <typename T, int VW, int ACT, bool RES, bool WIDE>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, kRedBlocks / kSMs)
 bn_bwd_reduce_kernel(const T* __restrict__ x, const T* __restrict__ res,
                      const T* __restrict__ dy, int64_t M, int C, int TW, int RB,
                      const float* __restrict__ stats, float* __restrict__ partials,
@@ -1099,13 +1112,16 @@ int reduce_cap(const Geometry& g, int elem_bytes) {
 // N3 at most this wide reduces whole rows (N3's "wide" tiling)
 bool bwd_wide(const Geometry& g) { return g.C <= kWideRow; }
 
-// a streaming reduction's tiling: columns of kRedColumn channels, so that the
-// last block of a column finalizes few channels with many lanes each; N3 of
-// a narrow row (it reads two or three arrays) takes whole rows, as the
-// elementwise passes, with half as many blocks
+// a streaming reduction's tiling: 128-byte-aligned columns of kRedColumn
+// channels, so that the last block of a column finalizes few channels with
+// many lanes each; N3 of a narrow row (it reads two or three arrays) takes
+// whole rows, as the elementwise passes, at half the blocks where x is
+// under kWideBytes (there the finalize's tail outweighs the extra blocks)
 Tile reduce_tile(const Geometry& g, int vw, int elem_bytes, bool backward) {
   if (backward && bwd_wide(g)) {
-    return make_tile(g.M, g.C, vw, min(reduce_cap(g, elem_bytes), kRedBlocks / 2));
+    const int cap = reduce_cap(g, elem_bytes);
+    const bool large = g.M * g.C * elem_bytes >= kWideBytes;
+    return make_tile(g.M, g.C, vw, large ? cap : min(cap, kRedBlocks / 2));
   }
   return make_tile(g.M, g.C, vw, reduce_cap(g, elem_bytes), kRedColumn / vw);
 }
@@ -1172,8 +1188,8 @@ cudaError_t cluster_check(Kern kernel, const ClusterPlan& p, int64_t want_smem, 
 
 // N1 with its finalize (into work: tickets, then partials)
 template <typename T, int VW>
-void launch_stats(const T* x, const Geometry& g, const StatsFin& fin, float* work,
-                  cudaStream_t s) {
+cudaError_t launch_stats(const T* x, const Geometry& g, const StatsFin& fin, float* work,
+                         cudaStream_t s) {
   unsigned* tickets = reinterpret_cast<unsigned*>(work);
   float* partials = work + kTickets;
   if (g.cf) {
@@ -1181,9 +1197,11 @@ void launch_stats(const T* x, const Geometry& g, const StatsFin& fin, float* wor
         x, g.B, g.C, g.S, partials, tickets, fin);
   } else {
     const Tile t = reduce_tile(g, VW, sizeof(T), false);
+    if (t.gy > kTickets) return cudaErrorInvalidValue;
     bn_stats_kernel<T, VW><<<dim3(t.gx, t.gy), t.TW * t.RB, 0, s>>>(x, g.M, g.C, t.TW, t.RB,
                                                                    partials, tickets, fin);
   }
+  return cudaGetLastError();
 }
 
 template <typename T, int VW, int ACT, bool RES>
@@ -1236,8 +1254,7 @@ cudaError_t forward(const T* x, const T* res, T* y, const Geometry& g, const flo
     return cudaErrorInvalidValue;
   }
   if (train && (stages & 1)) {
-    launch_stats<T, VW>(x, g, fin, work, s);
-    const cudaError_t e = cudaGetLastError();
+    const cudaError_t e = launch_stats<T, VW>(x, g, fin, work, s);
     if (e != cudaSuccess) return e;
   }
   if (stages & 2) {
@@ -1289,6 +1306,7 @@ cudaError_t backward_act(const T* x, const T* res, const T* dy, T* dx, T* dres,
                                                   partials, tickets, fin);
     } else {
       const Tile t = reduce_tile(g, VW, sizeof(T), true);
+      if (t.gy > kTickets) return cudaErrorInvalidValue;
       const dim3 grid(t.gx, t.gy), block(t.TW * t.RB);
       if (bwd_wide(g)) {
         bn_bwd_reduce_kernel<T, VW, ACT, RES, true><<<grid, block, 0, s>>>(
@@ -1346,8 +1364,8 @@ cudaError_t backward(const T* x, const T* res, const T* dy, T* dx, T* dres, cons
 }
 
 bool valid(int64_t M, int C, int64_t plane, int act) {
-  return M >= 0 && C >= 1 && C <= 65535 && plane >= 0 && (plane == 0 || M % plane == 0) &&
-         act >= kIdentity && act <= kLeaky;
+  return M >= 0 && C >= 1 && C <= kMaxChannels && plane >= 0 &&
+         (plane == 0 || M % plane == 0) && act >= kIdentity && act <= kLeaky;
 }
 
 Geometry geometry(int64_t M, int C, int64_t plane) {

@@ -78,11 +78,10 @@ DWEIGHT, DBIAS, ALPHA, BETA = range(4)
 # beyond what the card takes): 512 threads a block, 16 warps; a cluster of at
 # most 16 blocks (above 8 the non-portable size); 228 KB of shared memory an
 # SM with 1 KB reserved a block, so a block of at most 115,712 bytes leaves
-# room for a second one on its SM (227 KB the most one block may take).
+# room for a second one on its SM.
 THREADS, WARPS = 512, 16
 CLUSTER_MAX = 16
 SMEM_PAIR = 115_712
-SMEM_BLOCK = 232_448
 SMS = 132              # the H100's SMs: a cluster plan grows to fill them
 SLICE_BYTES = 32       # a cluster's channel slice: one 32-byte sector of each row
 
@@ -112,11 +111,11 @@ def cluster_smem(rows: int, sv: int, pack_bytes: int, arrays: int, width: int) -
 
 @functools.lru_cache(maxsize=4096)
 def plan(M: int, C: int, itemsize: int, vector: bool, direction: str, act: str,
-         residual: bool, channel_first: bool = False, smem_max: int = SMEM_PAIR) -> Plan:
+         residual: bool, channel_first: bool = False) -> Plan:
     """The path of a training launch of all its stages over [M, C] (x of
     `itemsize` bytes an element; `vector`: 16-byte loads, C a multiple of
     16 / itemsize and every pointer 16-byte aligned). The cluster path where
-    a slice's tiles fit in at most CLUSTER_MAX blocks of at most `smem_max`
+    a slice's tiles fit in at most CLUSTER_MAX blocks of at most SMEM_PAIR
     bytes: x, and the residual, in the forward; x, dy and, where z needs it,
     the residual in the backward. The cluster is the smallest that fits,
     doubled while the grid has fewer blocks than SMs and each block keeps
@@ -134,7 +133,7 @@ def plan(M: int, C: int, itemsize: int, vector: bool, direction: str, act: str,
         arrays = 2 + (residual and act != "identity")
     smem = lambda cs: cluster_smem(-(-M // cs), sv, pack, arrays, sv * vw)  # noqa: E731
     cs = 1
-    while cs <= CLUSTER_MAX and smem(cs) > smem_max:
+    while cs <= CLUSTER_MAX and smem(cs) > SMEM_PAIR:
         cs *= 2
     if cs > CLUSTER_MAX:
         return Plan("streaming")
@@ -391,11 +390,10 @@ def launch_forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                    momentum: float, eps: float, act: str,
                    residual: Optional[torch.Tensor] = None, want_stats: bool = True,
                    stages: int = 3, y: Optional[torch.Tensor] = None,
-                   stats: Optional[torch.Tensor] = None, path: Optional[Plan] = None):
+                   stats: Optional[torch.Tensor] = None):
     """Launch N1 (training, stage bit 0) and N2 (stage bit 1): (y, stats),
     stats [5, C] None in eval mode unless `want_stats`. `y` and `stats` may
-    be given (a later stage reuses an earlier one's); `path` overrides
-    `plan`'s choice."""
+    be given (a later stage reuses an earlier one's)."""
     layout = _check(x, residual, weight, bias, running_mean, running_var)
     C = x.shape[-1]
     dev = x.device
@@ -405,7 +403,7 @@ def launch_forward(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     if stats is None and (training or want_stats):
         stats = torch.empty((5, C), dtype=torch.float32, device=dev)
     vector = _vector(x, layout, residual, y)
-    p = path or launch_path(x, "forward", act, residual, training, stages, y)
+    p = launch_path(x, "forward", act, residual, training, stages, y)
     work = (_work_for(x, layout, vector, stream)
             if p.path != "cluster" and training and stages & 1 else None)
     status = _entry(x, "forward")(
@@ -428,13 +426,12 @@ def launch_backward(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor,
                     stats: torch.Tensor, training: bool, eps: float, act: str,
                     residual: Optional[torch.Tensor] = None, residual_grad: bool = False,
                     stages: int = 3, grads: Optional[torch.Tensor] = None,
-                    dx: Optional[torch.Tensor] = None, d_res: Optional[torch.Tensor] = None,
-                    path: Optional[Plan] = None):
+                    dx: Optional[torch.Tensor] = None, d_res: Optional[torch.Tensor] = None):
     """Launch N3 (stage bit 0) and N4 (stage bit 1) for the cotangent dy:
     (dx, grads [4, C], d_residual). d_residual is None unless
     `residual_grad`; with the identity it is dy itself (no pass writes it).
     `grads`, `dx` and `d_res` may be given (a later stage reuses an earlier
-    one's grads); `path` overrides `plan`'s choice."""
+    one's grads)."""
     C = x.shape[-1]
     dev = x.device
     if dy.shape != x.shape or dy.dtype != x.dtype or dy.device != dev:
@@ -462,7 +459,7 @@ def launch_backward(x: torch.Tensor, dy: torch.Tensor, weight: torch.Tensor,
     write_res = d_res is not None and act != "identity"
     dres_out = d_res if write_res else None
     vector = _vector(x, layout, residual, dy, dx, dres_out)
-    p = path or launch_path(x, "backward", act, residual, True, stages, dy, dx, dres_out)
+    p = launch_path(x, "backward", act, residual, True, stages, dy, dx, dres_out)
     work = _work_for(x, layout, vector, stream) if p.path != "cluster" and stages & 1 else None
     status = _entry(x, "backward")(
         x.data_ptr(), build.ptr(residual), dy.data_ptr(), dx.data_ptr(), build.ptr(dres_out),

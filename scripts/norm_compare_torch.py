@@ -28,10 +28,9 @@ configuration and element type, for each checkout:
 - times alone (one launch's device time: CUDA-graph replay of --reps calls,
   no host, inputs L2-resident where they fit) of the training forward, the
   backward and the eval forward, in the order earlier, this, this, earlier;
-  at each channel-last site also this checkout's other paths once each: the
-  streaming kernels (`ops.norm.Plan("streaming")`) and the cluster path
-  with up to 227 KB of shared memory a block (`plan(..., smem_max=
-  SMEM_BLOCK)`, one block an SM), where that differs from the plan.
+  at each channel-last site also this checkout's streaming kernels, as a
+  stage-1 launch then a stage-2 launch, where the plan takes the cluster
+  path.
 Bounds: bytes at 3.35 TB/s, counted as phase 12 counts them (forward 3
 passes: x read for the statistics, read and written for y; backward 5: x and
 dy read twice, dx written; plus the residual and d_residual where the
@@ -233,13 +232,13 @@ def main() -> None:
                 if s:
                     fail(f"earlier backward {what}: CUDA error {s}")
 
-            def new_fwd(training=True, path=None):
+            def new_fwd(training=True, stages=3):
                 NM.launch_forward(x, w, b, *run, training, mom, eps, act, r, y=y, stats=st,
-                                  path=path)
+                                  stages=stages)
 
-            def new_bwd(path=None):
+            def new_bwd(stages=3):
                 NM.launch_backward(x, dy, w, st_p, True, eps, act, r, residual_grad=has_res,
-                                   grads=gr, dx=dx, d_res=d_r, path=path)
+                                   stages=stages, grads=gr, dx=dx, d_res=d_r)
 
             for side, fwd, bwd in (("earlier", old_fwd, old_bwd), ("this", new_fwd, new_bwd)):
                 run[0].copy_(rm)
@@ -274,21 +273,16 @@ def main() -> None:
                                      ("eval", lambda: old_fwd(False), lambda: new_fwd(False))):
                 o1, n1, n2, o2 = graph_ms(o_fn), graph_ms(n_fn), graph_ms(n_fn), graph_ms(o_fn)
                 t[name] = {"earlier": (o1 + o2) / 2, "this": (n1 + n2) / 2}
-            # this checkout's other paths at the site: the streaming kernels, and
-            # the cluster path with up to 227 KB a block (one block an SM)
+            # where the plan takes the cluster path, this checkout's streaming
+            # kernels at the site: stage 1, then stage 2
             plan = {}
             for d, fn in (("forward", new_fwd), ("backward", new_bwd)):
                 vector = not layout and Cn % (16 // x.element_size()) == 0
                 plan[d] = NM.plan(Mn, Cn, x.element_size(), vector, d, act, has_res,
                                   bool(layout))._asdict()
-                if layout:
-                    continue
-                k = "fwd" if d == "forward" else "bwd"
-                t[k]["streaming"] = graph_ms(lambda fn=fn: fn(path=NM.Plan("streaming")))
-                wide = NM.plan(Mn, Cn, x.element_size(), vector, d, act, has_res,
-                               smem_max=NM.SMEM_BLOCK)
-                if wide.path == "cluster":
-                    t[k]["cluster_227k"] = graph_ms(lambda fn=fn, wide=wide: fn(path=wide))
+                if plan[d]["path"] == "cluster":
+                    k = "fwd" if d == "forward" else "bwd"
+                    t[k]["streaming"] = graph_ms(lambda fn=fn: (fn(stages=1), fn(stages=2)))
             nb = lambda *ts: sum(u.numel() * u.element_size() for u in ts if u is not None)  # noqa: E731
             r_act = r if need_r else None
             to_ms = 1e3 / cs.HBM_BYTES_PER_S

@@ -817,6 +817,10 @@ def test_bn_kernels_channel_first_match_plain(dev, shape, act, training):
 
 # ---------------------------------------------------------------- K5's two paths
 
+# the streaming reductions' tickets at the head of their workspace: one for
+# each 32-channel column of the widest C (65535), rounded up to 64
+WORK_TICKETS = 2048
+
 
 def _boundary_m(C, itemsize, direction, act, res):
     """The largest M whose launch `N.plan` puts on the cluster path (the next
@@ -832,9 +836,10 @@ def _boundary_m(C, itemsize, direction, act, res):
     return lo
 
 
-def _both_paths(x, w, b, rm, rv, r, dy, act, path=None):
-    """The forward (stages 3) and the backward (stages 3, on the plain
-    statistics) through the wrappers on `path` (None: `N.plan`'s), against
+def _both_paths(x, w, b, rm, rv, r, dy, act, split=False):
+    """The forward and the backward (on the plain statistics) through the
+    wrappers, as one launch of stages 3 each (the path `N.plan` picks) or,
+    with `split`, as stage 1 then stage 2 (the streaming kernels), against
     the plain stages: the statistics and running statistics at rtol 1e-5;
     y against the plain apply on the launch's own statistics (f32 rtol 1e-5,
     bf16 within one bf16 spacing); the gradients at relative L2 <= 1e-4 and
@@ -844,11 +849,16 @@ def _both_paths(x, w, b, rm, rv, r, dy, act, path=None):
     mom, eps = 0.9, 1e-5
     build.reset_launch_counts()
     run = [rm.clone(), rv.clone()]
-    y, st = N.launch_forward(x, w, b, *run, True, mom, eps, act, r, path=path)
+    y, st = N.launch_forward(x, w, b, *run, True, mom, eps, act, r, stages=1 if split else 3)
+    if split:
+        N.launch_forward(x, w, b, *run, True, mom, eps, act, r, stages=2, y=y, stats=st)
     rp = [rm.clone(), rv.clone()]
     st_p = N.stats_plain(x, w, b, *rp, mom, eps)
     dx, gr, d_r = N.launch_backward(x, dy, w, st_p, True, eps, act, r,
-                                    residual_grad=r is not None, path=path)
+                                    residual_grad=r is not None, stages=1 if split else 3)
+    if split:
+        N.launch_backward(x, dy, w, st_p, True, eps, act, r, residual_grad=r is not None,
+                          stages=2, grads=gr, dx=dx, d_res=d_r)
     torch.cuda.synchronize()
     launches = dict(build.LAUNCHES)
     # channel 0 is constant: the kernels' mean is exact (s / M in f64), so
@@ -940,11 +950,11 @@ def test_bn_paths_edge_shapes(dev, M, C, offset, act, res, dtype, path):
         v.copy_(t)
         views.append(v)
     x, r, dy = views
-    p = N.Plan("streaming") if path == "streaming" else None
-    launches, _ = _both_paths(x, w, b, rm, rv, r, dy, act, p)
+    split = path == "streaming"
+    launches, _ = _both_paths(x, w, b, rm, rv, r, dy, act, split)
     itemsize = x.element_size()
     vector = C % (16 // itemsize) == 0 and offset == 0
-    want = N.plan(M, C, itemsize, vector, "forward", act, res).path == "cluster" and p is None
+    want = N.plan(M, C, itemsize, vector, "forward", act, res).path == "cluster" and not split
     assert launches["bn_forward_fused"] == int(want), launches
 
 
@@ -982,10 +992,26 @@ def test_bn_paths_deterministic_and_graph_replay(dev, M, C):
         for a, b_ in zip(outs, first):
             assert torch.equal(a, b_)
     for buf in N._work.values():
-        assert int(buf[:256].view(torch.int32).count_nonzero()) == 0
+        assert int(buf[:WORK_TICKETS].view(torch.int32).count_nonzero()) == 0
 
 
-def test_bn_cluster_plan_refused_raises(dev):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_streaming_past_8192_channels(dev, dtype):
+    """C = 8224 on the streaming kernels (stage 1, then stage 2): 257 columns
+    of 32 channels, each with its ticket in the workspace's head, which holds
+    one for every column of the widest C; run after a narrow launch and
+    again, so that the partials of one width never land on the tickets of
+    another. Against the plain versions."""
+    for M, C in ((300, 8224), (4000, 80), (300, 8224)):
+        x, w, b, rm, rv, r, dy = _bn_inputs(dev, M, C, True, seed=11)
+        x, r, dy = (t.to(dtype) for t in (x, r, dy))
+        launches, _ = _both_paths(x, w, b, rm, rv, r, dy, "leaky", split=True)
+        assert launches["bn_forward_fused"] == launches["bn_backward_fused"] == 0
+    for buf in N._work.values():
+        assert int(buf[:WORK_TICKETS].view(torch.int32).count_nonzero()) == 0
+
+
+def test_bn_cluster_plan_refused_raises(dev, monkeypatch):
     """A cluster tiling the kernels or the card refuse raises (nothing falls
     back): more than 16 blocks a cluster, shared memory other than the
     kernel's layout, more shared memory than a block may have, too few rows
@@ -994,21 +1020,20 @@ def test_bn_cluster_plan_refused_raises(dev):
     x, w, b, rm, rv, r, dy = _bn_inputs(dev, M, C, False)
     good = N.plan(M, C, 4, True, "forward", "silu", False)
     assert good.path == "cluster"
-    bad = [good._replace(cluster=32, rows=-(-M // 32)),
-           good._replace(smem=good.smem + 16),
-           good._replace(rows=good.rows // 2)]
-    for p in bad:
-        with pytest.raises(RuntimeError, match="CUDA error"):
-            N.launch_forward(x, w, b, rm.clone(), rv.clone(), True, 0.9, 1e-5, "silu", path=p)
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        N.launch_forward(x, w, b, rm.clone(), rv.clone(), True, 0.9, 1e-5, "silu", stages=1,
-                         path=good)
     big = x.repeat(200, 1)
     huge = good._replace(cluster=1, rows=big.shape[0],
                          smem=N.cluster_smem(big.shape[0], good.sv, 16, 1, good.sv * 4))
-    assert huge.smem > N.SMEM_BLOCK
-    with pytest.raises(RuntimeError, match="CUDA error"):
-        N.launch_forward(big, w, b, rm.clone(), rv.clone(), True, 0.9, 1e-5, "silu", path=huge)
+    assert huge.smem > 227 * 1024  # the most shared memory an H100 block may have
+    bad = [(x, 3, good._replace(cluster=32, rows=-(-M // 32))),
+           (x, 3, good._replace(smem=good.smem + 16)),
+           (x, 3, good._replace(rows=good.rows // 2)),
+           (x, 1, good),
+           (big, 3, huge)]
+    for t, stages, p in bad:
+        monkeypatch.setattr(N, "launch_path", lambda *args, p=p: p)
+        with pytest.raises(RuntimeError, match="CUDA error"):
+            N.launch_forward(t, w, b, rm.clone(), rv.clone(), True, 0.9, 1e-5, "silu",
+                             stages=stages)
 
 
 # ---------------------------------------------------------------- bf16 instantiations

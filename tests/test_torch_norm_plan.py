@@ -103,6 +103,16 @@ def test_plan_scalar_path_and_growth(itemsize):
     p = N.plan(7191, 480, itemsize, True, "forward", "silu", False)
     assert p.slices * p.cluster >= N.SMS or p.rows < 4 * N.THREADS // p.sv
     assert N.plan(10 ** 7, 80, itemsize, True, "forward", "silu", False).path == "streaming"
-    # a larger budget (one block an SM) keeps more sites on the cluster path
-    wide = N.plan(112850, 32, itemsize, True, "forward", "silu", False, smem_max=N.SMEM_BLOCK)
-    assert wide.path == "cluster" and wide.smem <= N.SMEM_BLOCK
+    # the boundary: the largest M on the cluster path fills 16 blocks of at
+    # most SMEM_PAIR bytes, and the next M does not fit them
+    lo, hi = 1, 1 << 22
+    while hi - lo > 1:
+        mid = (lo + hi) // 2
+        if N.plan(mid, 288, itemsize, True, "backward", "leaky", True).path == "cluster":
+            lo = mid
+        else:
+            hi = mid
+    p = N.plan(lo, 288, itemsize, True, "backward", "leaky", True)
+    assert p.cluster == N.CLUSTER_MAX and p.smem <= N.SMEM_PAIR
+    assert N.cluster_smem(-(-hi // N.CLUSTER_MAX), p.sv, 16, 3, p.sv * 16 // itemsize) \
+        > N.SMEM_PAIR
