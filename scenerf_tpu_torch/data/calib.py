@@ -1,6 +1,7 @@
-"""Host-side KITTI IO in numpy: calibration, odometry poses, RGB frames and the
-voxel -> pixel mapping. The port's own copy of what the val reader needs from
-`scenerf_tpu/data/calib.py`. PIL is imported inside `read_rgb` only.
+"""Host-side KITTI IO in numpy: calibration, odometry poses, RGB frames,
+LiDAR scans and their projection into depth, and the voxel -> pixel mapping.
+The port's own copy of `scenerf_tpu/data/calib.py`. PIL is imported inside
+`read_rgb` only.
 """
 from __future__ import annotations
 
@@ -61,6 +62,29 @@ def dump_xyz(T: np.ndarray) -> np.ndarray:
 def apply_transform(pts: np.ndarray, T: np.ndarray) -> np.ndarray:
     homo = np.concatenate([pts, np.ones((pts.shape[0], 1))], axis=1)
     return (T @ homo.T).T[:, :3]
+
+
+def lidar_to_depth(lidar_points: np.ndarray, P: np.ndarray, T_velo_2_cam: np.ndarray,
+                   image_size: Tuple[int, int], max_depth: float = 80.0
+                   ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+    """Project LiDAR [N, >=3] (velodyne xyz) through T_velo_2_cam and P's
+    [3, 3] block into an image of (W, H): (pixels [M, 2] int, depths [M],
+    camera points [M, 3]) of the forward points with 0 < depth <= max_depth
+    whose rounded pixel lies strictly inside the image (x > 0 and y > 0:
+    row and column 0 are dropped, as the reference drops them)."""
+    pts = lidar_points[:, :3]
+    cam = apply_transform(pts[pts[:, 0] > 0], T_velo_2_cam)
+    cam = cam[(cam[:, 2] > 0) & (cam[:, 2] <= max_depth)]
+    img_pts = (P[:3, :3] @ cam.T).T
+    img_pts = np.round(img_pts[:, :2] / img_pts[:, 2:3]).astype(int)
+    W, H = image_size
+    inb = (img_pts[:, 0] > 0) & (img_pts[:, 1] > 0) & (img_pts[:, 0] < W) & (img_pts[:, 1] < H)
+    return img_pts[inb], cam[inb][:, 2], cam[inb]
+
+
+def read_lidar(path: str) -> np.ndarray:
+    """A velodyne scan: [N, 4] f32 (x, y, z, reflectance)."""
+    return np.fromfile(path, dtype=np.float32).reshape(-1, 4)
 
 
 def vox2pix(cam_E: np.ndarray, cam_K: np.ndarray, vox_origin: np.ndarray, voxel_size: float,

@@ -1,7 +1,8 @@
-"""SemanticKITTI voxel IO in numpy: bit unpacking, the label/invalid readers
-and the class remap. The port's own copy of the reader half of
-`scenerf_tpu/data/io_voxel.py`; the 20-class learning map is the standard
-SemanticKITTI metadata, embedded so no yaml file is needed.
+"""SemanticKITTI voxel IO in numpy: bit packing and unpacking, the
+label/invalid readers and the class remap. The port's own copy of
+`scenerf_tpu/data/io_voxel.py`'s readers and `pack`; the 20-class learning
+map is the standard SemanticKITTI metadata, embedded so no yaml file is
+needed.
 """
 from __future__ import annotations
 
@@ -23,6 +24,16 @@ def unpack(compressed: np.ndarray) -> np.ndarray:
     out = np.zeros(compressed.shape[0] * 8, dtype=np.uint8)
     for i in range(8):
         out[i::8] = (compressed >> (7 - i)) & 1
+    return out
+
+
+def pack(array: np.ndarray) -> np.ndarray:
+    """Binary array -> bit-packed uint8 (most significant bit first): the
+    inverse of `unpack` for a length that is a multiple of 8."""
+    a = array.reshape(-1).astype(np.uint8)
+    out = np.zeros(a.shape[0] // 8, dtype=np.uint8)
+    for i in range(8):
+        out |= a[i::8] << (7 - i)
     return out
 
 

@@ -42,6 +42,16 @@ NOISE_KEYS = ("pixels", "uni", "gauss", "reproj", "gt_uni", "gt_gauss")
 Noise = Dict[str, torch.Tensor]  # NOISE_KEYS -> [B, S, ...] draws of one step
 
 
+def to_device(t: torch.Tensor, device) -> torch.Tensor:
+    """`t` on `device`. A host tensor goes to the card through pinned memory
+    without blocking: a blocking copy would end in a stream synchronize, so
+    the host would wait there for the device's queued work."""
+    device = torch.device(device)
+    if device.type == "cuda" and t.device.type == "cpu":
+        return t.pin_memory().to(device, non_blocking=True)
+    return t.to(device)
+
+
 def compute_sphere_maps(cfg: SceneRFConfig, cam_K) -> Dict[int, np.ndarray]:
     """Sphere inverse maps {scale: [out_H, out_W, 2]} of a camera's full
     pixel grid, built on the host in f32."""
@@ -144,17 +154,20 @@ class SceneRF(nn.Module):
         """Every random draw of one training forward, [B, S, ...] per key:
         the training pixels (`sampling.random_grid_pixels`), the render's
         U(0, 1) / N(0, 1) sample noise, the reprojection tie-break N(0, 1)
-        and the GT-depth render's noise."""
+        and the GT-depth render's noise. They are drawn on the generator's
+        device and moved to `device` (a host generator gives the same draws
+        to a run on the CPU and on the card)."""
         cfg = self.cfg
         W, H = cfg.img_size
         R_, G = cfg.n_rays, cfg.n_gt_depth
+        gdev = generator.device
         pixels = torch.stack([torch.stack([
             S.random_grid_pixels(generator, R_, W, H, stride=cfg.pixel_stride,
-                                 grid_size=cfg.sample_grid_size, device=device)
+                                 grid_size=cfg.sample_grid_size, device=gdev)
             for _ in range(n_sources)]) for _ in range(n_items)])
         lead = (n_items, n_sources)
-        kw = dict(generator=generator, device=device)
-        return {
+        kw = dict(generator=generator, device=gdev)
+        noise = {
             "pixels": pixels,
             "uni": torch.rand(*lead, R_, cfg.n_pts_uni, **kw),
             "gauss": torch.randn(*lead, R_, cfg.n_pts_gauss, **kw),
@@ -162,53 +175,66 @@ class SceneRF(nn.Module):
             "gt_uni": torch.rand(*lead, G, cfg.n_pts_uni, **kw),
             "gt_gauss": torch.randn(*lead, G, cfg.n_pts_gauss, **kw),
         }
+        return {k: to_device(v, device) for k, v in noise.items()}
 
     def _per_source(self, pyramid: R.Pyramid, pyramid_grads: Optional[PyramidGrads],
                     item_K: torch.Tensor, item_inv_K: torch.Tensor,
-                    src: Dict[str, torch.Tensor], noise: Noise) -> Dict[str, torch.Tensor]:
-        """Losses and logs of one (item, source) pair."""
+                    src: Dict[str, torch.Tensor], noise: Noise, with_losses: bool = True,
+                    with_depth_eval: bool = True) -> Dict[str, torch.Tensor]:
+        """Losses and logs (the training render) and the depth metrics (the
+        GT-depth render) of one (item, source) pair, each when asked for."""
         cfg = self.cfg
-        pix = noise["pixels"]
-        out = self.render_rays(pyramid, item_K, src["T_source2infer"], pix,
-                               noise_uni=noise["uni"], noise_gauss=noise["gauss"],
-                               with_som=True, pyramid_grads=pyramid_grads)
-        color_src = geo.sample_pix_features(pix, src["img_source"])
-        d2g = L.dist2closest_gaussian(out["gaussian_means"], out["gaussian_stds"],
-                                      out["som_vars"], out["depth"])
-        loss_reproj, valid = L.reprojection_loss(
-            noise["reproj"], pix, color_src, out["depth"], src["img_target"], item_inv_K,
-            item_K, src["T_source2target"])
-        res = {
-            "loss_reprojection": L.masked_mean(loss_reproj, valid),
-            "loss_color": torch.abs(out["color"] - color_src).mean(),
-            "loss_kl": out["loss_kl"].mean(),
-            "loss_dist2closest_gauss": d2g["loss_dist2closest_gauss"].mean(),
-            "min_som_vars": d2g["min_som_vars"].mean(),
-            "min_stds": d2g["min_stds"].mean(),
-            "closest_pts_to_depth": out["closest_pts_to_depth"].mean(),
-            "weights_at_depth": out["weights_at_depth"].mean(),
-        }
-        # depth metrics at the GT pixels: logs only, no gradient
-        with torch.no_grad():
-            ev = self.render_rays([lv.detach() for lv in pyramid], item_K,
-                                  src["T_source2infer"], src["gt_pix"],
-                                  ray_chunk=cfg.eval_ray_chunk, noise_uni=noise["gt_uni"],
-                                  noise_gauss=noise["gt_gauss"])
-            dm = L.depth_metrics(src["gt_depth"], ev["depth"], mask=src["gt_mask"] > 0,
-                                 max_depth=cfg.eval_depth)
-        res.update({f"depth/{k}": v for k, v in dm.items()})
+        res = {}
+        if with_losses:
+            pix = noise["pixels"]
+            out = self.render_rays(pyramid, item_K, src["T_source2infer"], pix,
+                                   noise_uni=noise["uni"], noise_gauss=noise["gauss"],
+                                   with_som=True, pyramid_grads=pyramid_grads)
+            color_src = geo.sample_pix_features(pix, src["img_source"])
+            d2g = L.dist2closest_gaussian(out["gaussian_means"], out["gaussian_stds"],
+                                          out["som_vars"], out["depth"])
+            loss_reproj, valid = L.reprojection_loss(
+                noise["reproj"], pix, color_src, out["depth"], src["img_target"], item_inv_K,
+                item_K, src["T_source2target"])
+            res = {
+                "loss_reprojection": L.masked_mean(loss_reproj, valid),
+                "loss_color": torch.abs(out["color"] - color_src).mean(),
+                "loss_kl": out["loss_kl"].mean(),
+                "loss_dist2closest_gauss": d2g["loss_dist2closest_gauss"].mean(),
+                "min_som_vars": d2g["min_som_vars"].mean(),
+                "min_stds": d2g["min_stds"].mean(),
+                "closest_pts_to_depth": out["closest_pts_to_depth"].mean(),
+                "weights_at_depth": out["weights_at_depth"].mean(),
+            }
+        if with_depth_eval:
+            # depth metrics at the GT pixels: logs only, no gradient
+            with torch.no_grad():
+                ev = self.render_rays([lv.detach() for lv in pyramid], item_K,
+                                      src["T_source2infer"], src["gt_pix"],
+                                      ray_chunk=cfg.eval_ray_chunk, noise_uni=noise["gt_uni"],
+                                      noise_gauss=noise["gt_gauss"])
+                dm = L.depth_metrics(src["gt_depth"], ev["depth"], mask=src["gt_mask"] > 0,
+                                     max_depth=cfg.eval_depth)
+            res.update({f"depth/{k}": v for k, v in dm.items()})
         return res
 
     def forward(self, batch: Dict[str, torch.Tensor], noise: Noise, train: bool = True,
-                sphere_maps: Optional[Dict[int, torch.Tensor]] = None
+                sphere_maps: Optional[Dict[int, torch.Tensor]] = None,
+                with_losses: bool = True, with_depth_eval: bool = True
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The training (train=True) or validation forward over a batch of
         device tensors (see data/synthetic.py for the contract) with every
         random draw given in `noise` (`draw_noise`). Puts the model in train
         or eval mode. Returns (total_loss, metrics): losses summed over the
-        valid sources and divided by the batch size, logs as masked means over
-        the sources; the metric names are the JAX package's. Nothing here
-        waits for the device."""
+        valid sources and divided by the batch size, logs and depth metrics
+        as masked means over the sources; the metric names are the JAX
+        package's. `with_losses=False` skips the training renders (no loss
+        or log keys; total_loss 0), `with_depth_eval=False` the GT-depth
+        renders (no depth/* keys); one of them must be on. Nothing here waits
+        for the device."""
+        if not (with_losses or with_depth_eval):
+            raise ValueError("forward with with_losses=False requires with_depth_eval=True "
+                             "(nothing to compute)")
         cfg = self.cfg
         self.train(train)
         B, S_n = batch["T_source2infer"].shape[:2]
@@ -232,19 +258,25 @@ class SceneRF(nn.Module):
                     "gt_mask": batch["gt_mask"][b, s],
                 }
                 res = self._per_source(pyramid, pyramid_grads, item_K, item_inv_K, src,
-                                       {k: v[b, s] for k, v in noise.items()})
+                                       {k: v[b, s] for k, v in noise.items()}, with_losses,
+                                       with_depth_eval)
                 m = batch["source_mask"][b, s]
                 for k, v in res.items():
                     sums[k] = sums[k] + m * v if k in sums else m * v
 
-        totals = {k: sums[k] / B for k in LOSS_KEYS}
-        total_loss = totals["loss_kl"] + totals["loss_dist2closest_gauss"] * cfg.dist2closest_weight
-        if cfg.use_reprojection:
-            total_loss = total_loss + totals["loss_reprojection"] * cfg.reprojection_weight
-        if cfg.use_color:
-            total_loss = total_loss + totals["loss_color"]
-        metrics = dict(totals)
-        metrics["loss_som_kl"] = metrics.pop("loss_kl")
+        if with_losses:
+            totals = {k: sums[k] / B for k in LOSS_KEYS}
+            total_loss = (totals["loss_kl"]
+                          + totals["loss_dist2closest_gauss"] * cfg.dist2closest_weight)
+            if cfg.use_reprojection:
+                total_loss = total_loss + totals["loss_reprojection"] * cfg.reprojection_weight
+            if cfg.use_color:
+                total_loss = total_loss + totals["loss_color"]
+            metrics = dict(totals)
+            metrics["loss_som_kl"] = metrics.pop("loss_kl")
+        else:
+            total_loss = torch.zeros((), device=batch["source_mask"].device)
+            metrics = {}
         denom = torch.clamp(batch["source_mask"].sum(), min=1.0)
         for k in sums:
             if k not in LOSS_KEYS:

@@ -1,0 +1,58 @@
+"""Build the port's host C++ (ICP registration, `icp.cpp`) with g++ at first
+use and load it with ctypes.
+
+The flags are the JAX package's (`-O3 -shared -fPIC -std=c++17`), so both
+builds of the same source register point clouds bit for bit alike on one
+machine. The library goes under `build/native/` at the repository root,
+named by a hash of the source and the flags: never into the source tree.
+Nothing is built or loaded at import time.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import subprocess
+import threading
+from pathlib import Path
+
+HERE = Path(__file__).resolve().parent
+BUILD_DIR = HERE.parents[1] / "build" / "native"
+SOURCES = ("icp.cpp",)
+CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
+
+_lock = threading.Lock()
+_lib = None
+
+
+def _build() -> Path:
+    h = hashlib.sha256(" ".join(CXX_FLAGS).encode())
+    for name in SOURCES:
+        h.update(name.encode())
+        h.update((HERE / name).read_bytes())
+    target = BUILD_DIR / f"libscenerf_native_{h.hexdigest()[:16]}.so"
+    if target.exists():
+        return target
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.tmp")
+    res = subprocess.run(["g++", *CXX_FLAGS, *(str(HERE / s) for s in SOURCES), "-o", str(tmp)],
+                         capture_output=True, text=True)
+    if res.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"g++ failed on {SOURCES} ({res.returncode}):\n{res.stderr}")
+    os.replace(tmp, target)  # another process may have built the same file meanwhile
+    return target
+
+
+def load() -> ctypes.CDLL:
+    """The loaded library, built first if needed (thread-safe)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(_build()))
+            lib.icp_register.restype = ctypes.c_double
+            fp = ctypes.POINTER(ctypes.c_float)
+            lib.icp_register.argtypes = [fp, ctypes.c_int, fp, ctypes.c_int, ctypes.c_float,
+                                         ctypes.c_int, ctypes.POINTER(ctypes.c_double)]
+            _lib = lib
+    return _lib

@@ -1,6 +1,6 @@
 """The gap between the bf16 and the f32 training step's loss, step 0 from the
-same weights and draws at the flagship shapes, as chip_smoke.py's phase 13
-holds it (`TRAIN16_LOSS_RTOL`), over several seeds, on one NVIDIA GPU.
+same weights and draws at the flagship shapes (chip_smoke.py's phase 13
+prints it), over several seeds, on one NVIDIA GPU.
 
     python3 scripts/bf16_loss_gap_torch.py [--seeds 0,1,2,3,4] \
         [--modes kernels,plain,stats_bf16,unbiased_var] [--tree DIR] \
@@ -19,7 +19,12 @@ weights and running statistics. Modes:
   bf16 (statistics kept in the compute dtype), `unbiased_var` takes the
   variance over M - 1 (torch's default for `var`).
 Prints the relative gap |loss16 - loss32| / |loss32| of every seed and mode
-and, per mode, the largest and the mean over the seeds.
+and, per mode, the largest and the mean over the seeds; and the bf16 step's
+batch-statistics error (`chip_smoke.bn_stats_error`: the statistics each
+batch norm of the step used, recovered from its running statistics set to
+0 before the step, against the f64 statistics of the site's bf16 input, in
+units of the channel's mean square), the check that replaced the loss gap
+in phase 13.
 """
 from __future__ import annotations
 
@@ -86,6 +91,9 @@ def main() -> None:
     from scenerf_tpu_torch.ops import norm as NM
     from scenerf_tpu_torch.train import Trainer
 
+    sys.path.insert(0, str(ROOT))
+    from chip_smoke import bn_stats_error, bn_stats_hooks
+
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -107,17 +115,26 @@ def main() -> None:
         gen = torch.Generator(device=dev).manual_seed(seed)
         noise = model16.draw_noise(1, cfg16.n_sources, gen, dev)
 
-        def loss(model, cfg):
+        def loss(model, cfg, stats_error=None):
+            """The step's loss; with `stats_error` (a list), the step's
+            batch-statistics error appended to it."""
             model.load_state_dict(state)
             model.train()
+            record = []
+            hooks = bn_stats_hooks(model, record) if stats_error is not None else []
             metrics = Trainer(cfg, device=dev, model=model).train_step(batch, noise=noise)
+            for h in hooks:
+                h.remove()
             value = float(metrics["total_loss"])
             if value != value:
                 raise SystemExit(f"seed {seed}: loss not finite")
+            if stats_error is not None:
+                stats_error.append(bn_stats_error(record))
             return value
 
         losses32 = {}
         for mode in modes:
+            err = []
             on_kernels = mode == "kernels"
             kind = mode if on_kernels else "plain"
             with contextlib.nullcontext() if on_kernels else build.plain_versions():
@@ -127,23 +144,27 @@ def main() -> None:
                     saved = NM.batch_norm_act_plain
                     NM.batch_norm_act_plain = faulty_plain(NM, mode)
                     try:
-                        l16 = loss(model16, cfg16)
+                        l16 = loss(model16, cfg16, err)
                     finally:
                         NM.batch_norm_act_plain = saved
                 else:
-                    l16 = loss(model16, cfg16)
+                    l16 = loss(model16, cfg16, err)
             gap = abs(l16 - losses32[kind]) / abs(losses32[kind])
-            gaps[mode][seed] = dict(loss32=losses32[kind], loss16=l16, rel_gap=gap)
+            gaps[mode][seed] = dict(loss32=losses32[kind], loss16=l16, rel_gap=gap,
+                                    stats_error=err[0])
             print(f"seed {seed} {mode}: f32 {losses32[kind]:.6f} bf16 {l16:.6f} rel gap "
-                  f"{gap:.4e}", flush=True)
+                  f"{gap:.4e}; bf16 batch-statistics error {err[0]:.4e}", flush=True)
         del model32, model16
         torch.cuda.empty_cache()
     summary = {}
     for mode, per_seed in gaps.items():
         g = [v["rel_gap"] for v in per_seed.values()]
-        summary[mode] = dict(max=max(g), mean=statistics.mean(g), min=min(g))
+        e = [v["stats_error"] for v in per_seed.values()]
+        summary[mode] = dict(max=max(g), mean=statistics.mean(g), min=min(g),
+                             stats_error_min=min(e), stats_error_max=max(e))
         print(f"[{mode}] rel gap over seeds {sorted(per_seed)}: min {min(g):.4e}, mean "
-              f"{statistics.mean(g):.4e}, max {max(g):.4e}", flush=True)
+              f"{statistics.mean(g):.4e}, max {max(g):.4e}; batch-statistics error min "
+              f"{min(e):.4e}, max {max(e):.4e}", flush=True)
     out = ROOT / args.out
     out.parent.mkdir(parents=True, exist_ok=True)
     out.write_text(json.dumps({"card": card, "tree": str(Path(args.tree).resolve()),

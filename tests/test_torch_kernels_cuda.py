@@ -8,7 +8,8 @@ off the map, a small level every point lands on (atomic contention), saturated
 alphas; kernel S with argmax ties; kernel C's training launch with RaySOM's
 EM inside (C = 1, 4, 8) against the plain pair and C-bwd through its sort
 order, at every block size; outputs that carry a `grad_fn` on the card;
-and the `tiny` training step on the card against the CPU. Kernel G bit-equal
+and the `tiny` training step on the card against the CPU, also as
+`run_training` on a small KITTI tree. Kernel G bit-equal
 at one level of every KITTI tap width and lane-group size; G-bwd's vector
 and scalar atomics, its run-merging mapping, and a training step's chunk
 gathers adding into one pyramid's shared buffers. Kernel T (TSDF
@@ -491,6 +492,56 @@ def test_tiny_train_step_on_card_matches_cpu(dev):
     for prefix in ("net_rgb.decoder.up1", "mlp_gaussian.lin_in", "mlp_gaussian.lin_z.0"):
         assert any(float(p.grad.abs().max()) > 0 for n, p in card.model.named_parameters()
                    if n.startswith(prefix)), prefix
+
+
+def test_run_training_on_card_matches_cpu(dev, tmp_path):
+    """`run_training` of the `tiny` model at the KITTI image size on a small
+    KITTI tree (`_torch_kitti_tree.py`): 2 steps and the val set's one batch
+    on the card (every training kernel) against the same run on the CPU (the
+    plain versions), from the same host-seeded weights and draws: each
+    step's loss and the val metrics rtol 1e-3, those from RaySOM's EM
+    (loss_som_kl, min_som_vars, total_loss through the KL) by the rest of
+    the val loss: a ray whose best prototype is a rounding tie takes another
+    Gaussian on the card than on the CPU (kernel S's tests allow 0.1% of
+    rays), and moved the val loss_som_kl 1.25e-3 (measured). At lr 0: AdamW's
+    first step moves a weight by about +-lr whatever its gradient's size, so
+    a gradient whose sign differs between the two (they agree to 1e-2
+    relative L2 a leaf, test_tiny_train_step_on_card_matches_cpu) moves the
+    weights 2 lr apart, and at lr 1e-5 the second step's loss 2.3e-3 apart
+    (measured); the optimizer's update itself is held by the one-step tests."""
+    from _torch_kitti_tree import write_kitti_tree
+    from scenerf_tpu_torch.cli.train import run_training
+    from scenerf_tpu_torch.data.kitti import KittiDataset, to_model_batch
+
+    tree = write_kitti_tree(str(tmp_path / "kitti"), {"00": 6, "08": 7})
+    cfg = C.tiny(img_size=(1220, 370), lr=0.0)
+    kw = dict(n_sources=cfg.n_sources, n_rays=cfg.n_gt_depth, seed=42)
+    runs, launches = {}, {}
+    for name, device in (("cpu", "cpu"), ("card", dev)):
+        train_ds = KittiDataset("train", tree, str(tmp_path / "pre"), sequences=["00"], **kw)
+        val_ds = KittiDataset("val", tree, str(tmp_path / "pre"), **kw)
+        build.reset_launch_counts()
+        runs[name] = run_training(cfg, train_ds, val_ds, lambda it: to_model_batch(it, cfg),
+                                  "exp", str(tmp_path / name), 1, False,
+                                  max_steps_per_epoch=2, device=device)
+        launches[name] = dict(build.LAUNCHES)
+    assert not any(launches["cpu"].values())
+    train_kernels = ("gather_levels", "gather_levels_bwd", "sort_composite",
+                     "sort_composite_bwd", "ray_som", "bn_stats", "bn_apply", "bn_bwd_reduce",
+                     "bn_bwd_apply")
+    assert all(launches["card"][k] >= 1 for k in train_kernels), launches["card"]
+    assert launches["card"]["ray_som"] == launches["card"]["ray_som_in_sort_composite"]
+    cpu, card = runs["cpu"], runs["card"]
+    assert len(card["loss"]) == 2
+    np.testing.assert_allclose(card["loss"], cpu["loss"], rtol=1e-3)
+    (want,), (got,) = cpu["val_metrics"], card["val_metrics"]
+    assert set(got) == set(want)
+    som = ("loss_som_kl", "min_som_vars", "total_loss")
+    for k in want:
+        if k not in som:
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-3, atol=1e-6, err_msg=k)
+    np.testing.assert_allclose(got["total_loss"] - got["loss_som_kl"],
+                               want["total_loss"] - want["loss_som_kl"], rtol=1e-3)
 
 
 # ---------------------------------------------------------------- kernel T

@@ -250,8 +250,10 @@ def test_kitti_val_reader_matches_jax(kitti_root):
               "fov_mask_1"):
         np.testing.assert_array_equal(got[k], want[k], err_msg=k)
         assert np.asarray(got[k]).dtype == np.asarray(want[k]).dtype, k
-    with pytest.raises(NotImplementedError, match="n_sources=0"):
-        KittiDataset("val", kitti_root, "", n_sources=1)
+    # source frames are ported too: with sources the walk finds the same scans
+    # (their items, which read LiDAR, are held in test_torch_kitti_data.py)
+    ours, theirs = (D("val", kitti_root, "", n_sources=1) for D in (KittiDataset, JaxKitti))
+    assert [s["rel_frame_ids"] for s in ours.scans] == [s["rel_frame_ids"] for s in theirs.scans]
 
 
 def test_cli_chain_on_cpu(kitti_root, tmp_path):
