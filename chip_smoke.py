@@ -1,6 +1,7 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: the novel-depth
-serve path, the training step and the `train-kitti` entry point at the full
-KITTI preset, through the hand-written kernels.
+serve path, the training step, the `train-kitti` entry point and the KITTI
+evaluation commands at the full KITTI preset, through the hand-written
+kernels.
 
     python3 chip_smoke.py
 
@@ -115,9 +116,28 @@ Phases (each prints one line and raises on failure):
      ms per item (the loader thread's read + collate), the loader-wait share,
      ICP ms per source cold, val ms per item, checkpoint save ms, peak
      memory and the make_batch step at the same flags beside phase 13's
+ 15. eval: the KITTI evaluation entry points through their click commands
+     on cuda:0, on phase 14's tree (2 val items of sequence 08, every source
+     of their scans) and its checkpoint directory (`best`, bf16), ICP cold
+     in a preprocess tree of their own: save-depth-metrics (depth at every
+     LiDAR pixel of every source), agg-depth-metrics, render-colors (stride
+     3, 407x124) and eval-color with random LPIPS weights written in
+     torchvision's and lpips' layouts (--lpips_vgg_path / --lpips_lin_path);
+     then save-depth-metrics and render-colors again. Checks: one pickle per
+     val item, its 7-vectors finite, n_frames summing to the sources with
+     LiDAR pixels, agg's All row the pickles' mean, one 407x124 render PNG
+     and one source copy per (item, source), eval-color scoring each pair,
+     the second runs launching nothing, G, C and N2 (bf16) at their counted
+     launches, one source's depth at its LiDAR pixels through the kernels
+     against the plain versions (>= 99% of rays at rtol 1e-3, on the
+     kernels' encode), LPIPS on the card within rtol 1e-4 of the CPU on one
+     pair. Prints save-depth-metrics ms per val item (host read with ICP
+     cold, encode, renders), LiDAR rays/s, render-colors ms per image,
+     eval-color ms per pair (PSNR + SSIM on the host, LPIPS on the card) and
+     peak memory
 Then one JSON line of per-kernel results (each bf16 kernel's bf16 results
-under "bf16"; "launches_by_path" gains "train_kitti"), the card line, and
-the last line
+under "bf16"; "launches_by_path" gains "train_kitti" and "eval"), the card
+line, and the last line
 {"ok": true, "device": {...}}. It exits non-zero, printing no result, when no
 CUDA device is present or any phase fails. Imports torch, numpy and the port
 (`scenerf_tpu_torch`, which must sit beside this file), never JAX.
@@ -191,6 +211,9 @@ KITTI_STEPS = 3            # steps per epoch (--max_steps_per_epoch)
 KITTI_ICP_PAIRS = 4        # sources refined anew for ICP's cold time
 RIGID_TOL = 1e-6           # ICP refinement: |R^T R - I|, |det R - 1|
 LOADER_WAIT_S = 1e-3       # a get of the loader's queue this long waited for the thread
+EVAL_KERNELS = ("gather_levels", "sort_composite", "bn_apply")  # G, C, N2 on the eval path
+SPHERE_RESAMPLES = 6       # kernel G launches of an encode: s1 .. s32
+LPIPS_RTOL = 1e-4          # LPIPS on the card against the CPU (f32 convs, TF32 off)
 
 
 def fail(msg: str) -> None:
@@ -619,6 +642,165 @@ def train_kitti_phase(dev, card: str, tree: Path, tree_procs: list, ref: dict | 
           f"GiB; runs {run1_s:.1f} + {run2_s:.1f} s; the make_batch step at the same flags "
           f"{numbers['make_batch_step_ms']:.1f} ms"
           + ("" if ref is None else f" (phase 13, ray_chunk 1200: {ref['step_ms']:.1f} ms)"))
+    return {"launches": launches, "numbers": numbers, "model_path": str(mgr.directory)}
+
+
+def eval_phase(dev, card: str, tree: Path, model_path: str) -> dict:
+    """Phase 15: the four KITTI evaluation commands through their click
+    entry points on cuda:0, on phase 14's tree and checkpoint directory (its
+    `best`, bf16), ICP cold in a preprocess tree of their own; then
+    save-depth-metrics and render-colors again, which must skip; the checks
+    and numbers of the module docstring. Returns the eval path's launches
+    and the numbers."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from scenerf_tpu_torch.cli import common
+    from scenerf_tpu_torch.cli import evaluation as ev
+    from scenerf_tpu_torch.ops import build
+    from scenerf_tpu_torch.utils.checkpoint import load_model
+    from scenerf_tpu_torch.utils.lpips import LPIPS
+
+    root, out = str(tree), tree / "eval"
+    kitti = ["--root", root, "--preprocess_root", str(tree / "preprocess_eval"),
+             "--model_path", model_path, "--eval_save_dir", str(out)]
+    # random LPIPS weights in torchvision's and lpips' layouts
+    sd = LPIPS.random_init(torch.Generator().manual_seed(SEED)).state_dicts()
+    vgg_path, lin_path = str(tree / "vgg16.pth"), str(tree / "lpips_vgg.pth")
+    torch.save(sd["vgg"], vgg_path)
+    torch.save(sd["lpips"], lin_path)
+
+    def run(*argv):
+        t0 = time.perf_counter()
+        res = ev.cli.main(list(argv), standalone_mode=False)
+        return res, time.perf_counter() - t0
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    depth_run, depth_s = run("save-depth-metrics", *kitti)
+    agg, _ = run("agg-depth-metrics", "--eval_save_dir", str(out))
+    color_run, color_s = run("render-colors", *kitti)
+    scores, score_s = run("eval-color", "--eval_save_dir", str(out), "--lpips_vgg_path",
+                          vgg_path, "--lpips_lin_path", lin_path)
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    build.reset_launch_counts()
+    again = (run("save-depth-metrics", *kitti)[0], run("render-colors", *kitti)[0])
+    again_launches = {k: build.LAUNCHES[k] for k in EVAL_KERNELS}
+
+    # every val item and source, read again (ICP now cached)
+    ds = common.eval_val_ds(root, str(tree / "preprocess_eval"), 10.0, 0.4)
+    items = [ds[i] for i in range(len(ds))]
+    with_lidar = sum(len(d) > 0 for it in items for d in it["lidar_depths"])
+    pickles = sorted((out / "depth_metrics" / "08").glob("*.npy"))
+    if [p.stem for p in pickles] != [it["frame_id"] for it in items] or not items:
+        fail(f"save-depth-metrics: pickles {[p.name for p in pickles]} for val items "
+             f"{[it['frame_id'] for it in items]}")
+    total, n_total = np.zeros(7), 0
+    for path in pickles:
+        with open(path, "rb") as f:
+            data = pickle.load(f)
+        for k, e in data["depth_errors"].items():
+            if not (e.shape == (7,) and np.isfinite(e).all()):
+                fail(f"{path.name}: depth errors at {k} m {e}")
+            total, n_total = total + e, n_total + data["n_frames"][k]
+    agg_all = sum(agg[0].values()) / sum(agg[1].values())
+    if n_total != with_lidar or not np.allclose(agg_all, total / n_total, rtol=1e-12, atol=0):
+        fail(f"agg-depth-metrics: n_frames {n_total} for {with_lidar} sources with LiDAR "
+             f"pixels; All row {agg_all} against the pickles' mean {total / n_total}")
+    names = [f"{it['frame_id']}_{it['source_frame_ids'][s]}_{it['source_distances'][s]:.2f}.png"
+             for it in items for s in range(len(it["source_frame_ids"]))]
+    for sub in ("rgb", "render_rgb"):
+        got = sorted(p.name for p in (out / sub / "08").glob("*.png"))
+        if got != sorted(names):
+            fail(f"render-colors: {sub}/08 holds {got}; expected {sorted(names)}")
+    sizes = {Image.open(out / "render_rgb" / "08" / n).size for n in names}
+    if sizes != {(407, 124)} or color_run["images"] != len(names):
+        fail(f"render-colors: {color_run['images']} images of sizes {sizes} for {len(names)} "
+             "sources; expected 407x124 each")
+    if sum(scores["count"].values()) != len(names) or not all(
+            math.isfinite(v) for d in ("psnr", "ssim", "lpips") for v in scores[d].values()):
+        fail(f"eval-color: {dict(scores['count'])} pairs for {len(names)}; psnr "
+             f"{dict(scores['psnr'])} ssim {dict(scores['ssim'])} lpips {dict(scores['lpips'])}")
+    if again[0]["frames"] or again[1]["images"] or any(again_launches.values()):
+        fail(f"second runs: save-depth-metrics did {again[0]['frames']}, render-colors "
+             f"{again[1]['images']} images, launches {again_launches}; expected nothing")
+
+    # launches: per encode 6 sphere resamples (G) and 192 eval applies (N2,
+    # bf16); per render chunk of 4000 rays two pyramid gathers and one C
+    encodes = len(depth_run["frames"]) + len(color_run["render_s"])
+    pix_chunks = -(-len(common.strided_pixel_grid((1220, 370), 3)[0]) // ev.EVAL_CHUNK)
+    chunks = (sum(-(-r // ev.EVAL_CHUNK) for rs in depth_run["rays"] for r in rs)
+              + pix_chunks * color_run["images"])
+    want = {"gather_levels": SPHERE_RESAMPLES * encodes + 2 * chunks,
+            "sort_composite": chunks, "bn_apply": BN_SITES * encodes,
+            "bn_apply_bf16": BN_SITES * encodes, "bn_stats": 0, "gather_levels_bwd": 0,
+            "sort_composite_bwd": 0, "ray_som": 0, "tsdf_integrate": 0}
+    got = {k: launches[k] for k in want}
+    if got != want or launches["gather_levels_bf16"] < 2 * chunks:
+        fail(f"eval launches {launches}; expected {want} and >= {2 * chunks} bf16 G")
+
+    # one source's depth at its LiDAR pixels through the kernels against the
+    # plain versions, on the kernels' encode
+    model = load_model(model_path, dev)
+    it = items[0]
+    pyramid = ev.FrameEncoder(model)(it)
+    args = (model, pyramid, it["cam_K"], it["T_source2infers"][0],
+            it["loc2d_with_depths"][0], ev.EVAL_CHUNK)
+    depth = ev.render_depth_at_pixels(*args, torch.Generator(device=dev).manual_seed(0))[0]
+    with build.plain_versions():
+        ref = ev.render_depth_at_pixels(*args, torch.Generator(device=dev).manual_seed(0))[0]
+    share = float(np.isclose(depth, ref, rtol=SERVE_RTOL,
+                             atol=SERVE_RTOL * float(np.abs(ref).max())).mean())
+    if share < SERVE_MIN_SHARE:
+        fail(f"eval render at {len(ref)} LiDAR pixels: the kernels agree with the plain "
+             f"versions on {share:.4%} of rays")
+    del model, pyramid
+    torch.cuda.empty_cache()
+
+    # LPIPS on the card against the CPU, one pair
+    name = names[0]
+    pair = [torch.from_numpy((np.array(Image.open(out / d / "08" / name).convert("RGB").resize(
+        ev.KITTI_COLOR_SIZE), np.float32) / 255.0 - 0.5) * 2) for d in ("render_rgb", "rgb")]
+    lp = {d: float(LPIPS.from_torch_checkpoint(vgg_path, lin_path, d)(*(t.to(d) for t in pair)))
+          for d in (dev, "cpu")}
+    if not math.isclose(lp[dev], lp["cpu"], rel_tol=LPIPS_RTOL):
+        fail(f"LPIPS on the card {lp[dev]} against the CPU {lp['cpu']} (rtol {LPIPS_RTOL})")
+
+    rays = sum(sum(rs) for rs in depth_run["rays"])
+    numbers = dict(
+        depth_item_ms=[(r + e + d) * 1e3 for r, e, d in zip(
+            depth_run["read_s"], depth_run["encode_s"], depth_run["render_s"])],
+        depth_read_ms=[s_ * 1e3 for s_ in depth_run["read_s"]],
+        depth_encode_ms=[s_ * 1e3 for s_ in depth_run["encode_s"]],
+        depth_render_ms=[s_ * 1e3 for s_ in depth_run["render_s"]],
+        sources=[len(rs) for rs in depth_run["rays"]], lidar_rays=rays,
+        lidar_rays_per_s=rays / sum(depth_run["render_s"]),
+        color_image_ms=sum(color_run["render_s"]) * 1e3 / color_run["images"],
+        color_read_ms=[s_ * 1e3 for s_ in color_run["read_s"]],
+        pair_host_ms=statistics.median(scores["host_s"]) * 1e3,
+        pair_lpips_ms=statistics.median(scores["lpips_s"]) * 1e3,
+        peak_gib=peak / 2**30, command_s=[depth_s, color_s, score_s])
+    print(f"[15 eval] save-depth-metrics, agg-depth-metrics, render-colors, eval-color on "
+          f"{len(items)} val items, {len(names)} sources ({rays} LiDAR rays) from {model_path} "
+          f"(best, bf16): pickles finite, n_frames {n_total}, the All row the pickles' mean; "
+          f"{len(names)} render PNGs 407x124; second runs rendered nothing (launches "
+          f"{again_launches}); launches {got}; kernels vs plain at {len(ref)} LiDAR pixels "
+          f"{share:.4%} of rays within rtol {SERVE_RTOL}; LPIPS card {lp[dev]:.7f} vs CPU "
+          f"{lp['cpu']:.7f}; Total: abs_rel {agg_all[0]:.4f}, a1 {agg_all[4]:.4f}")
+    print(f"[15 numbers] on {card}: save-depth-metrics per val item "
+          f"{['%.1f' % v for v in numbers['depth_item_ms']]} ms = host read (ICP cold) "
+          f"{['%.1f' % v for v in numbers['depth_read_ms']]} + encode "
+          f"{['%.1f' % v for v in numbers['depth_encode_ms']]} + renders and errors "
+          f"{['%.1f' % v for v in numbers['depth_render_ms']]} ms (sources "
+          f"{numbers['sources']}); {numbers['lidar_rays_per_s']:.0f} LiDAR rays/s in the "
+          f"renders; render-colors {numbers['color_image_ms']:.1f} ms per image (encode, render, "
+          f"PNG; item reads {['%.1f' % v for v in numbers['color_read_ms']]} ms); eval-color per "
+          f"pair PSNR + SSIM {numbers['pair_host_ms']:.1f} ms host, LPIPS "
+          f"{numbers['pair_lpips_ms']:.1f} ms; peak device memory {numbers['peak_gib']:.2f} GiB;"
+          f" commands {['%.1f' % v for v in numbers['command_s']]} s")
     return {"launches": launches, "numbers": numbers}
 
 
@@ -2538,10 +2720,13 @@ def main() -> None:
     # ---- 14. train-kitti ---------------------------------------------------
     p14 = train_kitti_phase(dev, card, Path(tree_dir.name), tree_procs,
                             {"fused_per_step": bn16_fused, "step_ms": warm16})
+    # ---- 15. eval ----------------------------------------------------------
+    p15 = eval_phase(dev, card, Path(tree_dir.name), p14["model_path"])
     tree_dir.cleanup()
     for name in b16:
         results[name]["bf16"]["launches_by_path"]["train_kitti"] = \
             p14["launches"][f"{name}_bf16"]
+        results[name]["bf16"]["launches_by_path"]["eval"] = p15["launches"][f"{name}_bf16"]
 
     sources = {
         "gather_levels": ("scenerf_tpu_torch/ops/csrc/gather.cu", "scenerf_tpu/geometry.py:106"),
@@ -2565,7 +2750,8 @@ def main() -> None:
          "launches": main_launches[name],
          "launches_by_path": {"serve": serve_launches.get(name, 0), "train": launches[name],
                               "reconstruction": recon_launches[name],
-                              "train_kitti": p14["launches"][name]},
+                              "train_kitti": p14["launches"][name],
+                              "eval": p15["launches"][name]},
          **results[name]}
         for name, (src, rep) in sources.items()]}))
     print(f"card: {card}")

@@ -1,15 +1,17 @@
 """The port's CUDA kernels against their plain PyTorch versions on the card,
 at the edge cases the KITTI-shaped smoke run does not reach: the scalar
 channel loop (the `tiny` levels, a misaligned level), out-of-bounds coords,
-fewer than 64 samples per ray, tied distances, and the `tiny` serve path on
-the card against the same path on the CPU. The backward kernels (G-bwd,
-C-bwd) against autograd of the plain versions: a misaligned level, corners
-off the map, a small level every point lands on (atomic contention), saturated
-alphas; kernel S with argmax ties; kernel C's training launch with RaySOM's
-EM inside (C = 1, 4, 8) against the plain pair and C-bwd through its sort
-order, at every block size; outputs that carry a `grad_fn` on the card;
-and the `tiny` training step on the card against the CPU, also as
-`run_training` on a small KITTI tree. Kernel G bit-equal
+fewer than 64 samples per ray, tied distances, the `tiny` serve path on
+the card against the same path on the CPU, and the evaluation render at a
+source's LiDAR pixels (f32 and bf16) against the plain versions on the
+card. The backward kernels (G-bwd, C-bwd) against autograd of the plain
+versions: a misaligned level, corners off the map, a small level every point
+lands on (atomic contention), saturated alphas; kernel S with argmax ties;
+kernel C's training launch with RaySOM's EM inside (C = 1, 4, 8) against
+the plain pair and C-bwd through its sort order, at every block size;
+outputs that carry a `grad_fn` on the card; and the `tiny` training step
+on the card against the CPU, also as `run_training` on a small KITTI tree.
+Kernel G bit-equal
 at one level of every KITTI tap width and lane-group size; G-bwd's vector
 and scalar atomics, its run-merging mapping, and a training step's chunk
 gathers adding into one pyramid's shared buffers. Kernel T (TSDF
@@ -29,6 +31,7 @@ file, so it runs on a machine without JAX:
 
     python -m pytest --noconftest -m cuda tests/test_torch_kernels_cuda.py
 """
+import contextlib
 import math
 
 import numpy as np
@@ -187,6 +190,44 @@ def test_tiny_serve_on_card_matches_cpu(dev):
     for k in ("1_1", "1_16"):
         torch.testing.assert_close(lv[k].cpu(), cpu_lv[k], rtol=1e-4, atol=1e-4)
     assert build.LAUNCHES["gather_levels"] > 0 and build.LAUNCHES["sort_composite"] > 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_eval_render_at_lidar_pixels_matches_plain(dev, dtype):
+    """`save-depth-metrics`' render at a source's LiDAR pixels (an encode,
+    then chunks of 128 with a ragged last one): kernels G, C and N2 against
+    their plain versions on the card, >= 99% of rays within rtol 1e-3 (the
+    serve path's and chip_smoke.py phase 15's check)."""
+    from scenerf_tpu_torch.cli.evaluation import render_depth_at_pixels
+
+    cfg = C.tiny(img_size=(1220, 370), compute_dtype=dtype)
+    torch.manual_seed(0)
+    model = SceneRF(cfg).to(dev).eval()
+    K = default_intrinsics(cfg)
+    img = torch.from_numpy(input_frame(cfg, seed=2)).to(dev)
+    g = torch.Generator().manual_seed(1)
+    pixels = torch.stack([torch.randint(0, 1220, (300,), generator=g),
+                          torch.randint(150, 370, (300,), generator=g)], -1).float().numpy()
+    T = np.eye(4, dtype=np.float32)
+    T[2, 3] = 1.0
+    out = {}
+    for plain in (False, True):
+        build.reset_launch_counts()
+        with build.plain_versions() if plain else contextlib.nullcontext():
+            pyramid = model.pyramid_for_item(model.encode(img, K), 0)
+            out[plain] = render_depth_at_pixels(model, pyramid, K, T, pixels, 128,
+                                                torch.Generator(device=dev).manual_seed(3))
+        launches = dict(build.LAUNCHES)
+        if not plain:
+            assert launches["gather_levels"] >= 2 * 3 and launches["sort_composite"] == 3
+            assert launches["bn_apply"] > 0 and launches["bn_stats"] == 0
+        else:
+            assert sum(launches.values()) == 0
+    for i, name in enumerate(("depth", "color")):
+        got, want = out[False][i], out[True][i]
+        assert np.isfinite(got).all()
+        close = np.isclose(got, want, rtol=1e-3, atol=1e-3 * np.abs(want).max())
+        assert close.reshape(len(close), -1).all(1).mean() >= 0.99, name
 
 
 # ------------------------------------------------------------- backwards
