@@ -1,9 +1,9 @@
 """Smoke run of the PyTorch/CUDA port on one NVIDIA GPU: the novel-depth
 serve path, the training step, the `train-kitti` entry point and the KITTI
-evaluation commands at the full KITTI preset, through the hand-written
-kernels.
+evaluation commands at the full KITTI preset, and the BundleFusion entry
+points at the BF preset, through the hand-written kernels.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--bf-som-chunk OUT.npz]
 
 Phases (each prints one line and raises on failure):
   1. device: card name and power limit, versions, TF32 off, kernel build;
@@ -135,8 +135,39 @@ Phases (each prints one line and raises on failure):
      cold, encode, renders), LiDAR rays/s, render-colors ms per image,
      eval-color ms per pair (PSNR + SSIM on the host, LPIPS on the card) and
      peak memory
+ 16. BundleFusion: the entry points through their click commands on cuda:0
+     on a fake 640x480 tree that eight `scripts/make_fake_bf.py` processes
+     write while phases 1-15 run (the 7 train scenes with 37 frames, 3
+     train items each; copyroom with 33, one val item: frame 16 with 16
+     sources), at the BF preset (B7 at 640x480, 960x720 sphere, 32 + 4x8
+     samples, f32): train-bundlefusion at the CLI's defaults (2048 rays in
+     one chunk, som_sigma 0.02) with --max_steps_per_epoch 3, then resumed
+     with --n_epochs 2; one more step hooked to record each BN site's
+     configuration and K5 path and kernel C's launches; K5 at every
+     distinct BF configuration (train and eval) held to its plain version
+     by phase 12's checks; RaySOM's EM inside C against its plain version
+     on the step's chunk (saved with --bf-som-chunk for the CPU test against
+     JAX); save-depth-metrics-bf (every GT pixel of the 16 sources,
+     4,915,200 rays), agg-depth-metrics-bf, render-colors-bf (stride 2,
+     upsampled to 640x480) and eval-color-bf (random LPIPS weights), again
+     (nothing launched); one source's depth at its 307,200 GT pixels,
+     kernels against the plain versions (>= 99% at rtol 1e-3);
+     generate-novel-depths-bf (33 poses), depth2tsdf-bf (120x120x96 at 0.04
+     m, marching cubes), generate-sc-gt-bf, eval-sc-bf, determine-angles,
+     the first three again (nothing launched); kernel T against its plain
+     version on the sweep's and the GT's frames at the BF grid (bit-equal
+     but at pixel-rounding ties, >= 99.99%). Checks: the resume and its lr,
+     last and best, finite losses and metrics, every kernel at its counted
+     launches on each path (K5's one-launch counts from the plan's cluster
+     sites; C at R = 2048 with the EM), the files and sizes of every
+     command. Prints ms per step through the loader, host ms per item, val
+     ms per item, save ms and peak memory; save-depth-metrics-bf ms per item
+     (host read, encode, renders) and GT-pixel rays/s; render-colors-bf ms
+     per image; eval-color-bf ms per pair; s per sweep frame, fuse, mesh and
+     GT-fuse ms, the mesh's vertex count; kernel T's time at the BF grid
 Then one JSON line of per-kernel results (each bf16 kernel's bf16 results
-under "bf16"; "launches_by_path" gains "train_kitti" and "eval"), the card
+under "bf16"; "launches_by_path" gains "train_kitti", "eval", "bf_train",
+"bf_eval" and "bf_recon"; T, RaySOM and K5 gain their BF rows), the card
 line, and the last line
 {"ok": true, "device": {...}}. It exits non-zero, printing no result, when no
 CUDA device is present or any phase fails. Imports torch, numpy and the port
@@ -144,6 +175,7 @@ CUDA device is present or any phase fails. Imports torch, numpy and the port
 """
 from __future__ import annotations
 
+import argparse
 import atexit
 import contextlib
 import copy
@@ -392,6 +424,164 @@ def adamw_first_move(params, start_state, grads, lr: float):
     return torch.stack(excess).cpu() / lr, torch.stack(moved_by).cpu() / lr
 
 
+def k5_what(key) -> str:
+    shape, act, has_res, _, _, layout = key
+    return (f"{list(shape)} {act}{' + residual' if has_res else ''}"
+            f"{' channel-first' if layout else ''}")
+
+
+def rel_l2(a, b) -> float:
+    return float((a - b).norm()) / max(float(b.norm()), 1e-30)
+
+
+def check_close(what, a, b, rtol=BN_RTOL):
+    atol = 1e-6 * float(b.abs().max())
+    ok = (a - b).abs() <= rtol * b.abs() + atol
+    if not bool(ok.all()):
+        fail(f"K5 {what}: {int((~ok).sum())} values beyond rtol {rtol} (max abs error "
+             f"{float((a - b).abs().max()):.3e})")
+    return float((a - b).abs().max())
+
+
+def check_l2(what, a, b):
+    """Relative L2 within BN_REL_L2; returns the max abs error."""
+    import torch
+
+    err = rel_l2(a, b)
+    if not (bool(torch.isfinite(a).all()) and err <= BN_REL_L2):
+        fail(f"K5 {what}: relative L2 {err:.3e} > {BN_REL_L2}")
+    return float((a - b).abs().max())
+
+
+def k5_site_check(key, gen, dev) -> dict:
+    """Kernel K5 at one batch norm configuration `key` (shape, activation,
+    residual, eps, momentum, layout) on seeded f32 inputs: N1-N4 one by one
+    against their plain versions, each direction as the training step
+    launches it (one launch on the cluster path), the fused op in train mode
+    against autograd of the plain version (the cotangent zeroed at the
+    leaky-ReLU's kink ties), eval mode within BN_EVAL_SPACINGS. Fails on a
+    disagreement; returns the inputs (x, w, b, rm, rv, r, dy), the plain
+    statistics and gradients (st_p, gr_p), the largest error per kernel,
+    the path of each direction, the eval spacings, the fused op's relative
+    L2, the kink ties and how many of them only the two sides' statistics
+    make (z on either side of 0, beyond rounding of the summands)."""
+    import torch
+
+    from scenerf_tpu_torch.ops import build
+    from scenerf_tpu_torch.ops import norm as NM
+
+    shape, act, has_res, eps, mom, layout = key
+    Cn = shape[-1]
+    what = k5_what(key)
+
+    def draw():
+        """A seeded tensor of the site's shape and layout."""
+        if not layout:
+            return torch.randn(shape, generator=gen, device=dev)
+        return torch.randn(shape[0], Cn, *shape[1:-1], generator=gen,
+                           device=dev).movedim(1, -1)
+
+    x = draw() * 2 + 0.5
+    x[..., 0] = 0.5  # a constant channel: mean2 - mean^2 ties at 0
+    w = torch.rand(Cn, generator=gen, device=dev) + 0.5
+    b = torch.rand(Cn, generator=gen, device=dev) - 0.5
+    rm = torch.rand(Cn, generator=gen, device=dev) * 0.4 - 0.2
+    rv = torch.rand(Cn, generator=gen, device=dev) + 0.5
+    r = draw() if has_res else None
+    dy = draw()
+    run = lambda: [rm.clone(), rv.clone()]  # noqa: E731
+    err = {}
+    # N1: the statistics and the running update
+    rk, rp = run(), run()
+    _, st_k = NM.launch_forward(x, w, b, *rk, True, mom, eps, act, r, stages=1)
+    st_p = NM.stats_plain(x, w, b, *rp, mom, eps)
+    err["bn_stats"] = max(*(check_close(f"N1 {what} statistics row {i}", st_k[i], st_p[i])
+                            for i in range(5)),
+                          check_close(f"N1 {what} running mean", rk[0], rp[0]),
+                          check_close(f"N1 {what} running var", rk[1], rp[1]))
+    # N2 on the plain statistics; in eval mode folding the running ones
+    y_k, _ = NM.launch_forward(x, w, b, *run(), True, mom, eps, act, r, stages=2,
+                               stats=st_p)
+    err["bn_apply"] = check_close(f"N2 {what}", y_k, NM.apply_plain(x, st_p, act, r))
+    ye_k, _ = NM.launch_forward(x, w, b, rm, rv, False, mom, eps, act, r, want_stats=False)
+    fold = NM.fold_plain(w, b, rm, rv, eps)
+    ye_p = NM.batch_norm_act_plain(x, w, b, rm, rv, False, mom, eps, act, r)
+    summands = (x * fold[NM.MUL]).abs() + fold[NM.ADD].abs() + (0 if r is None else r.abs())
+    spacing = torch.nextafter(summands, torch.full_like(summands, float("inf"))) - summands
+    eval_spacings = float(((ye_k - ye_p).abs() / spacing).max())
+    if not eval_spacings <= BN_EVAL_SPACINGS:
+        fail(f"K5 N2 eval {what}: {eval_spacings:.2f} f32 spacings from the plain version")
+    err["bn_apply"] = max(err["bn_apply"], float((ye_k - ye_p).abs().max()))
+    # N3, N4 on the plain statistics (and N4 on the plain coefficients)
+    _, gr_k, _ = NM.launch_backward(x, dy, w, st_p, True, eps, act, r, stages=1)
+    gr_p = NM.bwd_reduce_plain(x, dy, st_p, w, eps, act, True, r)
+    err["bn_bwd_reduce"] = max(check_l2(f"N3 {what} row {i}", gr_k[i], gr_p[i])
+                               for i in range(4))
+    dx_k, _, dr_k = NM.launch_backward(x, dy, w, st_p, True, eps, act, r,
+                                       residual_grad=has_res, stages=2, grads=gr_p)
+    dx_p, dr_p = NM.bwd_apply_plain(x, dy, st_p, gr_p, act, r)
+    err["bn_bwd_apply"] = check_l2(f"N4 {what} dx", dx_k, dx_p)
+    if has_res:
+        err["bn_bwd_apply"] = max(err["bn_bwd_apply"], check_l2(f"N4 {what} d_r", dr_k, dr_p))
+    # each direction as the training step launches it (one launch on the
+    # cluster path): the statistics, y on its own statistics, the
+    # gradients and dx on its own gradients
+    paths = {d: NM.launch_path(x, d, act, r).path for d in ("forward", "backward")}
+    rf = run()
+    y_f, st_f = NM.launch_forward(x, w, b, *rf, True, mom, eps, act, r)
+    err["bn_forward_fused"] = max(
+        *(check_close(f"{paths['forward']} forward {what} statistics row {i}", st_f[i],
+                      st_p[i]) for i in range(5)),
+        check_close(f"{paths['forward']} forward {what} running mean", rf[0], rp[0]),
+        check_close(f"{paths['forward']} forward {what} running var", rf[1], rp[1]),
+        check_close(f"{paths['forward']} forward {what} y", y_f,
+                    NM.apply_plain(x, st_f, act, r)))
+    dx_f, gr_f, dr_f = NM.launch_backward(x, dy, w, st_p, True, eps, act, r,
+                                          residual_grad=has_res)
+    dx_fp, dr_fp = NM.bwd_apply_plain(x, dy, st_p, gr_f, act, r)
+    err["bn_backward_fused"] = max(
+        *(check_l2(f"{paths['backward']} backward {what} row {i}", gr_f[i], gr_p[i])
+          for i in range(4)),
+        check_l2(f"{paths['backward']} backward {what} dx", dx_f, dx_fp),
+        *((check_l2(f"{paths['backward']} backward {what} d_r", dr_f, dr_fp),)
+          if has_res else ()))
+    del y_f, dx_f, dr_f, dx_fp, dr_fp
+    # the fused op, train mode: the kernels' Function against autograd of
+    # the plain version (the gradient through mean and var included); the
+    # cotangent zeroed at the leaky-ReLU's kink ties: z within rounding of
+    # 0, and z on the two sides of 0 from the kernels' statistics and the
+    # plain version's (held to each other at BN_RTOL above), where each side
+    # takes another slope
+    ties = NM.kink_ties(x, st_p, act, r)
+    straddle = 0
+    if act == "leaky":
+        sides_of_0 = ((NM._pre_activation(x, st_f, r) >= 0)
+                      != (NM._pre_activation(x, st_p, r) >= 0))
+        straddle = int((sides_of_0 & ~ties).sum())
+        ties |= sides_of_0
+    dy_op = torch.where(ties, torch.zeros_like(dy), dy)
+    sides = []
+    for plain in (False, True):
+        leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+        rr = None if r is None else r.clone().requires_grad_(True)
+        stats = run()
+        with build.plain_versions() if plain else contextlib.nullcontext():
+            y = NM.batch_norm_act(*leaves, *stats, True, mom, eps, act, rr)
+        y.backward(dy_op)
+        sides.append([y.detach(), *stats, *(t.grad for t in leaves),
+                      *([] if rr is None else [rr.grad])])
+        del y, leaves, rr
+    for i, name in enumerate(("y", "running mean", "running var")):
+        check_close(f"{what} train {name}", sides[0][i], sides[1][i])
+    op_l2 = max(rel_l2(sides[0][i], sides[1][i]) for i in range(3, len(sides[0])))
+    for i, name in zip(range(3, len(sides[0])), ("x", "weight", "bias", "residual")):
+        check_l2(f"{what} train d{name}", sides[0][i], sides[1][i])
+    del sides
+    return dict(x=x, w=w, b=b, rm=rm, rv=rv, r=r, dy=dy, st_p=st_p, gr_p=gr_p, err=err,
+                paths=paths, eval_spacings=eval_spacings, op_l2=op_l2, ties=ties,
+                straddle=straddle)
+
+
 def touched_row_bytes(levels, ix, iy) -> int:
     """Bytes of the level rows that bilinear corners at (ix, iy) [L, N] land
     on, each row counted once: what a gather reads (or a scatter-add reads
@@ -410,6 +600,14 @@ def touched_row_bytes(levels, ix, iy) -> int:
                 rows.append((cy[inside] * W + cx[inside]).long())
         total += int(torch.unique(torch.cat(rows)).numel()) * C * lv.element_size()
     return total
+
+
+def wait_procs(procs: list, what: str) -> None:
+    """Wait for the tree writers `procs`; fail with the output of one that failed."""
+    for p in procs:
+        out, _ = p.communicate()
+        if p.returncode != 0:
+            fail(f"{what} failed ({p.returncode}):\n{out}")
 
 
 def start_kitti_tree(root: Path) -> list:
@@ -433,10 +631,7 @@ def finish_kitti_tree(root: Path, procs: list) -> None:
 
     from scenerf_tpu_torch.data import io_voxel
 
-    for p in procs:
-        out, _ = p.communicate()
-        if p.returncode != 0:
-            fail(f"make_fake_kitti.py failed ({p.returncode}):\n{out}")
+    wait_procs(procs, "make_fake_kitti.py")
     vox_dir = root / "dataset" / "sequences" / "08" / "voxels"
     vox_dir.mkdir(parents=True, exist_ok=True)
     labels = np.zeros(256 * 256 * 32, np.uint16)
@@ -804,7 +999,487 @@ def eval_phase(dev, card: str, tree: Path, model_path: str) -> dict:
     return {"launches": launches, "numbers": numbers}
 
 
+BF_TRAIN_SCENES = ("apt0", "apt1", "apt2", "office0", "office1", "office2", "office3")
+# phase 16's BundleFusion tree at 640x480: copyroom's 33 frames leave one val item
+# (frame 16, 16 sources at frame interval 2); 37 frames leave each train scene 3
+BF_TREE_FRAMES = {**{s: 37 for s in BF_TRAIN_SCENES}, "copyroom": 33}
+BF_TREE_SIZE = (640, 480)  # (W, H) of its frames: the dataset's
+BF_STEPS = 3               # steps per epoch (--max_steps_per_epoch)
+BF_TRAIN_FLAGS = ("--max_steps_per_epoch", str(BF_STEPS))  # else the CLI's defaults
+# the BF preset at the CLI's defaults: image, sphere, rays (one chunk), sources,
+# som_sigma, compute dtype
+BF_PRESET = ((640, 480), (960, 720), 2048, 2048, 1, 0.02, "float32")
+BF_VAL_FRAME, BF_VAL_SOURCES = "000016", 16
+BF_SWEEP_POSES = 33        # the CLI's sweep: 11 steps of 0.2 m x yaw 0, -30, +30
+BF_GRID = (120, 120, 96)
+
+
+def start_bf_tree(root: Path) -> list:
+    """Start writing phase 16's BundleFusion tree under `root` (640x480
+    frames; a room of depth 1-4 m, every pixel valid; poses along z): one
+    `scripts/make_fake_bf.py` process per scene."""
+    script = ROOT / "scripts" / "make_fake_bf.py"
+    W, H = BF_TREE_SIZE
+    procs = [subprocess.Popen([sys.executable, str(script), "--root", str(root), "--frames",
+                               str(n), "--scenes", scene, "--width", str(W), "--height",
+                               str(H)], stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for scene, n in BF_TREE_FRAMES.items()]
+    atexit.register(lambda: [p.kill() for p in procs if p.poll() is None])
+    return procs
+
+
+def tsdf_against_plain(dev, depths, colors, intrs, w2cs) -> dict:
+    """Kernel T against its plain version on a fresh BundleFusion grid
+    (closest mode, the CLI's): bit-equal but at pixel-rounding ties (at least
+    TSDF_MIN_EQUAL of the voxels); T's time on a fresh volume (events), the
+    plain version's, and T's bound (phase 11's count of bytes and
+    operations). `colors` 0..255."""
+    import torch
+
+    from scenerf_tpu_torch import reconstruction as recon
+    from scenerf_tpu_torch.fusion.tsdf import pack_colors
+    from scenerf_tpu_torch.ops.tsdf import integrate, integrate_plain, pixel_ties
+
+    vol = recon.bf_volume(dev)
+    packed = pack_colors(colors)
+    args = (depths, packed, intrs, w2cs, vol._vol_origin, vol._voxel_size, vol._trunc_margin,
+            1.0)
+
+    def fresh():
+        return [torch.full(vol.shape, 255.0, device=dev), torch.zeros(vol.shape, device=dev),
+                torch.zeros(vol.shape, device=dev)]
+
+    got, want = fresh(), fresh()
+    integrate(*got, *args)
+    integrate_plain(*want, *args)
+    ties = pixel_ties(vol.shape, vol._vol_origin, vol._voxel_size, intrs, w2cs, tol=TIE_PX)
+    differs = torch.zeros(vol.shape, dtype=torch.bool, device=dev)
+    for a, b in zip(got, want):
+        differs |= a != b
+    equal = 1.0 - float(differs.float().mean())
+    untied = int((differs & ~ties).sum())
+    if equal < TSDF_MIN_EQUAL or untied:
+        fail(f"tsdf_integrate at {vol.shape}: bit-equal on {equal:.6%} of voxels, {untied} "
+             f"differing voxels with no pixel-rounding tie")
+    err = max(float((a - b).abs().max()) for a, b in zip(got, want))
+    n_valid = float(want[1].sum())
+    ms = cuda_ms(lambda: integrate(*fresh(), *args))
+    plain_ms = cuda_ms(lambda: integrate_plain(*fresh(), *args))
+    n_vox, n_frames = got[0].numel(), depths.shape[0]
+    b = bound(2 * nbytes(*got) + nbytes(depths, packed, intrs, w2cs),
+              32 * n_vox * n_frames + 7 * n_valid)
+    return dict(shape=[*vol.shape, *depths.shape], equal_share=equal,
+                differ=int(differs.sum()), tie_voxels=int(ties.sum()), max_abs_err=err,
+                ms=ms, plain_ms=plain_ms, **b)
+
+
+def bf_phase(dev, card: str, tree: Path, tree_procs: list, som_chunk: str | None) -> dict:
+    """Phase 16: BundleFusion at the BF preset through the normal entry
+    points on the tree: train-bundlefusion (resumed), the five evaluation
+    commands, the four reconstruction commands; the checks and numbers of
+    the module docstring. `som_chunk`: where to save the RaySOM inputs of the
+    first 512 rays of one training chunk and the EM's outputs on them
+    (npz), or None. Returns each path's launches, the numbers, K5's rows
+    and kernel T's at the BundleFusion grid."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from scenerf_tpu_torch import rendering
+    from scenerf_tpu_torch.cli import evaluation as ev
+    from scenerf_tpu_torch.cli import reconstruction as rc
+    from scenerf_tpu_torch.cli import train as train_cli
+    from scenerf_tpu_torch.data import bundlefusion as bfd
+    from scenerf_tpu_torch.encoder.norm import FusedBatchNorm
+    from scenerf_tpu_torch.ops import build
+    from scenerf_tpu_torch.ops import norm as NM
+    from scenerf_tpu_torch.som import som_em_plain
+    from scenerf_tpu_torch.utils.checkpoint import load_model
+    from scenerf_tpu_torch.utils.lpips import LPIPS
+
+    t0 = time.perf_counter()
+    wait_procs(tree_procs, "make_fake_bf.py")
+    tree_s = time.perf_counter() - t0
+    root, logdir = str(tree), str(tree / "logs")
+    val_ds = ev.bf_val_ds(root)
+    if [s["frame_id"] for s in val_ds.scans] != [BF_VAL_FRAME] or len(bfd.BundlefusionDataset(
+            "train", root, frame_interval=2, n_frames=16).scans) != 3 * len(BF_TRAIN_SCENES):
+        fail(f"BundleFusion tree: val frames {[s['frame_id'] for s in val_ds.scans]}")
+
+    # ---- train-bundlefusion at the CLI's defaults, then resumed
+    argv = ["train-bundlefusion", "--root", root, "--logdir", logdir, *BF_TRAIN_FLAGS]
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    run1 = train_cli.cli.main(argv + ["--n_epochs", "1"], standalone_mode=False)
+    run2 = train_cli.cli.main(argv + ["--n_epochs", "2"], standalone_mode=False)
+    train_s = time.perf_counter() - t0
+    launches_train = dict(build.LAUNCHES)
+    train_peak = torch.cuda.max_memory_allocated()
+    trainer, mgr = run2["trainer"], run2["checkpoints"]
+    cfg = trainer.cfg
+    n_steps = len(run1["loss"]) + len(run2["loss"])
+    if (cfg.name, cfg.img_size, (cfg.sphere.width, cfg.sphere.height), cfg.n_rays, cfg.ray_chunk,
+            cfg.n_sources, cfg.som_sigma, cfg.compute_dtype) != ("bundlefusion", *BF_PRESET):
+        fail(f"train-bundlefusion's config at the CLI defaults: {cfg}")
+    if (run1["start_step"], run2["start_step"], trainer.step, n_steps) != (
+            0, BF_STEPS, 2 * BF_STEPS, 2 * BF_STEPS):
+        fail(f"train-bundlefusion: runs started at steps {run1['start_step']}, "
+             f"{run2['start_step']} and took {len(run1['loss'])} + {len(run2['loss'])} steps")
+    lr1 = cfg.lr * cfg.lr_decay_gamma
+    if trainer.steps_per_epoch != BF_STEPS or {g["lr"] for g in
+                                               trainer.optimizer.param_groups} != {lr1}:
+        fail(f"train-bundlefusion resume: {trainer.steps_per_epoch} steps per epoch, lr "
+             f"{[g['lr'] for g in trainer.optimizer.param_groups]}; expected epoch 1's {lr1}")
+    val = run1["val_metrics"] + run2["val_metrics"]
+    losses = run1["loss"] + run2["loss"]
+    if not (all(math.isfinite(v) for v in losses) and all(
+            v is not None and all(math.isfinite(x) for x in v.values()) for v in val)):
+        fail(f"train-bundlefusion: losses {losses} or val metrics {val} not finite")
+    abs_rel = [v["depth/abs_rel"] for v in val]
+    meta = mgr.read_meta()
+    if not (mgr.latest() and mgr.best() and meta["last_step"] == 2 * BF_STEPS
+            and meta["best_value"] == min(abs_rel)
+            and meta["best_step"] == (int(np.argmin(abs_rel)) + 1) * BF_STEPS):
+        fail(f"train-bundlefusion checkpoints: meta "
+             f"{ {k: v for k, v in meta.items() if k != 'config'} }; val abs_rel {abs_rel}")
+
+    # one more step on a train item, hooked: each BN site's configuration and
+    # K5 path, kernel C's launches (rays, with the EM) and the RaySOM inputs
+    batch = bfd.to_model_batch([bfd.BundlefusionDataset(
+        "train", root, n_sources=1, frame_interval=2, n_frames=16, seed=SEED)[0]], cfg)
+    paths, sites = {"forward": [], "backward": []}, {"train": [], "eval": []}
+
+    def site_hooks(path):
+        def record(mod, args, kwargs):
+            res_in = args[1] if len(args) > 1 else kwargs.get("residual")
+            sites[path].append((tuple(args[0].shape), mod.act, res_in is not None, mod.eps,
+                                mod.momentum, NM.plane(args[0])))
+        return [m.register_forward_pre_hook(record, with_kwargs=True)
+                for m in trainer.model.modules() if isinstance(m, FusedBatchNorm)]
+
+    c_launches, chunks = [], []
+    sort_composite, ray_som = rendering.sort_composite, rendering.ray_som
+
+    def recording_composite(sd, *a, som=None):
+        c_launches.append((sd.shape[0], som is not None))
+        return sort_composite(sd, *a, som=som)
+
+    def recording_som(m, s, sd, alphas, **kw):
+        chunks.append([t.detach() for t in (m, s, sd, alphas, *kw["em"])])
+        return ray_som(m, s, sd, alphas, **kw)
+
+    hooks = k5_path_hooks(trainer.model, paths) + site_hooks("train")
+    rendering.sort_composite, rendering.ray_som = recording_composite, recording_som
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.train_step(batch)
+        torch.cuda.synchronize()
+        hooked_step_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        rendering.sort_composite, rendering.ray_som = sort_composite, ray_som
+        for h in hooks:
+            h.remove()
+    trainer.model.eval()
+    hooks = site_hooks("eval")
+    with torch.no_grad():
+        ev.FrameEncoder(trainer.model)(ev.bf_val_ds(root, n_sources=0)[0])
+    for h in hooks:
+        h.remove()
+    if [len(paths[d]) for d in paths] != [BN_SITES] * 2 or len(sites["eval"]) != BN_SITES:
+        fail(f"BundleFusion K5 sites: paths {[len(v) for v in paths.values()]}, eval sites "
+             f"{len(sites['eval'])}; expected {BN_SITES} each")
+    cluster = {d: paths[d].count("cluster") for d in paths}
+    n_val = sum(run1["val_items"]) + sum(run2["val_items"])
+    want = {"bn_stats": BN_SITES * n_steps, "bn_bwd_reduce": BN_SITES * n_steps,
+            "bn_bwd_apply": BN_SITES * n_steps, "bn_apply": BN_SITES * (n_steps + n_val),
+            "bn_forward_fused": cluster["forward"] * n_steps,
+            "bn_backward_fused": cluster["backward"] * n_steps,
+            "ray_som_in_sort_composite": n_steps + n_val, "ray_som": n_steps + n_val,
+            "tsdf_integrate": 0, **{f"{k}_bf16": 0 for k in build.BF16_KERNELS}}
+    train_got = {k: launches_train[k] for k in want}
+    if train_got != want or min(launches_train[k] for k in TRAIN_KERNELS) < 1:
+        fail(f"train-bundlefusion launches {launches_train}; expected {want} and every "
+             "training kernel")
+    c_train = [r for r, with_som in c_launches if with_som]
+    if c_train != [cfg.n_rays] or [r for r, s in c_launches if not s] != [cfg.n_gt_depth]:
+        fail(f"kernel C's launches in a BundleFusion step (rays, with the EM): {c_launches}; "
+             f"expected one training launch at R = {cfg.n_rays} and the GT-depth render's")
+    print(f"[16 train-bundlefusion] {' '.join(BF_TRAIN_FLAGS)}, else the CLI's defaults ("
+          f"{cfg.encoder} at {cfg.img_size}, sphere {cfg.sphere.width}x{cfg.sphere.height}, "
+          f"{cfg.n_rays} rays in chunks of {cfg.ray_chunk}, {cfg.n_pts_uni} + {cfg.n_gaussians}x"
+          f"{cfg.n_pts_per_gaussian} samples, som_sigma {cfg.som_sigma}, {cfg.compute_dtype}) on "
+          f"the BundleFusion tree {BF_TREE_FRAMES} at {BF_TREE_SIZE}: run 1 "
+          f"{len(run1['loss'])} steps, run 2 resumed at step "
+          f"{run2['start_step']} with epoch 1's lr {lr1:.3e}; losses "
+          f"{['%.5f' % v for v in losses]}; val abs_rel {['%.5f' % v for v in abs_rel]} "
+          f"({n_val} val items); launches {train_got}")
+
+    # K5 at every distinct BundleFusion site configuration against its plain
+    # version (phase 12's checks, f32)
+    gen = torch.Generator(device=dev).manual_seed(SEED)
+    k5_rows = []
+    configs = sorted(set(sites["train"]) | set(sites["eval"]),
+                     key=lambda k: (-math.prod(k[0]), k[1], k[2], k[5]))
+    for key in configs:
+        chk = k5_site_check(key, gen, dev)
+        k5_rows.append(dict(shape=list(key[0]), act=key[1], residual=key[2],
+                            channel_first=bool(key[5]), paths=chk["paths"],
+                            sites={p: sites[p].count(key) for p in sites},
+                            max_abs_err=chk["err"], eval_spacings=chk["eval_spacings"],
+                            op_rel_l2=chk["op_l2"], kink_ties=int(chk["ties"].sum()),
+                            straddle=chk["straddle"]))
+        del chk
+    torch.cuda.empty_cache()
+    other = {d: sorted({p_ for p_ in paths[d] if p_ != "cluster"}) for d in paths}
+    print(f"[16 K5] plan: every BundleFusion site has a path, forward {cluster['forward']} "
+          f"cluster / {len(paths['forward']) - cluster['forward']} {other['forward']}, backward "
+          f"{cluster['backward']} cluster / {len(paths['backward']) - cluster['backward']} "
+          f"{other['backward']}; {len(k5_rows)} configurations "
+          f"(train and eval) hold phase 12's checks against the plain versions (the fused op's "
+          f"relative L2 at most {max(r_['op_rel_l2'] for r_ in k5_rows):.2e}; "
+          f"{sum(r_['straddle'] for r_ in k5_rows)} elements where the two sides' statistics "
+          f"put z on either side of the kink, beyond rounding); kernel C's "
+          f"launches in a step (rays, with the EM): {c_launches}")
+
+    # RaySOM at som_sigma 0.02: the EM inside kernel C's training launch
+    # against its plain version on the chunk's inputs
+    m, s, sd, alphas, *em = chunks[0]
+    em_plain = som_em_plain(m, s, sd, alphas, cfg.som_sigma, cfg.som_mask_threshold)
+    agree = torch.ones(m.shape[0], dtype=torch.bool, device=dev)
+    for a, b in zip(em[:2], em_plain[:2]):
+        agree &= torch.isclose(a, b, rtol=SOM_RTOL, atol=SOM_RTOL).all(dim=1)
+    agree &= (em[2] == em_plain[2]).all(dim=1)
+    kl = [ray_som(m, s, sd, alphas, som_sigma=cfg.som_sigma,
+                  mask_threshold=cfg.som_mask_threshold, std_floor=cfg.kl_std_floor,
+                  em=e).loss_kl.mean() for e in (em, list(em_plain))]
+    som_row = dict(rays=m.shape[0], agree_share=float(agree.float().mean()),
+                   kl_rel=float(abs(kl[0] - kl[1]) / abs(kl[1])))
+    if som_row["agree_share"] < SOM_MIN_SHARE:
+        fail(f"BundleFusion RaySOM: the EM inside C agrees with the plain version on "
+             f"{som_row['agree_share']:.4%} of {m.shape[0]} rays")
+    if som_chunk:
+        keep = slice(0, 512)
+        np.savez_compressed(som_chunk, **{k: t[keep].cpu().numpy() for k, t in zip(
+            ("gauss_means", "gauss_stds", "sensor_distances", "alphas", "kernel_new_means",
+             "kernel_new_vars", "kernel_mask"), chunks[0])}, som_sigma=cfg.som_sigma, card=card)
+    print(f"[16 RaySOM] som_sigma {cfg.som_sigma}: the EM inside C agrees with the plain "
+          f"version on {som_row['agree_share']:.4%} of {som_row['rays']} rays of a training "
+          f"chunk; mean KL relative difference {som_row['kl_rel']:.3e}"
+          + (f"; chunk saved to {som_chunk}" if som_chunk else ""))
+    del chunks, trainer, run1["trainer"], run2["trainer"], batch
+    torch.cuda.empty_cache()
+
+    # ---- the evaluation commands on `best`
+    model_path, out = str(mgr.directory), tree / "eval"
+    bf = ["--root", root, "--model_path", model_path, "--eval_save_dir", str(out)]
+    sd_ = LPIPS.random_init(torch.Generator().manual_seed(SEED)).state_dicts()
+    vgg_path, lin_path = str(tree / "vgg16.pth"), str(tree / "lpips_vgg.pth")
+    torch.save(sd_["vgg"], vgg_path)
+    torch.save(sd_["lpips"], lin_path)
+
+    def run(group, *a):
+        t0 = time.perf_counter()
+        res = group.main(list(a), standalone_mode=False)
+        return res, time.perf_counter() - t0
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    depth_run, depth_s = run(ev.cli, "save-depth-metrics-bf", *bf)
+    agg, _ = run(ev.cli, "agg-depth-metrics-bf", "--eval_save_dir", str(out))
+    color_run, color_s = run(ev.cli, "render-colors-bf", *bf)
+    scores, score_s = run(ev.cli, "eval-color-bf", "--eval_save_dir", str(out),
+                          "--lpips_vgg_path", vgg_path, "--lpips_lin_path", lin_path)
+    launches_eval = dict(build.LAUNCHES)
+    eval_peak = torch.cuda.max_memory_allocated()
+    build.reset_launch_counts()
+    again = (run(ev.cli, "save-depth-metrics-bf", *bf)[0],
+             run(ev.cli, "render-colors-bf", *bf)[0])
+    if again[0]["frames"] or again[1]["images"] or any(build.LAUNCHES.values()):
+        fail(f"second eval runs: {again[0]['frames']}, {again[1]['images']} images, launches "
+             f"{dict(build.LAUNCHES)}")
+    item = val_ds[0]
+    names = [f"{BF_VAL_FRAME}_{item['source_frame_ids'][s_]}_"
+             f"{ev.bf_source_distance(item, s_):.2f}.png" for s_ in range(BF_VAL_SOURCES)]
+    with open(out / "depth_metrics" / "copyroom" / f"{BF_VAL_FRAME}.npy", "rb") as f:
+        data = pickle.load(f)
+    total = sum(data["depth_errors"].values())
+    n_total = sum(data["n_frames"].values())
+    agg_all = sum(agg[0].values()) / sum(agg[1].values())
+    W, H = BF_TREE_SIZE
+    gt_rays = BF_VAL_SOURCES * W * H
+    if (depth_run["frames"] != [BF_VAL_FRAME] or depth_run["rays"] != [[W * H] * 16]
+            or n_total != BF_VAL_SOURCES or not np.isfinite(total).all()
+            or not np.allclose(agg_all, total / n_total, rtol=1e-12, atol=0)):
+        fail(f"save-depth-metrics-bf: frames {depth_run['frames']}, rays {depth_run['rays']}, "
+             f"n_frames {n_total}, errors {data['depth_errors']}; agg All {agg_all}")
+    for sub in ("rgb", "render_rgb"):
+        got_names = sorted(p.name for p in (out / sub / "copyroom").glob("*.png"))
+        if got_names != sorted(names):
+            fail(f"render-colors-bf: {sub}/copyroom holds {got_names}; expected {sorted(names)}")
+    sizes = {Image.open(out / "render_rgb" / "copyroom" / n).size for n in names}
+    if sizes != {(640, 480)} or color_run["images"] != BF_VAL_SOURCES:
+        fail(f"render-colors-bf: {color_run['images']} images of sizes {sizes}")
+    if sum(scores["count"].values()) != BF_VAL_SOURCES or not all(
+            math.isfinite(v) for d in ("psnr", "ssim", "lpips") for v in scores[d].values()):
+        fail(f"eval-color-bf: {dict(scores['count'])} pairs; psnr {dict(scores['psnr'])}")
+    strided = -(-W // 2) * -(-H // 2)  # the stride-2 grid of render-colors-bf and the sweep
+    c_chunks = BF_VAL_SOURCES * (-(-(W * H) // ev.EVAL_CHUNK) + -(-strided // ev.EVAL_CHUNK))
+    want = {"gather_levels": SPHERE_RESAMPLES * 2 + 2 * c_chunks, "sort_composite": c_chunks,
+            "bn_apply": BN_SITES * 2, "bn_stats": 0, "gather_levels_bwd": 0,
+            "sort_composite_bwd": 0, "ray_som": 0, "tsdf_integrate": 0}
+    got = {k: launches_eval[k] for k in want}
+    if got != want:
+        fail(f"BundleFusion eval launches {launches_eval}; expected {want}")
+
+    # one source's depth at its GT pixels, kernels against the plain versions
+    model = load_model(model_path, dev)
+    pyramid = ev.FrameEncoder(model)(item)
+    pixels, _, _ = ev.bf_depth_png(item, 0)
+    args = (model, pyramid, item["cam_K"], item["T_source2infers"][0], pixels, ev.EVAL_CHUNK)
+    depth = ev.render_depth_at_pixels(*args, torch.Generator(device=dev).manual_seed(0))[0]
+    with build.plain_versions():
+        ref = ev.render_depth_at_pixels(*args, torch.Generator(device=dev).manual_seed(0))[0]
+    share = float(np.isclose(depth, ref, rtol=SERVE_RTOL, atol=0).mean())
+    if share < SERVE_MIN_SHARE:
+        fail(f"BundleFusion eval render at {len(ref)} GT pixels: the kernels agree with the "
+             f"plain versions on {share:.4%} of rays")
+    print(f"[16 eval] save-depth-metrics-bf on {BF_VAL_SOURCES} sources ({gt_rays} GT pixels), "
+          f"agg All abs_rel {agg_all[0]:.4f} a1 {agg_all[4]:.4f}; render-colors-bf "
+          f"{color_run['images']} PNGs 640x480 (stride 2, upsampled); eval-color-bf PSNR "
+          f"{sum(scores['psnr'].values()) / BF_VAL_SOURCES:.3f}; second runs launched nothing; "
+          f"kernels vs plain at {len(ref)} GT pixels of source 0: {share:.4%} of rays within "
+          f"rtol {SERVE_RTOL}")
+    del model, pyramid
+    torch.cuda.empty_cache()
+
+    # ---- the reconstruction commands
+    recon = str(tree / "recon")
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    sweep, sweep_s = run(rc.cli, "generate-novel-depths-bf", "--root", root, "--model_path",
+                         model_path, "--recon_save_dir", recon)
+    fused, fuse_s = run(rc.cli, "depth2tsdf-bf", "--root", root, "--recon_save_dir", recon)
+    gt, gt_s = run(rc.cli, "generate-sc-gt-bf", "--root", root, "--recon_save_dir", recon)
+    sc, _ = run(ev.cli, "eval-sc-bf", "--root", root, "--recon_save_dir", recon)
+    angles, _ = run(rc.cli, "determine-angles", "--img_w", str(W), "--img_h", str(H), "--fx",
+                    str(item["cam_K"][0, 0]), "--fy", str(item["cam_K"][1, 1]), "--cx",
+                    str(item["cam_K"][0, 2]), "--cy", str(item["cam_K"][1, 2]))
+    launches_recon = dict(build.LAUNCHES)
+    recon_peak = torch.cuda.max_memory_allocated()
+    build.reset_launch_counts()
+    again = [run(rc.cli, c_, "--root", root, "--recon_save_dir", recon, *extra)[0]["frames"]
+             for c_, extra in (("generate-novel-depths-bf", ["--model_path", model_path]),
+                               ("depth2tsdf-bf", []), ("generate-sc-gt-bf", []))]
+    if any(again) or any(build.LAUNCHES.values()):
+        fail(f"second reconstruction runs did {again}, launches {dict(build.LAUNCHES)}")
+    rel_poses = rc.bf_rel_poses(30.0, 0.2, 2.1)
+    n_poses = len(rel_poses)
+    sweep_chunks = n_poses * -(-strided // rc.SWEEP_CHUNK)
+    want = {"gather_levels": SPHERE_RESAMPLES + 2 * sweep_chunks,
+            "sort_composite": sweep_chunks, "bn_apply": BN_SITES, "tsdf_integrate": 2,
+            "bn_stats": 0, "gather_levels_bwd": 0, "sort_composite_bwd": 0, "ray_som": 0}
+    got = {k: launches_recon[k] for k in want}
+    with open(Path(recon) / "tsdf" / "copyroom" / f"{BF_VAL_FRAME}.pkl", "rb") as f:
+        pred = pickle.load(f)
+    with open(Path(recon) / "sc_gt" / "copyroom" / f"{BF_VAL_FRAME}.pkl", "rb") as f:
+        gt_pkl = pickle.load(f)
+    if (n_poses != BF_SWEEP_POSES or got != want or sweep["frames"] != [BF_VAL_FRAME]
+            or fused["frames"] != [BF_VAL_FRAME] or gt["frames"] != [BF_VAL_FRAME]
+            or pred["tsdf_grid"].shape != BF_GRID or gt_pkl["occ"].shape != BF_GRID
+            or not fused["verts"][0] or not all(math.isfinite(sc[k]) for k in ("iou", "precision",
+                                                                             "recall"))
+            or not (gt_pkl["occ"] == 1).any()):
+        fail(f"BundleFusion reconstruction: {n_poses} poses, launches {launches_recon} "
+             f"(expected {want}), frames {sweep['frames']} {fused['frames']} {gt['frames']}, "
+             f"grid {pred['tsdf_grid'].shape}, mesh {fused['verts']} vertices, eval-sc {sc}")
+    depth0 = np.load(Path(recon) / "depth" / "copyroom" / f"{BF_VAL_FRAME}_0.00_0.00.npy")
+    if depth0.shape != (H, W) or not np.isfinite(depth0).all():
+        fail(f"generate-novel-depths-bf: depth {depth0.shape}, finite "
+             f"{np.isfinite(depth0).all()}")
+
+    # kernel T against its plain version: the sweep's fuse and the GT fuse
+    depths, colors, poses = rc._load_sweep_frames(recon, "copyroom", BF_VAL_FRAME, rel_poses)
+    K_d = item["cam_K_depth"]
+    t_rows = {}
+    for name, (d_, c_, p_) in {
+            "sweep": (depths, colors, poses),
+            "gt": (item["source_depths"], [im * np.float32(255.0) for im in item["img_sources"]],
+                   item["T_source2infers"])}.items():
+        f32 = lambda a: torch.from_numpy(np.stack(a).astype(np.float32)).to(dev)  # noqa: E731
+        w2cs = f32([np.linalg.inv(np.asarray(p)) for p in p_])
+        t_rows[name] = tsdf_against_plain(dev, f32(d_), f32(c_), f32([K_d] * len(d_)), w2cs)
+    torch.cuda.empty_cache()
+    print(f"[16 recon] {n_poses}-pose sweep, depth2tsdf-bf mesh {fused['verts'][0]} vertices, "
+          f"generate-sc-gt-bf {int((gt_pkl['occ'] == 1).sum())} surface voxels, eval-sc-bf "
+          f"IoU {sc['iou']:.4f} P {sc['precision']:.4f} R {sc['recall']:.4f}; "
+          f"determine-angles {angles}; second runs launched nothing; kernel T vs plain: "
+          + "; ".join(f"{k} {r['shape']}: bit-equal on {r['equal_share']:.6%} ({r['differ']} "
+                      f"differ, each at a pixel tie; {r['tie_voxels']} tie voxels)"
+                      for k, r in t_rows.items()))
+
+    numbers = dict(
+        tree_s=tree_s, train_s=train_s,
+        step_ms=statistics.median([x * 1e3 for x in run1["step_s"][1:] + run2["step_s"][1:]]),
+        steps_ms=[x * 1e3 for x in run1["step_s"] + run2["step_s"]],
+        host_item_ms={k: statistics.median([(r + c) * 1e3 for r, c in zip(
+            t["read_s"], t["collate_s"])]) for k, t in (("cold", run1["train_timings"]),
+                                                         ("resumed", run2["train_timings"]))},
+        val_item_ms=[s_ * 1e3 / n for s_, n in zip(run1["val_s"] + run2["val_s"],
+                                                    run1["val_items"] + run2["val_items"])],
+        save_ms=[s_ * 1e3 for s_ in run1["save_s"] + run2["save_s"]],
+        hooked_step_ms=hooked_step_ms, train_peak_gib=train_peak / 2**30,
+        depth_item_ms=(depth_run["read_s"][0] + depth_run["encode_s"][0]
+                       + depth_run["render_s"][0]) * 1e3,
+        depth_read_ms=depth_run["read_s"][0] * 1e3,
+        depth_encode_ms=depth_run["encode_s"][0] * 1e3,
+        depth_render_ms=depth_run["render_s"][0] * 1e3,
+        gt_rays=gt_rays, gt_rays_per_s=gt_rays / depth_run["render_s"][0],
+        color_image_ms=sum(color_run["render_s"]) * 1e3 / color_run["images"],
+        pair_host_ms=statistics.median(scores["host_s"]) * 1e3,
+        pair_lpips_ms=statistics.median(scores["lpips_s"]) * 1e3, eval_peak_gib=eval_peak / 2**30,
+        sweep_frame_s=sweep["encode_s"][0] + sweep["render_s"][0],
+        sweep_render_s=sweep["render_s"][0], sweep_write_s=sweep["write_s"][0],
+        fuse_ms=fused["fuse_s"][0] * 1e3, mesh_ms=fused["mesh_s"][0] * 1e3,
+        mesh_verts=fused["verts"][0], gt_fuse_ms=gt["fuse_s"][0] * 1e3,
+        recon_peak_gib=recon_peak / 2**30,
+        command_s=dict(eval_depth=depth_s, eval_color=color_s, eval_score=score_s,
+                       sweep=sweep_s, depth2tsdf=fuse_s, sc_gt=gt_s))
+    print(f"[16 numbers] on {card}: train-bundlefusion {numbers['step_ms']:.1f} ms per step "
+          f"through the loader (steps {['%.1f' % v for v in numbers['steps_ms']]}), host ms per "
+          f"item (read + collate, the loader thread) "
+          f"{ {k: round(v, 1) for k, v in numbers['host_item_ms'].items()} }, val "
+          f"{['%.1f' % v for v in numbers['val_item_ms']]} ms per item, save "
+          f"{['%.0f' % v for v in numbers['save_ms']]} ms, peak "
+          f"{numbers['train_peak_gib']:.2f} GiB; save-depth-metrics-bf "
+          f"{numbers['depth_item_ms']:.1f} ms per item = read {numbers['depth_read_ms']:.1f} + "
+          f"encode {numbers['depth_encode_ms']:.1f} + renders {numbers['depth_render_ms']:.1f} "
+          f"({numbers['gt_rays_per_s']:.0f} GT-pixel rays/s); render-colors-bf "
+          f"{numbers['color_image_ms']:.1f} ms per image; eval-color-bf per pair host "
+          f"{numbers['pair_host_ms']:.1f} + LPIPS {numbers['pair_lpips_ms']:.1f} ms; eval peak "
+          f"{numbers['eval_peak_gib']:.2f} GiB; sweep {numbers['sweep_frame_s']:.2f} s per frame "
+          f"(renders {numbers['sweep_render_s']:.2f} s, file writes "
+          f"{numbers['sweep_write_s']:.2f} s), fuse {numbers['fuse_ms']:.1f} ms, mesh "
+          f"{numbers['mesh_ms']:.1f} ms ({numbers['mesh_verts']} vertices), GT fuse "
+          f"{numbers['gt_fuse_ms']:.1f} ms; recon peak {numbers['recon_peak_gib']:.2f} GiB; "
+          f"kernel T at {t_rows['sweep']['shape']} {t_rows['sweep']['ms']:.3f} ms (events, "
+          f"fresh volume; plain {t_rows['sweep']['plain_ms']:.3f}, bound "
+          f"{t_rows['sweep']['bound_ms']:.3f} by {t_rows['sweep']['bound_by']}); commands "
+          f"{ {k: round(v, 1) for k, v in numbers['command_s'].items()} } s")
+    return {"launches": {"bf_train": launches_train, "bf_eval": launches_eval,
+                         "bf_recon": launches_recon},
+            "numbers": numbers, "k5_rows": k5_rows, "tsdf": t_rows, "som": som_row}
+
+
 def main() -> None:
+    ap = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA GPU.")
+    ap.add_argument("--bf-som-chunk", default=None,
+                    help="save phase 16's RaySOM chunk (512 rays) to this .npz")
+    opts = ap.parse_args()
     if not (ROOT / "scenerf_tpu_torch").is_dir():
         fail(f"the port package scenerf_tpu_torch is not beside {Path(__file__).name}")
     sys.path.insert(0, str(ROOT))
@@ -842,6 +1517,9 @@ def main() -> None:
     # phase 14's KITTI tree, written by two host processes meanwhile
     tree_dir = tempfile.TemporaryDirectory(prefix="scenerf_kitti_")
     tree_procs = start_kitti_tree(Path(tree_dir.name))
+    # phase 16's BundleFusion tree, likewise
+    bf_dir = tempfile.TemporaryDirectory(prefix="scenerf_bf_")
+    bf_procs = start_bf_tree(Path(bf_dir.name))
 
     # ---- 1. device -------------------------------------------------------
     card = subprocess.run(
@@ -1844,132 +2522,24 @@ def main() -> None:
     lib_act = {"identity": lambda z: z, "silu": F.silu,
                "leaky": lambda z: F.leaky_relu(z, NM.LEAKY_SLOPE)}
 
-    def rel_l2(a, b) -> float:
-        return float((a - b).norm()) / max(float(b.norm()), 1e-30)
-
-    def check_close(what, a, b, rtol=BN_RTOL):
-        atol = 1e-6 * float(b.abs().max())
-        ok = (a - b).abs() <= rtol * b.abs() + atol
-        if not bool(ok.all()):
-            fail(f"K5 {what}: {int((~ok).sum())} values beyond rtol {rtol} (max abs error "
-                 f"{float((a - b).abs().max()):.3e})")
-        return float((a - b).abs().max())
-
-    def check_l2(what, a, b):
-        """Relative L2 within BN_REL_L2; returns the max abs error."""
-        err = rel_l2(a, b)
-        if not (bool(torch.isfinite(a).all()) and err <= BN_REL_L2):
-            fail(f"K5 {what}: relative L2 {err:.3e} > {BN_REL_L2}")
-        return float((a - b).abs().max())
-
     bn_rows = []
     for key in configs:
         shape, act, has_res, eps, mom, layout = key
         count = {path: site_count[path].get(key, 0) for path in site_count}
         Cn = shape[-1]
         Mn = math.prod(shape[:-1])
-        what = (f"{list(shape)} {act}{' + residual' if has_res else ''}"
-                f"{' channel-first' if layout else ''}")
-
-        def draw():
-            """A seeded tensor of the site's shape and layout."""
-            if not layout:
-                return torch.randn(shape, generator=gen, device=dev)
-            return torch.randn(shape[0], Cn, *shape[1:-1], generator=gen,
-                               device=dev).movedim(1, -1)
+        what = k5_what(key)
 
         def lib_in(t):
             """The library's layout: NCHW for a channel-first site, [M, C] else."""
             return t.movedim(-1, 1) if layout else t.reshape(Mn, Cn)
 
-        x = draw() * 2 + 0.5
-        x[..., 0] = 0.5  # a constant channel: mean2 - mean^2 ties at 0
-        w = torch.rand(Cn, generator=gen, device=dev) + 0.5
-        b = torch.rand(Cn, generator=gen, device=dev) - 0.5
-        rm = torch.rand(Cn, generator=gen, device=dev) * 0.4 - 0.2
-        rv = torch.rand(Cn, generator=gen, device=dev) + 0.5
-        r = draw() if has_res else None
-        dy = draw()
+        chk = k5_site_check(key, gen, dev)
+        x, w, b, rm, rv, r, dy, st_p, gr_p = (chk[k] for k in (
+            "x", "w", "b", "rm", "rv", "r", "dy", "st_p", "gr_p"))
+        err, paths, eval_spacings, op_l2, ties = (chk[k] for k in (
+            "err", "paths", "eval_spacings", "op_l2", "ties"))
         run = lambda: [rm.clone(), rv.clone()]  # noqa: E731
-        err = {}
-        # N1: the statistics and the running update
-        rk, rp = run(), run()
-        _, st_k = NM.launch_forward(x, w, b, *rk, True, mom, eps, act, r, stages=1)
-        st_p = NM.stats_plain(x, w, b, *rp, mom, eps)
-        err["bn_stats"] = max(*(check_close(f"N1 {what} statistics row {i}", st_k[i], st_p[i])
-                                for i in range(5)),
-                              check_close(f"N1 {what} running mean", rk[0], rp[0]),
-                              check_close(f"N1 {what} running var", rk[1], rp[1]))
-        # N2 on the plain statistics; in eval mode folding the running ones
-        y_k, _ = NM.launch_forward(x, w, b, *run(), True, mom, eps, act, r, stages=2,
-                                   stats=st_p)
-        err["bn_apply"] = check_close(f"N2 {what}", y_k, NM.apply_plain(x, st_p, act, r))
-        ye_k, _ = NM.launch_forward(x, w, b, rm, rv, False, mom, eps, act, r, want_stats=False)
-        fold = NM.fold_plain(w, b, rm, rv, eps)
-        ye_p = NM.batch_norm_act_plain(x, w, b, rm, rv, False, mom, eps, act, r)
-        summands = (x * fold[NM.MUL]).abs() + fold[NM.ADD].abs() + (0 if r is None else r.abs())
-        spacing = torch.nextafter(summands, torch.full_like(summands, float("inf"))) - summands
-        eval_spacings = float(((ye_k - ye_p).abs() / spacing).max())
-        if not eval_spacings <= BN_EVAL_SPACINGS:
-            fail(f"K5 N2 eval {what}: {eval_spacings:.2f} f32 spacings from the plain version")
-        err["bn_apply"] = max(err["bn_apply"], float((ye_k - ye_p).abs().max()))
-        # N3, N4 on the plain statistics (and N4 on the plain coefficients)
-        _, gr_k, _ = NM.launch_backward(x, dy, w, st_p, True, eps, act, r, stages=1)
-        gr_p = NM.bwd_reduce_plain(x, dy, st_p, w, eps, act, True, r)
-        err["bn_bwd_reduce"] = max(check_l2(f"N3 {what} row {i}", gr_k[i], gr_p[i])
-                                   for i in range(4))
-        dx_k, _, dr_k = NM.launch_backward(x, dy, w, st_p, True, eps, act, r,
-                                           residual_grad=has_res, stages=2, grads=gr_p)
-        dx_p, dr_p = NM.bwd_apply_plain(x, dy, st_p, gr_p, act, r)
-        err["bn_bwd_apply"] = check_l2(f"N4 {what} dx", dx_k, dx_p)
-        if has_res:
-            err["bn_bwd_apply"] = max(err["bn_bwd_apply"], check_l2(f"N4 {what} d_r", dr_k, dr_p))
-        # each direction as the training step launches it (one launch on the
-        # cluster path): the statistics, y on its own statistics, the
-        # gradients and dx on its own gradients
-        paths = {d: NM.launch_path(x, d, act, r).path for d in ("forward", "backward")}
-        rf = run()
-        y_f, st_f = NM.launch_forward(x, w, b, *rf, True, mom, eps, act, r)
-        err["bn_forward_fused"] = max(
-            *(check_close(f"{paths['forward']} forward {what} statistics row {i}", st_f[i],
-                          st_p[i]) for i in range(5)),
-            check_close(f"{paths['forward']} forward {what} running mean", rf[0], rp[0]),
-            check_close(f"{paths['forward']} forward {what} running var", rf[1], rp[1]),
-            check_close(f"{paths['forward']} forward {what} y", y_f,
-                        NM.apply_plain(x, st_f, act, r)))
-        dx_f, gr_f, dr_f = NM.launch_backward(x, dy, w, st_p, True, eps, act, r,
-                                              residual_grad=has_res)
-        dx_fp, dr_fp = NM.bwd_apply_plain(x, dy, st_p, gr_f, act, r)
-        err["bn_backward_fused"] = max(
-            *(check_l2(f"{paths['backward']} backward {what} row {i}", gr_f[i], gr_p[i])
-              for i in range(4)),
-            check_l2(f"{paths['backward']} backward {what} dx", dx_f, dx_fp),
-            *((check_l2(f"{paths['backward']} backward {what} d_r", dr_f, dr_fp),)
-              if has_res else ()))
-        del y_f, dx_f, dr_f, dx_fp, dr_fp
-        # the fused op, train mode: the kernels' Function against autograd of
-        # the plain version (the gradient through mean and var included); the
-        # cotangent zeroed at the leaky-ReLU's kink ties (z within rounding of
-        # 0, where each side's statistics may pick the other slope)
-        ties = NM.kink_ties(x, st_p, act, r)
-        dy_op = torch.where(ties, torch.zeros_like(dy), dy)
-        sides = []
-        for plain in (False, True):
-            leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
-            rr = None if r is None else r.clone().requires_grad_(True)
-            stats = run()
-            with build.plain_versions() if plain else contextlib.nullcontext():
-                y = NM.batch_norm_act(*leaves, *stats, True, mom, eps, act, rr)
-            y.backward(dy_op)
-            sides.append([y.detach(), *stats, *(t.grad for t in leaves),
-                          *([] if rr is None else [rr.grad])])
-            del y, leaves, rr
-        for i, name in enumerate(("y", "running mean", "running var")):
-            check_close(f"{what} train {name}", sides[0][i], sides[1][i])
-        op_l2 = max(rel_l2(sides[0][i], sides[1][i]) for i in range(3, len(sides[0])))
-        for i, name in zip(range(3, len(sides[0])), ("x", "weight", "bias", "residual")):
-            check_l2(f"{what} train d{name}", sides[0][i], sides[1][i])
-        del sides
         # times
         nb = lambda *ts: nbytes(*(t for t in ts if t is not None))  # noqa: E731
         r_act = r if act != "identity" else None  # the backward reads r for z only
@@ -2076,8 +2646,7 @@ def main() -> None:
               f"{ {k: float('%.2e' % v) for k, v in err.items()} }, eval "
               f"{eval_spacings:.2f} spacings, op rel L2 {op_l2:.2e} ({int(ties.sum())} kink "
               f"ties)")
-        del x, r, dy, y_buf, dx_buf, dr_buf, leaf_x, leaf_r, y_k, ye_k, ye_p, dx_k, dx_p, dr_k
-        del dr_p, summands, spacing, stage_calls, ties, dy_op
+        del x, r, dy, y_buf, dx_buf, dr_buf, leaf_x, leaf_r, stage_calls, ties, chk
         torch.cuda.empty_cache()
 
     def per_step(get, path: str = "train") -> float:
@@ -2723,6 +3292,12 @@ def main() -> None:
     # ---- 15. eval ----------------------------------------------------------
     p15 = eval_phase(dev, card, Path(tree_dir.name), p14["model_path"])
     tree_dir.cleanup()
+    # ---- 16. BundleFusion --------------------------------------------------
+    p16 = bf_phase(dev, card, Path(bf_dir.name), bf_procs, opts.bf_som_chunk)
+    bf_dir.cleanup()
+    results["tsdf_integrate"]["bf"] = p16["tsdf"]
+    results["ray_som"]["bf"] = p16["som"]
+    results["bn_stats"]["bf_at_shapes"] = p16["k5_rows"]
     for name in b16:
         results[name]["bf16"]["launches_by_path"]["train_kitti"] = \
             p14["launches"][f"{name}_bf16"]
@@ -2751,7 +3326,8 @@ def main() -> None:
          "launches_by_path": {"serve": serve_launches.get(name, 0), "train": launches[name],
                               "reconstruction": recon_launches[name],
                               "train_kitti": p14["launches"][name],
-                              "eval": p15["launches"][name]},
+                              "eval": p15["launches"][name],
+                              **{k: v[name] for k, v in p16["launches"].items()}},
          **results[name]}
         for name, (src, rep) in sources.items()]}))
     print(f"card: {card}")

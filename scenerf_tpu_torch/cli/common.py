@@ -1,8 +1,11 @@
 """Shared helpers of the port's CLI entry points: the KITTI options, the val
 readers, the device, the encode, the evaluation tables and pixel grid, and
-the PNG writers (PIL and matplotlib imported inside them)."""
+the PNG writers (PIL imported inside them; the depth visual's colormap
+read from magma.txt, without matplotlib)."""
 from __future__ import annotations
 
+import time
+from pathlib import Path
 from typing import Dict, Optional, Tuple
 
 import click
@@ -74,6 +77,13 @@ def resolve_device(name: str) -> torch.device:
     return device
 
 
+def synced_clock(device: torch.device) -> float:
+    """The host clock once `device`'s queued work has ended."""
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
+
+
 def encode_frame(model: SceneRF, img_input: np.ndarray, cam_K: np.ndarray,
                  sphere_maps: Optional[Dict[int, np.ndarray]] = None) -> Dict[str, torch.Tensor]:
     """Encode one [H, W, 3] (or a batch of) normalized input frames on the
@@ -138,19 +148,49 @@ def print_color_metrics_table(psnr_accum, ssim_accum, lpips_accum, cnt_accum,
             "All     ", tp / tf, ts / tf, lp(tl / tf), tf))
 
 
+MAGMA_PATH = Path(__file__).with_name("magma.txt")
+_magma = []
+
+
+def colormap_magma(x: np.ndarray) -> np.ndarray:
+    """matplotlib's "magma" colormap of normalized values [...] -> RGB
+    [..., 3] in [0, 1], as `matplotlib.cm.ScalarMappable.to_rgba` maps them:
+    256 bins, values below 0 (above 1) take the first (last) color, NaN
+    black. The 256 colors are read from magma.txt beside this file, so
+    matplotlib is not needed."""
+    if not _magma:
+        _magma.append(np.loadtxt(MAGMA_PATH))
+    lut = _magma[0]
+    n = len(lut)
+    xa = np.array(x, copy=True)
+    xa *= n
+    xa[xa == n] = n - 1
+    under, over, bad = xa < 0, xa >= n, np.isnan(xa)
+    with np.errstate(invalid="ignore"):
+        idx = xa.astype(int)
+    idx[under] = 0
+    idx[over | bad] = n - 1
+    rgb = lut[idx]
+    rgb[bad] = 0.0
+    return rgb
+
+
 def save_depth_visual(path: str, depth: np.ndarray, min_depth=0.1, max_depth=100.0):
-    """Magma-colormapped disparity PNG."""
-    import matplotlib as mpl
-    import matplotlib.cm as cm
+    """Magma-colormapped disparity PNG: the disparity of the clipped depth,
+    normalized from its minimum to its 95th percentile."""
     from PIL import Image
 
     depth = np.clip(depth, min_depth, max_depth)
     min_disp, max_disp = 1.0 / max_depth, 1.0 / min_depth
     disp = 1.0 / depth - min_disp / (max_disp - min_disp)
-    vmax = np.percentile(disp, 95)
-    normalizer = mpl.colors.Normalize(vmin=disp.min(), vmax=vmax)
-    mapper = cm.ScalarMappable(norm=normalizer, cmap="magma")
-    colormapped = (mapper.to_rgba(disp)[:, :, :3] * 255).astype(np.uint8)
+    vmin, vmax = disp.min(), np.percentile(disp, 95)
+    x = np.array(disp, copy=True)
+    if vmin == vmax:
+        x.fill(0)
+    else:
+        x -= vmin
+        x /= (vmax - vmin)
+    colormapped = (colormap_magma(x) * 255).astype(np.uint8)
     Image.fromarray(colormapped).save(path, compress_level=PNG_COMPRESS_LEVEL)
 
 

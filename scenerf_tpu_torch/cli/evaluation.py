@@ -1,5 +1,6 @@
-"""Evaluation entry points on the KITTI val split, with the file layouts,
-printed tables and skip-if-exists behaviour of `scenerf_tpu/cli/evaluation.py`:
+"""Evaluation entry points on the KITTI and BundleFusion val splits, with
+the file layouts, printed tables and skip-if-exists behaviour of
+`scenerf_tpu/cli/evaluation.py`:
 
 - novel depth: `save-depth-metrics` renders depth at every LiDAR pixel of
   every source of each val frame (at the source's pose in the frame's
@@ -7,14 +8,20 @@ printed tables and skip-if-exists behaviour of `scenerf_tpu/cli/evaluation.py`:
   `<eval_save_dir>/depth_metrics/<seq>/<frame>.npy`
   ({"depth_errors": {k: 7-vector}, "n_frames": {k: count}}, readable by
   both packages); `agg-depth-metrics` sums them over sequence 08 into the
-  "Total" table;
+  "Total" table. `save-depth-metrics-bf` renders at every nonzero pixel of
+  each source's depth PNG (errors capped at 10 m; the distance is the
+  length of the source's translation), `agg-depth-metrics-bf` sums
+  copyroom's;
 - novel views: `render-colors` renders each source's pose at stride 3
   (407x124) into `<eval_save_dir>/render_rgb/<seq>/<frame>_<source>_<dist>.png`
   beside a copy of the source frame under `rgb/`; `eval-color` scores the
   pairs (PSNR, SSIM on the host; LPIPS-VGG16 on `--device`, from weights the
-  user names) per ceil(distance);
+  user names) per ceil(distance). `render-colors-bf` renders at stride 2
+  and upsamples to 640x480 (bilinear); `eval-color-bf` scores at 640x480;
 - scene reconstruction: `eval-sr` scores the fused TSDFs of
-  `cli/reconstruction.py` against the voxel GT (host numpy).
+  `cli/reconstruction.py` against the voxel GT, `eval-sc-bf` the
+  BundleFusion TSDFs against the fused GT occupancy of `generate-sc-gt-bf`
+  (host numpy).
 
     python -m scenerf_tpu_torch.cli.evaluation save-depth-metrics --root ... \\
         --preprocess_root ... --model_path ckpts/<exp> --eval_save_dir out [--device cpu]
@@ -22,6 +29,10 @@ printed tables and skip-if-exists behaviour of `scenerf_tpu/cli/evaluation.py`:
     python -m scenerf_tpu_torch.cli.evaluation render-colors ...same flags...
     python -m scenerf_tpu_torch.cli.evaluation eval-color --eval_save_dir out \\
         [--lpips_weights lpips.npz | --lpips_vgg_path vgg16.pth --lpips_lin_path lpips_vgg.pth]
+    python -m scenerf_tpu_torch.cli.evaluation save-depth-metrics-bf --root BF \\
+        --model_path ckpts/<exp> --eval_save_dir out [--frame_interval 2 --n_frames 16]
+    (likewise render-colors-bf; agg-depth-metrics-bf / eval-color-bf
+    --eval_save_dir out; eval-sc-bf --root BF --recon_save_dir recon)
 
 `--model_path` is the port's checkpoint: a `save_checkpoint` file or a
 `CheckpointManager` directory (its best, else its last); the renders run in
@@ -48,7 +59,9 @@ import torch
 
 from scenerf_tpu_torch import reconstruction as recon
 from scenerf_tpu_torch.cli import common
+from scenerf_tpu_torch.data.bundlefusion import BundlefusionDataset
 from scenerf_tpu_torch.data.kitti import VAL_ERROR_FRAMES
+from scenerf_tpu_torch.fusion.tsdf import tsdf2occ_bf
 from scenerf_tpu_torch.model import SceneRF
 from scenerf_tpu_torch.utils.checkpoint import load_model
 from scenerf_tpu_torch.utils.image_metrics import psnr, ssim
@@ -59,11 +72,15 @@ EVAL_CHUNK = 4000
 KITTI_EVAL_DEPTH = 80.0
 KITTI_COLOR_STRIDE = 3
 KITTI_COLOR_SIZE = (407, 124)  # (W, H) of the compared images
+BF_EVAL_DEPTH = 10.0
+BF_COLOR_STRIDE = 2
+BF_COLOR_SIZE = (640, 480)  # (W, H): renders upsampled to it, compared at it
+BF_SC_VOXEL = 0.04
 
 
 @click.group()
 def cli():
-    """KITTI evaluation."""
+    """KITTI and BundleFusion evaluation."""
 
 
 # --------------------------------------------------------------------------- #
@@ -130,9 +147,18 @@ def _device_of(model: SceneRF) -> torch.device:
     return next(model.parameters()).device
 
 
-def _sync(device: torch.device) -> None:
-    if device.type == "cuda":
-        torch.cuda.synchronize(device)
+def bf_val_ds(root: str, frame_interval: int = 2, n_frames: int = 16,
+              n_sources: int = 1000) -> BundlefusionDataset:
+    """BundleFusion's val frames (copyroom) with every source of their
+    windows, in order (the evaluation commands); `n_sources=0` reads none."""
+    return BundlefusionDataset("val", root, n_sources=n_sources, frame_interval=frame_interval,
+                               n_frames=n_frames, seed=0)
+
+
+BF_WINDOW_OPTS = [click.option("--frame_interval", default=2),
+                  click.option("--n_frames", default=16)]
+BF_OPTS = [click.option("--root", default=""), click.option("--model_path", default=""),
+           click.option("--eval_save_dir", default=""), *BF_WINDOW_OPTS]
 
 
 # --------------------------------------------------------------------------- #
@@ -169,8 +195,7 @@ def _save_depth_metrics_impl(dataset, model: SceneRF, eval_save_dir: str, eval_d
         item = dataset[idx]
         t1 = time.perf_counter()
         pyramid = encode(item)
-        _sync(dev)
-        t2 = time.perf_counter()
+        t2 = common.synced_clock(dev)
         agg, n_frames, rays = {}, {}, []
         for sid in range(len(item["img_sources"])):
             pixels, gt, dist = source_gt(item, sid)
@@ -187,8 +212,7 @@ def _save_depth_metrics_impl(dataset, model: SceneRF, eval_save_dir: str, eval_d
             else:
                 agg[k] = agg[k] + errors
                 n_frames[k] += 1
-        _sync(dev)
-        t3 = time.perf_counter()
+        t3 = common.synced_clock(dev)
 
         with open(save_filepath, "wb") as f:
             pickle.dump({"depth_errors": agg, "n_frames": n_frames}, f)
@@ -236,12 +260,49 @@ def save_depth_metrics(root, preprocess_root, model_path, eval_save_dir, sequenc
                                     eval_depth=KITTI_EVAL_DEPTH)
 
 
+def bf_source_distance(item, sid) -> float:
+    """A BundleFusion source's distance: the length of its translation to
+    the infer frame."""
+    return float(np.linalg.norm(item["T_source2infers"][sid][:3, 3]))
+
+
+def bf_depth_png(item, sid):
+    """A BundleFusion source's GT: every nonzero pixel of its depth PNG
+    [R, 2], the depths there [R] (f64 metres) and its distance."""
+    depth_im = item["source_depths"][sid]
+    ys, xs = np.nonzero(depth_im > 0)
+    return (np.stack([xs, ys], -1).astype(np.float32), depth_im[ys, xs],
+            bf_source_distance(item, sid))
+
+
+@cli.command("save-depth-metrics-bf")
+@common.add_opts(BF_OPTS)
+@common.N_DEVICES_OPT
+@common.DEVICE_OPT
+def save_depth_metrics_bf(root, model_path, eval_save_dir, frame_interval, n_frames, n_devices,
+                          device):
+    """Render depth at every nonzero depth-PNG pixel of every BundleFusion val
+    source frame; save per-frame error pickles (capped at 10 m)."""
+    device = common.resolve_device(device)
+    return _save_depth_metrics_impl(bf_val_ds(root, frame_interval, n_frames),
+                                    load_model(model_path, device), eval_save_dir,
+                                    eval_depth=BF_EVAL_DEPTH, source_gt=bf_depth_png)
+
+
 @cli.command("agg-depth-metrics")
 @click.option("--eval_save_dir", default="")
 def agg_depth_metrics(eval_save_dir):
     """Aggregate the per-frame depth-error pickles of sequence 08 into the
     per-distance table."""
     return _agg_depth_metrics_impl(eval_save_dir, ["08"])
+
+
+@cli.command("agg-depth-metrics-bf")
+@click.option("--eval_save_dir", default="")
+def agg_depth_metrics_bf(eval_save_dir):
+    """Aggregate the per-frame depth-error pickles of copyroom into the
+    per-distance table."""
+    return _agg_depth_metrics_impl(eval_save_dir, ["copyroom"])
 
 
 # --------------------------------------------------------------------------- #
@@ -255,10 +316,12 @@ def kitti_distance(item, sid) -> float:
 
 def _render_colors_impl(dataset, model: SceneRF, eval_save_dir: str, stride: int, chunk: int,
                         source_image_saver: Callable,
-                        source_distance: Callable = kitti_distance) -> Dict:
+                        source_distance: Callable = kitti_distance,
+                        upsample_to: Optional[tuple] = None) -> Dict:
     """Per val frame and source whose render is missing: save the source
     image under rgb/ (`source_image_saver(item, sid, path)`) if missing, and
-    the source pose's render at `stride` under render_rgb/; the frame is
+    the source pose's render at `stride` under render_rgb/, upsampled
+    (bilinear) to `upsample_to` (H, W) where given; the frame is
     encoded once, at its first missing render. Returns the images rendered
     and, per rendered frame, the host seconds of the item read, and the
     seconds of the encode, renders and PNG writes (ended by a synchronize)."""
@@ -294,13 +357,14 @@ def _render_colors_impl(dataset, model: SceneRF, eval_save_dir: str, stride: int
                 torch.Generator(device=dev).manual_seed(idx * 1000 + sid))
             # the grid is x-major (n_x, n_y): transpose to (H, W, 3)
             img = np.transpose(color.reshape(grid_shape[0], grid_shape[1], 3), (1, 0, 2))
+            if upsample_to is not None:
+                img = recon.upsample_to(torch.from_numpy(img), upsample_to).numpy()
             common.save_color_png(render_filepath, img)
             print("Color saved", render_filepath)
             done["images"] += 1
         if pyramid is not None:
-            _sync(dev)
             done["read_s"].append(t1 - t0)
-            done["render_s"].append(time.perf_counter() - t1)
+            done["render_s"].append(common.synced_clock(dev) - t1)
     return done
 
 
@@ -322,6 +386,27 @@ def render_colors(root, preprocess_root, model_path, eval_save_dir, sequence_dis
     return _render_colors_impl(ds, load_model(model_path, device), eval_save_dir,
                                stride=KITTI_COLOR_STRIDE, chunk=EVAL_CHUNK,
                                source_image_saver=save_src)
+
+
+@cli.command("render-colors-bf")
+@common.add_opts(BF_OPTS)
+@common.N_DEVICES_OPT
+@common.DEVICE_OPT
+def render_colors_bf(root, model_path, eval_save_dir, frame_interval, n_frames, n_devices,
+                     device):
+    """Render novel RGB views at stride 2 for every BundleFusion val source
+    frame, upsampled to 640x480."""
+    device = common.resolve_device(device)
+
+    def save_src(item, sid, path):
+        common.save_color_png(path, item["img_sources"][sid])
+
+    W, H = BF_COLOR_SIZE
+    return _render_colors_impl(bf_val_ds(root, frame_interval, n_frames),
+                               load_model(model_path, device), eval_save_dir,
+                               stride=BF_COLOR_STRIDE, chunk=EVAL_CHUNK,
+                               source_image_saver=save_src, source_distance=bf_source_distance,
+                               upsample_to=(H, W))
 
 
 def _eval_color_impl(eval_save_dir: str, sequence: str, resize, skip_frames=(),
@@ -378,23 +463,43 @@ def _eval_color_impl(eval_save_dir: str, sequence: str, resize, skip_frames=(),
             "host_s": host_s, "lpips_s": lpips_s}
 
 
+LPIPS_OPTS = [
+    click.option("--eval_save_dir", default=""),
+    click.option("--lpips_weights", default="", help="the JAX package's converted lpips npz"),
+    click.option("--lpips_vgg_path", default="", help="torchvision vgg16 state dict"),
+    click.option("--lpips_lin_path", default="", help="lpips linear weights state dict"),
+    common.DEVICE_OPT,
+]
+
+
+def _lpips_metric(lpips_weights, lpips_vgg_path, lpips_lin_path, device) -> Optional[LPIPS]:
+    """LPIPS on `device` from the weights the user names, else None."""
+    if lpips_weights:
+        return LPIPS.from_npz(lpips_weights, common.resolve_device(device))
+    if lpips_vgg_path:
+        return LPIPS.from_torch_checkpoint(lpips_vgg_path, lpips_lin_path,
+                                           common.resolve_device(device))
+    return None
+
+
 @cli.command("eval-color")
-@click.option("--eval_save_dir", default="")
-@click.option("--lpips_weights", default="", help="the JAX package's converted lpips npz")
-@click.option("--lpips_vgg_path", default="", help="torchvision vgg16 state dict")
-@click.option("--lpips_lin_path", default="", help="lpips linear weights state dict")
-@common.DEVICE_OPT
+@common.add_opts(LPIPS_OPTS)
 def eval_color(eval_save_dir, lpips_weights, lpips_vgg_path, lpips_lin_path, device):
     """PSNR / SSIM / LPIPS of the rendered novel views at 407x124, grouped
     by distance. LPIPS runs on --device, and only with weights given."""
-    metric = None
-    if lpips_weights:
-        metric = LPIPS.from_npz(lpips_weights, common.resolve_device(device))
-    elif lpips_vgg_path:
-        metric = LPIPS.from_torch_checkpoint(lpips_vgg_path, lpips_lin_path,
-                                             common.resolve_device(device))
-    return _eval_color_impl(eval_save_dir, "08", KITTI_COLOR_SIZE,
-                            skip_frames=VAL_ERROR_FRAMES, lpips_metric=metric)
+    return _eval_color_impl(eval_save_dir, "08", KITTI_COLOR_SIZE, skip_frames=VAL_ERROR_FRAMES,
+                            lpips_metric=_lpips_metric(lpips_weights, lpips_vgg_path,
+                                                       lpips_lin_path, device))
+
+
+@cli.command("eval-color-bf")
+@common.add_opts(LPIPS_OPTS)
+def eval_color_bf(eval_save_dir, lpips_weights, lpips_vgg_path, lpips_lin_path, device):
+    """PSNR / SSIM / LPIPS of copyroom's rendered novel views at 640x480 (no
+    resize), grouped by distance."""
+    return _eval_color_impl(eval_save_dir, "copyroom", BF_COLOR_SIZE,
+                            lpips_metric=_lpips_metric(lpips_weights, lpips_vgg_path,
+                                                       lpips_lin_path, device))
 
 
 # --------------------------------------------------------------------------- #
@@ -427,6 +532,36 @@ def eval_sr(root, preprocess_root, model_path, eval_save_dir, sequence_distance,
     s = fov_metric.get_stats()
     print(s["iou"], s["precision"], s["recall"])
     return metric.get_stats(), fov_metric.get_stats()
+
+
+@cli.command("eval-sc-bf")
+@click.option("--root", default="")
+@click.option("--recon_save_dir", default="")
+@common.add_opts(BF_WINDOW_OPTS)
+def eval_sc_bf(root, recon_save_dir, frame_interval, n_frames):
+    """BundleFusion scene-completion IoU / precision / recall of the fused
+    TSDFs (depth2tsdf-bf) against the fused-depth GT occupancy
+    (generate-sc-gt-bf): occupied where |tsdf| is below a threshold ramped
+    along the height, 0.1 x voxel per voxel, within [voxel, 10 x voxel]."""
+    ds = bf_val_ds(root, frame_interval, n_frames, n_sources=0)
+    metric = SSCMetrics(2)
+    for scan in ds.scans:
+        name = scan["frame_id"] + ".pkl"
+        tsdf_path = os.path.join(recon_save_dir, "tsdf", scan["sequence"], name)
+        gt_path = os.path.join(recon_save_dir, "sc_gt", scan["sequence"], name)
+        if not (os.path.exists(tsdf_path) and os.path.exists(gt_path)):
+            continue
+        with open(tsdf_path, "rb") as f:
+            tsdf = pickle.load(f)["tsdf_grid"]
+        with open(gt_path, "rb") as f:
+            target = pickle.load(f)["occ"]
+        occ = tsdf2occ_bf(tsdf, min_th=BF_SC_VOXEL, th=0.1, max_th=BF_SC_VOXEL * 10,
+                          voxel_size=BF_SC_VOXEL)
+        metric.add_batch(occ[None], np.asarray(target)[None])
+    s = metric.get_stats()
+    print("==== Scene Completion ====")
+    print(s["iou"], s["precision"], s["recall"])
+    return s
 
 
 if __name__ == "__main__":

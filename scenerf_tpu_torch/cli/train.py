@@ -1,20 +1,26 @@
-"""Training entry point on SemanticKITTI, `train-kitti`: the counterpart of
-`scenerf_tpu/cli/train.py:28-236` on one device.
+"""Training entry points on SemanticKITTI, `train-kitti`, and on
+BundleFusion, `train-bundlefusion`: the counterparts of
+`scenerf_tpu/cli/train.py:28-312` on one device.
 
     python -m scenerf_tpu_torch.cli.train train-kitti --root KITTI \\
         --preprocess_root PRE --logdir LOGS [--device cpu] [...]
+    python -m scenerf_tpu_torch.cli.train train-bundlefusion --root BF \\
+        --logdir LOGS [--device cpu] [...]
 
-Same flags, defaults and experiment name as the JAX package's command, plus
-`--device` (cuda:0 unless given cpu) and `--seed`. Each epoch reads a
-shuffled half of the train set (`len(train_loader)` steps: the staircase
-lr's epoch), then validates on sequence 08 and saves `last` (and `best`, on
-the mean val `depth/abs_rel`) under `{logdir}/ckpts/{exp_name}`; metrics go
-to `{logdir}/tb/{exp_name}/metrics.jsonl`. A run whose checkpoint directory
+Same flags, defaults and experiment names as the JAX package's commands,
+plus `--device` (cuda:0 unless given cpu), `--seed`, and for
+train-bundlefusion `--sequences` / `--val_sequences`. Each epoch reads a
+shuffled half (KITTI) or all (BundleFusion) of the train set
+(`len(train_loader)` steps: the staircase lr's epoch), then validates on
+the val split (sequence 08; copyroom) and saves `last` (and `best`, on the
+mean val `depth/abs_rel`) under `{logdir}/ckpts/{exp_name}`; metrics go to
+`{logdir}/tb/{exp_name}/metrics.jsonl`. A run whose checkpoint directory
 holds `last` resumes from it at the start of the epoch its step is in.
-Multi-GPU training and BundleFusion are not ported yet.
+Multi-GPU training is not ported yet.
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import time
 from typing import Callable, Dict, List, Optional
@@ -122,7 +128,7 @@ def run_training(cfg: CFG.SceneRFConfig, train_ds, val_ds,
 
 @click.group()
 def cli():
-    """Training on SemanticKITTI."""
+    """Training on SemanticKITTI and BundleFusion."""
 
 
 @cli.command("train-kitti")
@@ -190,6 +196,84 @@ def train_kitti(root, preprocess_root, logdir, bs, n_rays, n_sources, lr, weight
                           sequences=val_sequences.split(",") if val_sequences else None, **ds_kw)
     return run_training(cfg, train_ds, val_ds, lambda items: to_model_batch(items, cfg),
                         exp_name, logdir, n_epochs, enable_log, limit_train_fraction=0.5,
+                        batch_size=bs, seed=seed, max_steps_per_epoch=max_steps_per_epoch,
+                        device=device)
+
+
+@cli.command("train-bundlefusion")
+@click.option("--root", default="", help="path to bundlefusion folder")
+@click.option("--logdir", default="")
+@click.option("--bs", default=1)
+@click.option("--n_rays", default=2048)
+@click.option("--n_sources", default=1)
+@click.option("--lr", default=2e-5)
+@click.option("--weight_decay", default=0.0)
+@click.option("--n_epochs", default=50)
+@click.option("--enable_log", default=True, type=bool)
+@click.option("--frame_interval", default=2)
+@click.option("--n_frames", default=16)
+@click.option("--n_gaussians", default=4)
+@click.option("--n_pts_per_gaussian", default=8)
+@click.option("--n_pts_uni", default=32)
+@click.option("--n_gt_depth", default=1024)
+@click.option("--std", default=0.2)
+@click.option("--som_sigma", default=0.02)
+@click.option("--sample_grid_size", default=2)
+@click.option("--sampling_method", default="uniform", type=click.Choice(["uniform", "log"]))
+@click.option("--max_sample_depth", default=12.0)
+@click.option("--eval_depth", default=10.0, help="cap depth for evaluation")
+@click.option("--add_fov_hor", default=14.0)
+@click.option("--add_fov_ver", default=11.0)
+@click.option("--sphere_w", default=960)
+@click.option("--sphere_h", default=720)
+@click.option("--use_color", default=True, type=bool)
+@click.option("--use_reprojection", default=True, type=bool)
+@click.option("--img_w", default=640, help="input width (smoke runs shrink it)")
+@click.option("--img_h", default=480, help="input height (smoke runs shrink it)")
+@click.option("--encoder", default="effnet-b7")
+@click.option("--encoder_features", default=2560, help="bottleneck channels (matches --encoder)")
+@click.option("--exp_prefix", default="exp")
+@click.option("--compute_dtype", default="float32")
+@click.option("--max_steps_per_epoch", default=None, type=int)
+@click.option("--sequences", default="", help="comma list overriding the train scenes")
+@click.option("--val_sequences", default="", help="comma list overriding the val scenes")
+@click.option("--seed", default=42, help="weights, draws and shuffles")
+@common.DEVICE_OPT
+def train_bundlefusion(root, logdir, bs, n_rays, n_sources, lr, weight_decay, n_epochs,
+                       enable_log, frame_interval, n_frames, n_gaussians, n_pts_per_gaussian,
+                       n_pts_uni, n_gt_depth, std, som_sigma, sample_grid_size, sampling_method,
+                       max_sample_depth, eval_depth, add_fov_hor, add_fov_ver, sphere_w,
+                       sphere_h, use_color, use_reprojection, img_w, img_h, encoder,
+                       encoder_features, exp_prefix, compute_dtype, max_steps_per_epoch,
+                       sequences, val_sequences, seed, device):
+    """Train SceneRF on BundleFusion."""
+    from scenerf_tpu_torch.data.bundlefusion import BundlefusionDataset, to_model_batch
+
+    device = common.resolve_device(device)
+    cfg = CFG.bundlefusion(
+        n_rays=n_rays, n_sources=n_sources, lr=lr, weight_decay=weight_decay,
+        n_gaussians=n_gaussians, n_pts_per_gaussian=n_pts_per_gaussian, n_pts_uni=n_pts_uni,
+        std=std, som_sigma=som_sigma, encoder=encoder, n_gt_depth=n_gt_depth,
+        sample_grid_size=sample_grid_size, sampling_method=sampling_method,
+        max_sample_depth=max_sample_depth, eval_depth=eval_depth, use_color=use_color,
+        use_reprojection=use_reprojection, img_size=(img_w, img_h),
+        encoder_features=encoder_features, compute_dtype=compute_dtype)
+    # the BundleFusion-calibrated base angles stay: only the grid and the
+    # FOV margins are flags
+    cfg = cfg.replace(sphere=dataclasses.replace(cfg.sphere, width=sphere_w, height=sphere_h,
+                                                 add_fov_hor=add_fov_hor,
+                                                 add_fov_ver=add_fov_ver))
+    exp_name = (f"{exp_prefix}_bf_rays{n_rays}_gauss{n_gaussians}x{n_pts_per_gaussian}"
+                f"_std{std}_sigma{som_sigma}")
+    print("exp_name:", exp_name)
+    ds_kw = dict(n_sources=n_sources, frame_interval=frame_interval, n_frames=n_frames, seed=42)
+    train_ds = BundlefusionDataset("train", root,
+                                   sequences=sequences.split(",") if sequences else None, **ds_kw)
+    val_ds = BundlefusionDataset("val", root,
+                                 sequences=val_sequences.split(",") if val_sequences else None,
+                                 **ds_kw)
+    return run_training(cfg, train_ds, val_ds, lambda items: to_model_batch(items, cfg),
+                        exp_name, logdir, n_epochs, enable_log, limit_train_fraction=1.0,
                         batch_size=bs, seed=seed, max_steps_per_epoch=max_steps_per_epoch,
                         device=device)
 

@@ -7,12 +7,13 @@ for a whole frame sequence on the card, the plain version on the CPU). Modes
 as the JAX package: "closest" keeps the minimum-|distance| signed distance in
 meters (the behaviour the evaluation thresholds assume), "average" the
 truncated weighted running average. The occupancy thresholds (`tsdf2occ*`,
-`tsdf_to_gt_occupancy`) are host numpy. Marching cubes (`get_mesh`,
-`get_point_cloud`) is not ported yet.
+`tsdf_to_gt_occupancy`) are host numpy, and so are the mesh and point
+cloud (`get_mesh`, `get_point_cloud`: marching cubes of the tsdf volume,
+`fusion/meshing.py`).
 """
 from __future__ import annotations
 
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -93,6 +94,33 @@ class TSDFVolume:
     def get_volume(self) -> Tuple[np.ndarray, np.ndarray]:
         """(tsdf, packed color) as host numpy."""
         return self.tsdf.cpu().numpy(), self.color.cpu().numpy()
+
+    def _surface(self, tsdf_vol: np.ndarray, color_vol: np.ndarray):
+        """Marching cubes of `tsdf_vol` at 0: world vertices, faces, normals
+        and each vertex's color (the packed color of its nearest voxel)."""
+        from scenerf_tpu_torch.fusion.meshing import marching_cubes
+
+        verts, faces, norms = marching_cubes(tsdf_vol, level=0.0)
+        ind = np.clip(np.round(verts).astype(int), 0, np.asarray(tsdf_vol.shape) - 1)
+        colors = unpack_colors(color_vol[ind[:, 0], ind[:, 1], ind[:, 2]])
+        verts = verts * self._voxel_size + self._vol_origin
+        return verts, faces, norms, colors.astype(np.uint8)
+
+    def get_point_cloud(self) -> Tuple[np.ndarray, np.ndarray]:
+        """The surface's vertices in world coordinates [V, 3] and their uint8
+        colors [V, 3]."""
+        verts, _, _, colors = self._surface(*self.get_volume())
+        return verts, colors
+
+    def get_mesh(self, mask: Optional[np.ndarray] = None):
+        """The surface mesh: world vertices [V, 3], faces [F, 3] int32,
+        normals [V, 3] and uint8 vertex colors [V, 3]. Voxels outside `mask`
+        (any array of the grid's size) count as empty (tsdf 1)."""
+        tsdf_vol, color_vol = self.get_volume()
+        if mask is not None:
+            tsdf_vol = tsdf_vol.copy()  # on the CPU it shares the volume's memory
+            tsdf_vol[~mask.reshape(tsdf_vol.shape).astype(bool)] = 1.0
+        return self._surface(tsdf_vol, color_vol)
 
 
 def tsdf2occ_bf(tsdf: np.ndarray, min_th: float, th: float = 0.25,

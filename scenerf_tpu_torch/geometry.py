@@ -233,6 +233,36 @@ def sample_rel_poses(
     return poses
 
 
+def sample_rel_poses_bf(
+    angle: float = 0.0, max_distance: float = 2.1, step: float = 0.2
+) -> Dict[Tuple[float, float], np.ndarray]:
+    """BundleFusion-style pose sweep: forward steps x yaw angles {0, -a, +a}
+    (KITTI's order is {0, +a, -a}). Returns {(step, angle): 4x4}."""
+    angles: List[float] = [0.0] + ([-angle, angle] if angle != 0.0 else [])
+    poses = {}
+    for s in np.arange(0.0, max_distance, step):
+        for a in angles:
+            poses[(float(s), float(a))] = _y_rotation_pose(float(s), a)
+    return poses
+
+
+def determine_angles(inv_K: np.ndarray, img_W: int, img_H: int) -> Dict[str, float]:
+    """Min/max spherical angles (degrees) of a camera's pixel grid: the FOV
+    calibration that SphereConfig's base angles come from. The rays are
+    unprojected in numpy (f32 pixels times the f64 inverse intrinsics), the
+    angles computed in f32, as the JAX package computes them."""
+    pix = pixel_grid(img_W, img_H).numpy()
+    cam_pts = np.concatenate([pix, np.ones_like(pix[:, :1])], axis=1) @ \
+        np.asarray(inv_K)[:3, :3].T
+    v, h, _ = cam_pts_2_angles(torch.from_numpy(cam_pts.astype(np.float32)))
+    return {
+        "v_angle_min": float(v.min()),
+        "v_angle_max": float(v.max()),
+        "h_angle_min": float(h.min()),
+        "h_angle_max": float(h.max()),
+    }
+
+
 def rel_pose_stack(poses: Dict[Tuple[float, float], np.ndarray]) -> np.ndarray:
     """Stack a pose sweep dict into one [P, 4, 4] array."""
     return np.stack(list(poses.values()), axis=0)

@@ -1,8 +1,9 @@
-"""Build the port's host C++ (ICP registration, `icp.cpp`) with g++ at first
-use and load it with ctypes.
+"""Build the port's host C++ (ICP registration, `icp.cpp`; marching cubes,
+`meshing.cpp`) with g++ at first use and load it with ctypes.
 
-The flags are the JAX package's (`-O3 -shared -fPIC -std=c++17`), so both
-builds of the same source register point clouds bit for bit alike on one
+The sources are the port's copies of the JAX package's, built with its
+flags (`-O3 -shared -fPIC -std=c++17`), so both builds of the same source
+register point clouds and extract meshes bit for bit alike on one
 machine. The library goes under `build/native/` at the repository root,
 named by a hash of the source and the flags: never into the source tree.
 Nothing is built or loaded at import time.
@@ -18,7 +19,7 @@ from pathlib import Path
 
 HERE = Path(__file__).resolve().parent
 BUILD_DIR = HERE.parents[1] / "build" / "native"
-SOURCES = ("icp.cpp",)
+SOURCES = ("icp.cpp", "meshing.cpp")
 CXX_FLAGS = ("-O3", "-shared", "-fPIC", "-std=c++17")
 
 _lock = threading.Lock()
@@ -54,5 +55,12 @@ def load() -> ctypes.CDLL:
             fp = ctypes.POINTER(ctypes.c_float)
             lib.icp_register.argtypes = [fp, ctypes.c_int, fp, ctypes.c_int, ctypes.c_float,
                                          ctypes.c_int, ctypes.POINTER(ctypes.c_double)]
+            lib.mc_run2.restype = ctypes.c_void_p
+            lib.mc_run2.argtypes = [fp, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+                                    ctypes.c_float, ctypes.c_int]
+            i64 = ctypes.POINTER(ctypes.c_int64)
+            lib.mc_counts.argtypes = [ctypes.c_void_p, i64, i64]
+            lib.mc_copy.argtypes = [ctypes.c_void_p, fp, ctypes.POINTER(ctypes.c_int32), fp]
+            lib.mc_free.argtypes = [ctypes.c_void_p]
             _lib = lib
     return _lib

@@ -1,7 +1,8 @@
-"""The KITTI reconstruction chain as plain functions on tensors, shared by the
-CLI (`cli/reconstruction.py`, `cli/evaluation.py`) and `chip_smoke.py`:
-render a frame's pose sweep, upsample it to full resolution, fuse it into the
-KITTI TSDF grid (kernel T) and score the occupancy against the voxel GT.
+"""The reconstruction chain as plain functions on tensors, shared by the CLI
+(`cli/reconstruction.py`, `cli/evaluation.py`) and `chip_smoke.py`: render
+a frame's pose sweep, upsample it to full resolution, fuse it into the KITTI
+or BundleFusion TSDF grid (kernel T) and score the KITTI occupancy against
+the voxel GT.
 Counterpart of `scenerf_tpu/cli/reconstruction.py:25-119,172-213` and
 `scenerf_tpu/cli/evaluation.py:450-465`. The sweep runs in the model's
 compute dtype (a checkpoint's config carries it: bf16 encodes and fields
@@ -26,6 +27,11 @@ KITTI_SCENE_SIZE = np.array([51.2, 51.2, 6.4])
 KITTI_VOX_ORIGIN = np.array([0, -25.6, -2])
 KITTI_VOXEL_SIZE = 0.2
 KITTI_TRUNC_MARGIN = 10.0
+# the BundleFusion grid: 120 x 120 x 96 voxels of 0.04 m around the camera
+BF_SCENE_SIZE = np.array([4.8, 4.8, 3.84])
+BF_VOX_ORIGIN = np.array([-2.4, -2.4, 0.0])
+BF_VOXEL_SIZE = 0.04
+BF_TRUNC_MARGIN = 10.0
 
 
 def upsample_to(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
@@ -63,6 +69,13 @@ def kitti_volume(device, mode: str = "closest") -> TSDFVolume:
     bnds = np.stack([KITTI_VOX_ORIGIN, KITTI_VOX_ORIGIN + KITTI_SCENE_SIZE], axis=1)
     return TSDFVolume(bnds, voxel_size=KITTI_VOXEL_SIZE, trunc_margin=KITTI_TRUNC_MARGIN,
                       mode=mode, device=device)
+
+
+def bf_volume(device) -> TSDFVolume:
+    """An empty BundleFusion TSDF volume on `device`."""
+    bnds = np.stack([BF_VOX_ORIGIN, BF_VOX_ORIGIN + BF_SCENE_SIZE], axis=1)
+    return TSDFVolume(bnds, voxel_size=BF_VOXEL_SIZE, trunc_margin=BF_TRUNC_MARGIN,
+                      device=device)
 
 
 def fuse_kitti_sweep(depths: torch.Tensor, colors: torch.Tensor, cam_K: np.ndarray,

@@ -10,7 +10,9 @@ lands on (atomic contention), saturated alphas; kernel S with argmax ties;
 kernel C's training launch with RaySOM's EM inside (C = 1, 4, 8) against
 the plain pair and C-bwd through its sort order, at every block size;
 outputs that carry a `grad_fn` on the card; and the `tiny` training step
-on the card against the CPU, also as `run_training` on a small KITTI tree.
+on the card against the CPU, also as `run_training` on a small KITTI tree
+and at the BundleFusion preset's loss and sampling fields on a small
+BundleFusion tree.
 Kernel G bit-equal
 at one level of every KITTI tap width and lane-group size; G-bwd's vector
 and scalar atomics, its run-merging mapping, and a training step's chunk
@@ -18,7 +20,8 @@ gathers adding into one pyramid's shared buffers. Kernel T (TSDF
 integrate) in both modes: one frame, ties on `>=`, voxels behind the camera
 and on its z = 0 plane, pixels at the image border and on .5 boundaries, and
 63 frames at the KITTI grid; bit-equal to the plain version but for voxels
-at a pixel-rounding tie (at most 0.01% of the grid). Kernel K5 (N1-N4:
+at a pixel-rounding tie (at most 0.01% of the grid); marching cubes of a
+volume the card fused at the BundleFusion grid. Kernel K5 (N1-N4:
 batch norm + activation + residual) against the plain version and its
 autograd in train and eval mode: C in {2, 3, 80, 3840}, M from 1 to 678,000,
 a constant channel, every activation with and without the residual, the
@@ -585,6 +588,63 @@ def test_run_training_on_card_matches_cpu(dev, tmp_path):
                                want["total_loss"] - want["loss_som_kl"], rtol=1e-3)
 
 
+def _bf_tiny_config(**kw):
+    """The BundleFusion preset (its loss and sampling fields and sphere
+    angles) at the `tiny` widths and 64x48, on an 81x65 sphere (at even
+    sizes the preset's symmetric angles put the principal axes on .5 cell
+    boundaries, rounding ties between any two implementations)."""
+    import dataclasses
+
+    sphere = dataclasses.replace(C.bundlefusion().sphere, width=81, height=65)
+    return C.bundlefusion(img_size=(64, 48), sphere=sphere, n_rays=64, n_pts_uni=8,
+                          n_gaussians=3, n_pts_per_gaussian=4, d_hidden=32, n_blocks=2,
+                          d_latent=0, encoder="tiny", encoder_features=64, n_sources=2,
+                          n_gt_depth=32, ray_chunk=32, eval_ray_chunk=64, **kw)
+
+
+def test_bf_run_training_on_card_matches_cpu(dev, tmp_path):
+    """`run_training` of the BundleFusion preset at the tiny widths on a
+    fake 64x48 BundleFusion tree (scripts/make_fake_bf.py, all 8 scenes):
+    2 steps on apt0 and a val batch on the card against the CPU from the
+    same host-seeded weights and draws, at lr 0 (see
+    test_run_training_on_card_matches_cpu): each step's loss and the val
+    metrics rtol 1e-3, RaySOM's by the rest of the val loss."""
+    from scenerf_tpu_torch.cli.train import run_training
+    from scenerf_tpu_torch.data.bundlefusion import SPLITS, BundlefusionDataset, to_model_batch
+    from scripts.make_fake_bf import write_fake_bf
+
+    root = str(tmp_path / "bf")
+    write_fake_bf(root, frames=10, size=(64, 48), scenes=tuple(SPLITS["all"]))
+    cfg = _bf_tiny_config(lr=0.0)
+    kw = dict(n_sources=cfg.n_sources, frame_interval=1, n_frames=4, seed=42)
+    runs, launches = {}, {}
+    for name, device in (("cpu", "cpu"), ("card", dev)):
+        train_ds = BundlefusionDataset("train", root, sequences=["apt0"], **kw)
+        val_ds = BundlefusionDataset("val", root, **kw)
+        build.reset_launch_counts()
+        runs[name] = run_training(cfg, train_ds, val_ds, lambda it: to_model_batch(it, cfg),
+                                  "exp", str(tmp_path / name), 1, False,
+                                  limit_train_fraction=1.0, max_steps_per_epoch=2,
+                                  device=device)
+        launches[name] = dict(build.LAUNCHES)
+    assert not any(launches["cpu"].values())
+    train_kernels = ("gather_levels", "gather_levels_bwd", "sort_composite",
+                     "sort_composite_bwd", "ray_som", "bn_stats", "bn_apply", "bn_bwd_reduce",
+                     "bn_bwd_apply")
+    assert all(launches["card"][k] >= 1 for k in train_kernels), launches["card"]
+    cpu, card = runs["cpu"], runs["card"]
+    assert len(card["loss"]) == 2
+    np.testing.assert_allclose(card["loss"], cpu["loss"], rtol=1e-3)
+    (want,), (got,) = cpu["val_metrics"], card["val_metrics"]
+    assert set(got) == set(want)
+    som = ("loss_som_kl", "min_som_vars", "total_loss")
+    for k in want:
+        if k not in som:
+            np.testing.assert_allclose(got[k], want[k], rtol=1e-3, atol=1e-6, err_msg=k)
+    np.testing.assert_allclose(got["total_loss"] - got["loss_som_kl"],
+                               want["total_loss"] - want["loss_som_kl"], rtol=1e-3)
+
+
 # ---------------------------------------------------------------- kernel T
 
 TSDF_MIN_EQUAL = 0.9999
@@ -691,6 +751,58 @@ def test_tsdf_kernel_kitti_grid_63_frames(dev, mode):
                       torch.from_numpy(np.tile(K[None], (63, 1, 1))).to(dev), w2cs,
                       KITTI_VOX_ORIGIN, 0.2, 10.0, mode)
     assert float(got[1].max()) <= 63 and bool((got[1] > 0).any())
+
+
+def test_marching_cubes_on_card_fused_volume(dev):
+    """BundleFusion's grid (120x120x96 at 0.04 m) fused on the card by
+    kernel T from 16 frames of a room seen from yawed cameras, and on the
+    CPU by the plain version: the volumes bit-equal but at pixel-rounding
+    ties; the mesh of the card's volume (`get_mesh` reads it back) equals
+    marching cubes of its host copy, and matches the CPU volume's mesh where
+    the volumes are equal (the vertex counts within 0.1%)."""
+    from scenerf_tpu_torch.reconstruction import BF_VOX_ORIGIN, bf_volume
+    from scenerf_tpu_torch.fusion.meshing import marching_cubes
+
+    g = torch.Generator().manual_seed(16)
+    H, W, F_ = 96, 128, 16
+    K = torch.tensor([[105.0, 0, 63.7], [0, 105.0, 47.3], [0, 0, 1]])
+    yy, xx = torch.meshgrid(torch.arange(H), torch.arange(W), indexing="ij")
+    c2ws = []
+    for f in range(F_):
+        a = 0.04 * f - 0.3
+        c2w = torch.eye(4, dtype=torch.float64)
+        c2w[0, 0], c2w[0, 2], c2w[2, 0], c2w[2, 2] = math.cos(a), math.sin(a), -math.sin(a), math.cos(a)
+        c2w[:3, 3] = torch.tensor([0.05 * f - 0.4, 0.02 * f, 0.1], dtype=torch.float64)
+        c2ws.append(c2w.numpy())
+    depths = (2.0 + 0.8 * torch.sin(xx / 17.0) * torch.cos(yy / 13.0)
+              + 0.01 * torch.rand(F_, H, W, generator=g)).float()
+    colors = torch.floor(torch.rand(F_, H, W, 3, generator=g) * 256)
+    vols = {}
+    for name, device in (("card", dev), ("cpu", "cpu")):
+        vol = bf_volume(device)
+        build.reset_launch_counts()
+        vol.integrate_frames(colors.to(device), depths.to(device), K.expand(F_, 3, 3).numpy(),
+                             np.stack(c2ws))
+        assert build.LAUNCHES["tsdf_integrate"] == (name == "card")
+        vols[name] = vol
+    assert vols["card"].shape == (120, 120, 96)
+    got, want = vols["card"].get_volume(), vols["cpu"].get_volume()
+    w2cs = torch.from_numpy(np.stack([np.linalg.inv(c) for c in c2ws]).astype(np.float32))
+    ties = pixel_ties((120, 120, 96), BF_VOX_ORIGIN.astype(np.float32), 0.04,
+                      K.expand(F_, 3, 3), w2cs).numpy()
+    differs = (got[0] != want[0]) | (got[1] != want[1])
+    assert not (differs & ~ties).any() and differs.mean() <= 1 - TSDF_MIN_EQUAL
+    verts, faces, norms, vcolors = vols["card"].get_mesh()
+    v0, f0, n0 = marching_cubes(got[0])
+    np.testing.assert_array_equal(faces, f0)
+    np.testing.assert_array_equal(norms, n0)
+    np.testing.assert_array_equal(verts, v0 * np.float32(0.04) + BF_VOX_ORIGIN.astype(np.float32))
+    assert len(faces) > 1000 and vcolors.shape == verts.shape
+    cpu_mesh = vols["cpu"].get_mesh()
+    if not differs.any():
+        for a, b in zip((verts, faces, norms, vcolors), cpu_mesh):
+            np.testing.assert_array_equal(a, b)
+    assert abs(len(verts) - len(cpu_mesh[0])) <= 1e-3 * len(cpu_mesh[0])
 
 
 # ---------------------------------------------------------------- kernel K5

@@ -44,6 +44,9 @@ def test_port_imports_without_jax(part):
     if part == "library":
         out = run('''
 lib = [n for n in names if not n.startswith("scenerf_tpu_torch.cli")]
+for n in ("scenerf_tpu_torch.data.bundlefusion", "scenerf_tpu_torch.fusion.meshing",
+          "scenerf_tpu_torch.fusion.tsdf", "scenerf_tpu_torch.native.build"):
+    assert n in lib, n
 for n in lib:
     importlib.import_module(n)
 assert "click" not in sys.modules, "a library module imported click"
@@ -54,6 +57,9 @@ print(len(lib))
         out = run('''
 for n in names:
     importlib.import_module(n)
+for n in ("scenerf_tpu_torch.cli.train", "scenerf_tpu_torch.cli.evaluation",
+          "scenerf_tpu_torch.cli.reconstruction"):
+    assert n in names, n
 import chip_smoke
 assert callable(chip_smoke.main)
 print(sum(n.startswith("scenerf_tpu_torch.cli") for n in names))
