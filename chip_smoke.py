@@ -165,9 +165,41 @@ Phases (each prints one line and raises on failure):
      (host read, encode, renders) and GT-pixel rays/s; render-colors-bf ms
      per image; eval-color-bf ms per pair; s per sweep frame, fuse, mesh and
      GT-fuse ms, the mesh's vertex count; kernel T's time at the BF grid
+ 17. several ranks: K5's synced stages (N1 and N3 without their finalize,
+     the two finalize launches) at every distinct bf16 training
+     configuration of phase 13 against their plain versions (the finalizes
+     on a rank's and the world's sums of two halves), each direction
+     of the synced path timed alone and summed over a step's 192 sites
+     beside the cluster path's, the stages beside torch.batch_norm_stats,
+     batch_norm_gather_stats_with_counts and batch_norm_backward_reduce;
+     then PAR_RANKS ranks on cuda:0 over gloo, child processes of this
+     script with torchrun's environment (`--parallel-rank DIR`), reaped by
+     it: (0) the synced op across the ranks at three B7 sites, f32 and
+     bf16, against the plain version on all the ranks' rows; (1)
+     train-kitti --parallel_mode data --bs 2 at phase 14's flags on
+     its tree, one item a rank: parameters and gradients bit-equal across
+     the ranks after every step, each site's synced batch statistics within
+     BN_STATS_TOL of f64 over both items, the first AdamW move, no cluster
+     launch and the synced launches and all-reduces as counted; (2)
+     ray_shard at --bs 1 on make_batch at lr 0, in bf16 and in f32, against
+     the one-rank step on the same item, seed and weights, run twice, and
+     against the split played on one rank (loss rtol 1e-3; in f32 phase
+     10's leaves, relative L2 1e-2 each but those zero up to rounding; in
+     bf16, whose step does not repeat on the card, the whole gradient
+     within SHARD_FLOOR_RATIO times the one-rank step's run-to-run
+     difference), the ranks bit-equal;
+     (3) save-depth-metrics
+     --n_devices 2 on phase 15's tree and best: phase 15's files, metrics
+     within rtol 1e-3, one source's rays >= 99% equal to the one-rank render
+     at rtol 1e-3; a frame's encode beside broadcasting its levels; (4) a
+     one-rank NCCL group in this process all-reduces one step's gradient
+     buffer. Prints ms per step, peak memory per rank, the synced-BN and
+     gradient all-reduces' ms per step, the synced K5 ms per step, all
+     labelled as two ranks sharing one card through the host
 Then one JSON line of per-kernel results (each bf16 kernel's bf16 results
 under "bf16"; "launches_by_path" gains "train_kitti", "eval", "bf_train",
-"bf_eval" and "bf_recon"; T, RaySOM and K5 gain their BF rows), the card
+"bf_eval", "bf_recon" and "parallel"; T, RaySOM and K5 gain their BF rows; K5's
+synced stages count their launches in phase 17's data-mode run), the card
 line, and the last line
 {"ok": true, "device": {...}}. It exits non-zero, printing no result, when no
 CUDA device is present or any phase fails. Imports torch, numpy and the port
@@ -181,6 +213,7 @@ import contextlib
 import copy
 import json
 import math
+import os
 import pickle
 import re
 import statistics
@@ -1475,10 +1508,815 @@ def bf_phase(dev, card: str, tree: Path, tree_procs: list, som_chunk: str | None
             "numbers": numbers, "k5_rows": k5_rows, "tsdf": t_rows, "som": som_row}
 
 
+# ---- phase 17: several ranks -------------------------------------------------
+
+PAR_RANKS = 2              # phase 17's ranks, sharing cuda:0 over gloo
+PAR_BS = 2                 # data mode's global batch: one item a rank
+PAR_TIMEOUT_S = 420        # the ranks' wall time at most
+SHARD_LOSS_RTOL = TRAIN_LOSS_RTOL     # ray_shard vs one rank: phase 10's bars (the step is
+SHARD_GRAD_REL_L2 = TRAIN_GRAD_REL_L2  # chaotic in its encode: ROADMAP Queue 3)
+# ray_shard's gradient, in f32: every leaf within SHARD_GRAD_REL_L2 of one
+# rank's and of the split played on one rank, but the leaves zero up to
+# rounding (norm <= 1e-6 of the largest: within 1e-5 of it), phase 10's
+# rule. In bf16 the step does not repeat on the card (H100 80GB HBM3, 700
+# W): the one-rank step run twice differs by ~3% (relative L2 of the whole
+# gradient; single leaves by up to ~150%), the backward's bf16 roundings
+# walking apart from the last bits of nondeterministic f32 atomics. So the
+# bf16 gradient is held as a whole, against one rank's and against the
+# split's, each within SHARD_FLOOR_RATIO times that run-to-run floor
+# measured in the same run (sound readings there 0.83-1.07 of it, a psum
+# whose backward skips the sum 12.5), the floor itself within
+# SHARD_BF16_FLOOR
+SHARD_ZERO_LEAF = (1e-6, 1e-5)  # f32: (norm floor, bound), in units of the largest leaf's norm
+SHARD_FLOOR_RATIO = 2.0
+SHARD_BF16_FLOOR = 1e-1
+SHARD_DTYPES = ("bfloat16", "float32")
+SHARD_EVAL_RTOL = 1e-3     # sharded save-depth-metrics vs one rank: the pickles, and rays
+SHARD_MIN_SHARE = 0.99     # equal at rtol SHARD_EVAL_RTOL
+SYNC_KERNELS = ("bn_sync_sums", "bn_sync_stats", "bn_sync_bwd_sums", "bn_sync_grads")
+# three B7 training sites [rows a rank, C], activation, residual: the synced op
+# across the ranks against the plain version on all their rows
+SYNC_SITES = ((169500, 160, "silu", True), (28365, 288, "silu", False),
+              (10528, 640, "leaky", True))
+SYNC_REPLACES = "scenerf_tpu/encoder/norm.py:62"  # FusedBatchNorm's pmean of mean, mean(x^2)
+
+
+def fingerprint(tensors) -> "torch.Tensor":
+    """[n, 2] int64 on the host: per tensor, the sum of its 32-bit words and
+    their sum weighted by position (a one-bit difference anywhere changes
+    them)."""
+    import torch
+
+    rows = []
+    for t in tensors:
+        w = t.detach().reshape(-1).contiguous()
+        w = (w.view(torch.int32) if w.element_size() == 4 else w.float().view(torch.int32)).long()
+        pos = torch.arange(1, w.numel() + 1, device=w.device, dtype=torch.int64)
+        rows.append(torch.stack([w.sum(), (w * pos).sum()]))
+    return torch.stack(rows).cpu()
+
+
+def k5_synced_stages(dev, card: str, rows16: list, gen) -> dict:
+    """Phase 17's kernels on the card: K5's synced stages (N1 and N3 without
+    their finalize, the two finalize launches) at every distinct bf16
+    training configuration of the B7 step (phase 13's rows), each against
+    its plain version on the same inputs (the sums f64 of f32 partial sums:
+    rtol BN_RTOL; the finalizes on the plain sums of this rank's half and a
+    second rank's, as two ranks hand them over: the statistics rtol BN_RTOL,
+    the gradients relative L2 BN_REL_L2, beside a witness that the local and
+    world sums swapped miss that bar tenfold); each direction of the
+    synced path at a world of one rank (sums, finalize, N2; sums, finalize,
+    N4) timed alone by graph replay, summed over a step's 192 sites beside
+    the cluster path's; the stages timed by events, plain, and beside the
+    PyTorch call that computes each (torch.batch_norm_stats,
+    batch_norm_gather_stats_with_counts, batch_norm_backward_reduce; none
+    computes the gradient finalize) at the largest configuration."""
+    import torch
+
+    from scenerf_tpu_torch.ops import norm as NM
+
+    bf16 = torch.bfloat16
+    out = {k: {"max_abs_err": 0.0} for k in SYNC_KERNELS}
+    per_step = {"forward_ms": 0.0, "backward_ms": 0.0, "cluster_forward_ms": 0.0,
+                "cluster_backward_ms": 0.0, "sites": 0}
+    train_rows = [r_ for r_ in rows16 if r_["sites"]["train"] and not r_["channel_first"]]
+    swap_gap = math.inf  # the least relative L2 between the right gradients and swapped sums'
+    for i, row in enumerate(train_rows):
+        shape, act, has_res = tuple(row["shape"]), row["act"], row["residual"]
+        Cn, Mn = shape[-1], math.prod(shape[:-1])
+        mom, eps = (0.9, 1e-5) if act == "leaky" else (0.99, 1e-3)
+        x = torch.randn(shape, generator=gen, device=dev).to(bf16)
+        r = torch.randn(shape, generator=gen, device=dev).to(bf16) if has_res else None
+        dy = torch.randn(shape, generator=gen, device=dev).to(bf16)
+        w = torch.rand(Cn, generator=gen, device=dev) + 0.5
+        b = torch.rand(Cn, generator=gen, device=dev) - 0.5
+        rm = torch.rand(Cn, generator=gen, device=dev) * 0.4 - 0.2
+        rv = torch.rand(Cn, generator=gen, device=dev) + 0.5
+        what = f"synced bf16 {list(shape)} {act}{' + residual' if has_res else ''}"
+        # a second rank's half (xo, ro, dyo): the world's sums are both halves'
+        # over 2 Mn rows, so that a finalize reading this rank's sums where it
+        # needs the world's, or the other way round, shows
+        xo = torch.randn(shape, generator=gen, device=dev).to(bf16)
+        ro = torch.randn(shape, generator=gen, device=dev).to(bf16) if has_res else None
+        dyo = torch.randn(shape, generator=gen, device=dev).to(bf16)
+        s_k, s_p = NM.launch_sums(x), NM.sums_plain(x)
+        err = {"bn_sync_sums": max(check_close(f"{what} sums row {j}", s_k[j], s_p[j])
+                                   for j in range(2))}
+        s_w = s_p + NM.sums_plain(xo)
+        rk, rp = [rm.clone(), rv.clone()], [rm.clone(), rv.clone()]
+        st_k = NM.launch_stats_finalize(s_w, 2 * Mn, x, w, b, *rk, mom, eps)
+        st_p = NM.stats_finalize_plain(s_w, 2 * Mn, w, b, *rp, mom, eps)
+        err["bn_sync_stats"] = max(
+            *(check_close(f"{what} statistics row {j}", st_k[j], st_p[j]) for j in range(5)),
+            check_close(f"{what} running mean", rk[0], rp[0]),
+            check_close(f"{what} running var", rk[1], rp[1]))
+        g_k, g_p = NM.launch_bwd_sums(x, dy, st_p, act, r), NM.bwd_sums_plain(x, dy, st_p, act, r)
+        err["bn_sync_bwd_sums"] = max(check_l2(f"{what} backward sums row {j}", g_k[j], g_p[j])
+                                      for j in range(2))
+        g_w = g_p + NM.bwd_sums_plain(xo, dyo, st_p, act, ro)
+        gr_k = NM.launch_grads_finalize(g_p, g_w, 2 * Mn, x, st_p, w, eps)
+        gr_p = NM.grads_finalize_plain(g_p, g_w, 2 * Mn, st_p, w, eps)
+        err["bn_sync_grads"] = max(check_l2(f"{what} gradients row {j}", gr_k[j], gr_p[j])
+                                   for j in range(4))
+        # the bar tells the sums apart: dweight, dbias from the world's, or
+        # alpha, beta from the rank's, miss it
+        swapped = (NM.grads_finalize_plain(g_w, g_w, 2 * Mn, st_p, w, eps)[:2],
+                   NM.grads_finalize_plain(g_p, g_p, 2 * Mn, st_p, w, eps)[2:])
+        witness = min(rel_l2(swapped[0], gr_p[:2]), rel_l2(swapped[1], gr_p[2:]))
+        if not witness > 10 * BN_REL_L2:
+            fail(f"K5 {what}: the finalize's local and world sums give gradients only "
+                 f"{witness:.3e} apart (relative L2): the check cannot tell them apart")
+        swap_gap = min(swap_gap, witness)
+        for k in SYNC_KERNELS:
+            out[k]["max_abs_err"] = max(out[k]["max_abs_err"], err[k])
+        scratch = [rm.clone(), rv.clone()]
+
+        def fwd():
+            s_ = NM.launch_sums(x)
+            st_ = NM.launch_stats_finalize(s_, Mn, x, w, b, *scratch, mom, eps)
+            return NM.launch_forward(x, w, b, *scratch, True, mom, eps, act, r, stages=2,
+                                     stats=st_)
+
+        def bwd():
+            s_ = NM.launch_bwd_sums(x, dy, st_p, act, r)
+            gr_ = NM.launch_grads_finalize(s_, s_, Mn, x, st_p, w, eps)
+            return NM.launch_backward(x, dy, w, st_p, True, eps, act, r, residual_grad=has_res,
+                                      stages=2, grads=gr_)
+
+        n = row["sites"]["train"]
+        per_step["forward_ms"] += n * graph_ms(fwd)
+        per_step["backward_ms"] += n * graph_ms(bwd)
+        per_step["cluster_forward_ms"] += n * row["device_ms"]["train_fwd"]
+        per_step["cluster_backward_ms"] += n * row["device_ms"]["train_bwd"]
+        per_step["sites"] += n
+        if i == 0:  # the largest configuration: each stage alone, plain, library
+            nbx = nbytes(x)
+            r_act = r if act != "identity" else None
+            s_ = NM.launch_sums(x)
+            g_ = NM.launch_bwd_sums(x, dy, st_p, act, r)
+            x2, dy2 = x.reshape(Mn, Cn), dy.reshape(Mn, Cn)
+            mean_all = st_p[NM.MEAN][None].repeat(PAR_RANKS, 1)
+            inv_all = st_p[NM.INV][None].repeat(PAR_RANKS, 1)
+            counts = torch.full((PAR_RANKS,), float(Mn) / PAR_RANKS, device=dev)
+            stages = {
+                "bn_sync_sums": (lambda: NM.launch_sums(x), lambda: NM.sums_plain(x),
+                                 lambda: torch.batch_norm_stats(x2, eps),
+                                 bound(nbx + 16 * Cn, 3 * x.numel())),
+                "bn_sync_stats": (
+                    lambda: NM.launch_stats_finalize(s_, Mn, x, w, b, *scratch, mom, eps),
+                    lambda: NM.stats_finalize_plain(s_, Mn, w, b, *scratch, mom, eps),
+                    lambda: torch.batch_norm_gather_stats_with_counts(
+                        x2, mean_all, inv_all, scratch[0], scratch[1], 1.0 - mom, eps, counts),
+                    bound(16 * Cn + 4 * 4 * Cn + 5 * 4 * Cn + 2 * 4 * Cn, 12 * Cn)),
+                "bn_sync_bwd_sums": (
+                    lambda: NM.launch_bwd_sums(x, dy, st_p, act, r),
+                    lambda: NM.bwd_sums_plain(x, dy, st_p, act, r),
+                    lambda: torch.batch_norm_backward_reduce(
+                        dy2, x2, st_p[NM.MEAN], st_p[NM.INV], w, True, True, True),
+                    bound(nbytes(*(t for t in (x, dy, r_act) if t is not None)) + 16 * Cn,
+                          (5 + (7 if act == "silu" else 2)) * x.numel())),
+                "bn_sync_grads": (
+                    lambda: NM.launch_grads_finalize(g_, g_, Mn, x, st_p, w, eps),
+                    lambda: NM.grads_finalize_plain(g_, g_, Mn, st_p, w, eps),
+                    None, bound(2 * 16 * Cn + 4 * Cn + 5 * 4 * Cn + 4 * 4 * Cn, 20 * Cn)),
+            }
+            for k, (kern, plain, lib, bnd) in stages.items():
+                out[k].update(shape=list(shape), act=act, residual=has_res, ms=cuda_ms(kern),
+                              plain_ms=cuda_ms(plain), device_ms=graph_ms(kern),
+                              library_ms=None if lib is None else cuda_ms(lib), **bnd)
+        del x, r, dy, xo, ro, dyo, s_k, s_p, g_k, g_p
+        torch.cuda.empty_cache()
+    print(f"[17 kernel K5 synced] on {card}: {len(train_rows)} bf16 training configurations "
+          f"({per_step['sites']} sites): sums, finalizes against their plain versions on two "
+          f"halves' sums (largest errors "
+          f"{', '.join('%s %.2e' % (k, v['max_abs_err']) for k, v in out.items())}; the local and "
+          f"world sums swapped at least {swap_gap:.2e} off); per "
+          f"step alone {per_step['forward_ms']:.3f} + {per_step['backward_ms']:.3f} ms (one "
+          f"rank's plan at those sites {per_step['cluster_forward_ms']:.3f} + "
+          f"{per_step['cluster_backward_ms']:.3f}); at {out['bn_sync_sums'].get('shape')}: "
+          + "; ".join(f"{k} {v['ms']:.4f} ms (alone {v['device_ms']:.4f}, plain "
+                      f"{v['plain_ms']:.4f}, "
+                      f"bound {v['bound_ms']:.4f}, library "
+                      f"{'-' if v['library_ms'] is None else '%.4f' % v['library_ms']})"
+                      for k, v in out.items()))
+    return {"kernels": out, "per_step": per_step, "swap_gap": swap_gap}
+
+
+def synced_op_ranks(dev, group) -> dict:
+    """K5's synced op (`batch_norm_act_synced`, the kernels on the card)
+    across the ranks of `group` at SYNC_SITES, in f32 and bf16: every rank
+    draws every rank's rows from one seed, runs the op and its backward on
+    its own rows, and holds against autograd of the plain version on all the
+    ranks' rows together (the cotangent zeroed at the leaky-ReLU's kink
+    ties): its y, its dx and d_residual (its rows of the plain version's;
+    rtol BN_RTOL and relative L2 BN_REL_L2 in f32, relative L2
+    BF16_DX_REL_L2 in bf16: one rounding each), the running statistics (rtol
+    BN_RTOL), and dweight, dbias summed over the ranks (the numerator of the
+    gradient mean; relative L2 BN_REL_L2). dx needs the world's sums, dweight
+    and dbias the rank's own: a finalize that swapped them misses. Fails on
+    a miss; returns the largest relative L2 of each output."""
+    import torch
+
+    from scenerf_tpu_torch.ops import norm as NM
+    from scenerf_tpu_torch.parallel import dist as D
+
+    W, r = D.size(group), D.rank(group)
+    worst = {}
+    for dtype in (torch.float32, torch.bfloat16):
+        for M, C, act, has_res in SYNC_SITES:
+            mom, eps = (0.9, 1e-5) if act == "leaky" else (0.99, 1e-3)
+            gen = torch.Generator(device=dev).manual_seed(SEED + M)
+            x = torch.randn(W * M, C, generator=gen, device=dev).to(dtype)
+            res = torch.randn(W * M, C, generator=gen, device=dev).to(dtype) if has_res else None
+            dy = torch.randn(W * M, C, generator=gen, device=dev).to(dtype)
+            w = torch.rand(C, generator=gen, device=dev) + 0.5
+            b = torch.rand(C, generator=gen, device=dev) - 0.5
+            rm = torch.rand(C, generator=gen, device=dev) * 0.4 - 0.2
+            rv = torch.rand(C, generator=gen, device=dev) + 0.5
+            st = NM.stats_plain(x, w, b, rm.clone(), rv.clone(), mom, eps)
+            dy = torch.where(NM.kink_ties(x, st, act, res), torch.zeros_like(dy), dy)
+            sides = []
+            for mine in (True, False):  # the synced op on this rank's rows; the plain on all
+                rows = slice(r * M, (r + 1) * M) if mine else slice(None)
+                leaves = [x[rows].clone().requires_grad_(True), w.clone().requires_grad_(True),
+                          b.clone().requires_grad_(True)]
+                rr = None if res is None else res[rows].clone().requires_grad_(True)
+                run = [rm.clone(), rv.clone()]
+                if mine:
+                    y = NM.batch_norm_act_synced(*leaves, *run, mom, eps, act, rr, group=group)
+                else:
+                    y = NM.batch_norm_act_plain(*leaves, *run, True, mom, eps, act, rr)
+                y.backward(dy[rows])
+                dw, db = leaves[1].grad, leaves[2].grad
+                if mine:
+                    D.all_reduce_sum(dw, group)
+                    D.all_reduce_sum(db, group)
+                outs = [y.detach(), leaves[0].grad, dw, db, *run,
+                        *([] if rr is None else [rr.grad])]
+                sides.append([t[r * M:(r + 1) * M] if not mine and t.dim() == 2 else t
+                              for t in outs])
+            what = f"synced across {W} ranks, rank {r}, {dtype} [{M}, {C}] {act}"
+            names = ["y", "dx", "dweight", "dbias", "running mean", "running var", "d_residual"]
+            for name, got, want in zip(names, *sides):
+                got, want = got.float(), want.float()
+                if name.startswith("running") or (name == "y" and dtype == torch.float32):
+                    check_close(f"{what} {name}", got, want)
+                err = rel_l2(got, want)
+                bar = (BF16_DX_REL_L2 if dtype == torch.bfloat16 and name in ("y", "dx",
+                                                                              "d_residual")
+                       else BN_REL_L2)
+                if not (bool(torch.isfinite(got).all()) and err <= bar):
+                    fail(f"K5 {what} {name}: relative L2 {err:.3e} > {bar}")
+                key = f"{name} {'bf16' if dtype == torch.bfloat16 else 'f32'}"
+                worst[key] = max(worst.get(key, 0.0), err)
+            del x, res, dy, sides, leaves, rr, y
+    return worst
+
+
+class _Slice:
+    """Rank r of a world of `size` ranks, played in one process by
+    `split_grads_one_rank` (no process group)."""
+
+    def __init__(self, r: int, size: int, sums: list, record: bool):
+        self.r, self.size, self.sums, self.record, self.calls = r, size, sums, record, 0
+
+
+def split_grads_one_rank(model, cfg, batch, dev, W: int) -> dict:
+    """ray_shard's step over W ranks played in one process on `model`: each
+    rank's slice of the rays (`SceneRF.forward`'s `ray_group`), with the
+    noise of a one-rank Trainer seeded SEED, has its forward and backward run
+    in turn; the masked means' psum takes the other slices' sums from a
+    first pass without gradient, and its backward sums the W equal
+    cotangents as the ranks' does; the gradients are averaged as the ranks
+    average them. Every rank's arithmetic but the all-reduces, so this is
+    the split step without the collectives. Returns the gradients by
+    name."""
+    import torch
+
+    from scenerf_tpu_torch import losses as L
+    from scenerf_tpu_torch.parallel import dist as D
+    from scenerf_tpu_torch.train import Trainer
+
+    class SliceSum(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, t, others):
+            return t + others
+
+        @staticmethod
+        def backward(ctx, g):
+            return g * W, None
+
+    def psum(t, group=None):
+        if not isinstance(group, _Slice):
+            return orig[2](t, group)
+        k = group.calls
+        group.calls += 1
+        if group.record:
+            group.sums[group.r].append(t.detach().clone())
+            return t
+        others = sum(group.sums[q][k] for q in range(W) if q != group.r)
+        return SliceSum.apply(t, others)
+
+    trainer = Trainer(cfg, device=dev, model=model, seed=SEED)
+    tensors, maps = trainer.device_batch(batch)
+    noise = trainer._noise(tensors, trainer.generator, None)
+    orig = (D.size, D.rank, L.sum_over_ranks)
+    D.size = lambda g=None: g.size if isinstance(g, _Slice) else orig[0](g)
+    D.rank = lambda g=None: g.r if isinstance(g, _Slice) else orig[1](g)
+    L.sum_over_ranks = psum
+    sums = [[] for _ in range(W)]
+    try:
+        with torch.no_grad():
+            for q in range(W):
+                model(tensors, noise, train=True, sphere_maps=maps,
+                      ray_group=_Slice(q, W, sums, True))
+        model.zero_grad(set_to_none=True)
+        for q in range(W):
+            loss, _ = model(tensors, noise, train=True, sphere_maps=maps,
+                            ray_group=_Slice(q, W, sums, False))
+            loss.backward()
+    finally:
+        D.size, D.rank, L.sum_over_ranks = orig
+    grads = {n: p.grad.detach() / W for n, p in model.named_parameters()}
+    model.zero_grad(set_to_none=True)
+    return grads
+
+
+def grad_gap(got: dict, want: dict) -> dict:
+    """`got` against `want` (gradients by name): the relative L2 of the whole
+    and the worst leaf's (leaves zero up to rounding, norm <= SHARD_ZERO_LEAF[0]
+    of the largest, held instead to a difference within SHARD_ZERO_LEAF[1]
+    of it), and the five worst leaves (relative L2, name, norm and
+    difference over the largest leaf's)."""
+    norms = {n: float(want[n].norm()) for n in want}
+    diffs = {n: float((got[n] - want[n]).norm()) for n in want}
+    scale = max(norms.values())
+    floor, bound = SHARD_ZERO_LEAF
+    worst, worst_name, tiny_bad, zero_worst, n_floor = 0.0, "", [], 0.0, 0
+    for n in want:
+        if norms[n] <= floor * scale:
+            n_floor += 1
+            zero_worst = max(zero_worst, diffs[n] / scale)
+            if diffs[n] > bound * scale:
+                tiny_bad.append(n)
+        elif diffs[n] / norms[n] > worst:
+            worst, worst_name = diffs[n] / norms[n], n
+    leaves = sorted(((diffs[n] / max(norms[n], 1e-30), n, norms[n] / scale, diffs[n] / scale)
+                     for n in want), reverse=True)
+    return dict(worst_leaf=worst, worst_name=worst_name, tiny_bad=tiny_bad,
+                zero_leaf_worst=zero_worst, n_zero_leaves=n_floor, n_leaves=len(want),
+                leaves=leaves[:5], rel_l2=math.sqrt(sum(v * v for v in diffs.values())
+                                                    / sum(v * v for v in norms.values())))
+
+
+def parallel_rank(d: Path) -> None:
+    """One rank of phase 17 on cuda:0 over gloo, started by `parallel_phase`
+    with torchrun's environment: reads d/job.json (the paths and argv), runs
+    the synced op across the ranks, data-mode train-kitti, ray_shard against
+    one rank and the split played on one rank, and the sharded eval (the
+    NCCL part runs in the parent), and writes d/rank{r}.json. Each check's
+    outcome goes into the record; the parent fails on it."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from scenerf_tpu_torch import config as C
+    from scenerf_tpu_torch.cli import evaluation as ev
+    from scenerf_tpu_torch.cli import train as train_cli
+    from scenerf_tpu_torch.data.synthetic import make_batch
+    from scenerf_tpu_torch.encoder.norm import FusedBatchNorm
+    from scenerf_tpu_torch.model import SceneRF
+    from scenerf_tpu_torch.ops import build
+    from scenerf_tpu_torch.ops import norm as NM
+    from scenerf_tpu_torch.parallel import dist as D
+    from scenerf_tpu_torch.train import Trainer
+    from scenerf_tpu_torch.utils.checkpoint import load_model
+
+    job = json.loads((d / "job.json").read_text())
+    world = D.init("cuda:0", "gloo")
+    rank, group, dev = world.rank, world.group, world.device
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def sync():
+        torch.cuda.synchronize(dev)
+
+    def gathered(t) -> list:
+        parts = [torch.empty_like(t) for _ in range(world.size)]
+        dist.all_gather(parts, t, group=group)
+        return parts
+
+    rec = {"rank": rank, "world": [world.size, world.backend]}
+    # ---- 0. K5's synced op across the ranks, against the plain version on all rows
+    t0 = time.perf_counter()
+    rec["synced_op"] = dict(rel_l2=synced_op_ranks(dev, group), s=time.perf_counter() - t0)
+    torch.cuda.empty_cache()
+
+    # ---- 1. data mode through train-kitti, hooked at each step
+    checks = {"params_equal": [], "grads_equal": []}
+    orig = Trainer.train_step
+
+    def hooked(self, batch, generator=None, noise=None):
+        first = self.step == 0
+        if first:
+            record = []
+            hooks = bn_stats_hooks(self.model, record)
+            params = dict(self.model.named_parameters())
+            start = {k: v.detach().clone() for k, v in params.items()}
+        metrics = orig(self, batch, generator, noise)
+        if first:
+            for h in hooks:
+                h.remove()
+            # the f64 statistics of the world's batch: the ranks' means (equal rows)
+            flat = torch.cat([torch.cat([m, ms]) for _, m, ms in record])
+            D.all_reduce_mean(flat, group)
+            at, world_record = 0, []
+            for mod, m, _ in record:
+                c = m.numel()
+                world_record.append((mod, flat[at:at + c], flat[at + c:at + 2 * c]))
+                at += 2 * c
+            checks["stats_err"] = bn_stats_error(world_record)
+            checks["stats_sites"] = len(record)
+            grads = {n: p.grad.detach().clone() for n, p in params.items()}
+            excess, moved = adamw_first_move(params, start, grads, self.lr_at(0))
+            checks["adam_excess"] = float(excess.max())
+            checks["adam_all_moved"] = bool((moved[torch.stack(
+                [g.abs().max() for g in grads.values()]).cpu() > 0] > 0).all())
+        for what, ts in (("params_equal", list(self.model.parameters())),
+                         ("grads_equal", [p.grad for p in self.model.parameters()])):
+            parts = gathered(fingerprint(ts))
+            checks[what].append(all(torch.equal(p_, parts[0]) for p_ in parts))
+        return metrics
+
+    Trainer.train_step = hooked
+    NM.sync_all_reduces = 0
+    build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    try:
+        run = train_cli.cli.main(job["train_argv"], standalone_mode=False)
+    finally:
+        Trainer.train_step = orig
+    sync()
+    rec["train"] = dict(
+        launches=dict(build.LAUNCHES), sync_all_reduces=NM.sync_all_reduces, checks=checks,
+        steps=len(run["loss"]), loss=run["loss"], step_ms=[s * 1e3 for s in run["step_s"]],
+        val_items=run["val_items"], val_metrics=run["val_metrics"],
+        save_ms=[s * 1e3 for s in run["save_s"]], run_s=time.perf_counter() - t0,
+        peak_gib=torch.cuda.max_memory_allocated(dev) / 2**30)
+    # one step's collectives again, timed: the synced sites' 2 all-reduces of
+    # [2, C] f64 each, and the gradient mean
+    trainer = run["trainer"]
+    widths = [m.weight.numel() for m in trainer.model.modules()
+              if isinstance(m, FusedBatchNorm)]
+    bufs = [torch.zeros(2, c, dtype=torch.float64, device=dev) for c in widths for _ in (0, 1)]
+    D.barrier(group)
+    sync()
+    t0 = time.perf_counter()
+    for buf in bufs:
+        D.all_reduce_sum(buf, group)
+    sync()
+    t1 = time.perf_counter()
+    D.average_gradients(list(trainer.model.parameters()), group)
+    sync()
+    rec["train"].update(bn_all_reduces=len(bufs), bn_all_reduce_ms=(t1 - t0) * 1e3,
+                        grad_all_reduce_ms=(time.perf_counter() - t1) * 1e3,
+                        grad_floats=sum(p.numel() for p in trainer.model.parameters()))
+    del run, trainer, bufs
+    torch.cuda.empty_cache()
+
+    # ---- 2. ray_shard against one rank, on the same item, seed and weights,
+    # at lr 0, in each compute dtype; on rank 0 the split played on one rank
+    rec["ray_shard"] = {}
+    for dtype in SHARD_DTYPES:
+        cfg = C.kitti(n_rays=1200, n_sources=4, n_gt_depth=256, lr=0.0, compute_dtype=dtype)
+        batch = make_batch(cfg, seed=SEED)
+        torch.manual_seed(SEED)
+        model = SceneRF(cfg)
+        build.reset_launch_counts()
+        sharded = Trainer(cfg, device=dev, model=model, seed=SEED, group=group, mode="ray_shard")
+        sync()
+        t0 = time.perf_counter()
+        m_sh = {k: float(v) for k, v in sharded.train_step(batch).items()}
+        sync()
+        shard = dict(step_ms=(time.perf_counter() - t0) * 1e3, metrics=m_sh,
+                     launches=dict(build.LAUNCHES))
+        params = dict(model.named_parameters())
+        for what, ts in (("params_equal", list(params.values())),
+                         ("grads_equal", [p.grad for p in params.values()])):
+            parts = gathered(fingerprint(ts))
+            shard[what] = all(torch.equal(p_, parts[0]) for p_ in parts)
+        if rank == 0:
+            g_sh = {n: p.grad.detach().clone() for n, p in params.items()}
+            ones = []  # the one-rank step, twice: the second reads the card's run-to-run floor
+            for _ in range(2):
+                one = Trainer(cfg, device=dev, model=model, seed=SEED)
+                sync()
+                t0 = time.perf_counter()
+                m_one = {k: float(v) for k, v in one.train_step(batch).items()}
+                sync()
+                shard.setdefault("one_step_ms", (time.perf_counter() - t0) * 1e3)
+                shard.setdefault("one_metrics", m_one)
+                ones.append({n: p.grad.detach().clone() for n, p in params.items()})
+                del one
+            g_split = split_grads_one_rank(model, cfg, batch, dev, world.size)
+            shard.update(**grad_gap(g_sh, ones[0]), one_vs_one=grad_gap(ones[1], ones[0]),
+                         split_vs_one=grad_gap(g_split, ones[0]),
+                         shard_vs_split=grad_gap(g_sh, g_split))
+            del g_sh, ones, g_split
+        rec["ray_shard"][dtype] = shard
+        del sharded, model, params
+        torch.cuda.empty_cache()
+        D.barrier(group)
+
+    # ---- 3. save-depth-metrics over the ranks; one source's rays against one rank
+    t0 = time.perf_counter()
+    done = ev.cli.main(job["eval_argv"], standalone_mode=False)
+    sync()
+    rec["eval"] = dict(command_s=time.perf_counter() - t0, done=done)
+    model = load_model(job["model_path"], dev)
+    ds = ev.common.eval_val_ds(job["eval_root"], job["eval_pre"], 10.0, 0.4)
+    item = ds[0]
+    encode = ev.FrameEncoder(model)
+    sync()
+    t0 = time.perf_counter()
+    pyramid = encode(item)
+    sync()
+    t1 = time.perf_counter()
+    # the pyramid's bytes (bf16 levels seen as bytes: gloo's types) from rank 0
+    levels = [lv.detach().reshape(-1).view(torch.uint8).clone() for lv in pyramid]
+    D.broadcast_tensors(levels, group)
+    sync()
+    t2 = time.perf_counter()
+    args = (pyramid, item["cam_K"], item["T_source2infers"][0], item["loc2d_with_depths"][0], 0)
+    got = ev._source_renderer(model, group, ev.EVAL_CHUNK)(*args)
+    sync()
+    t3 = time.perf_counter()
+    rays = dict(encode_ms=(t1 - t0) * 1e3, broadcast_levels_ms=(t2 - t1) * 1e3,
+                level_bytes=sum(lv.numel() * lv.element_size() for lv in levels),
+                sharded_render_ms=(t3 - t2) * 1e3, n=len(item["loc2d_with_depths"][0]))
+    if rank == 0:
+        t0 = time.perf_counter()
+        want = ev._source_renderer(model, None, ev.EVAL_CHUNK)(*args)
+        sync()
+        rays["one_rank_render_ms"] = (time.perf_counter() - t0) * 1e3
+        rays["share_equal"] = float(np.isclose(
+            got[0], want[0], rtol=SHARD_EVAL_RTOL,
+            atol=SHARD_EVAL_RTOL * float(np.abs(want[0]).max())).mean())
+    rec["eval"]["rays"] = rays
+    del model, pyramid, levels
+    (d / f"rank{rank}.json").write_text(json.dumps(rec, default=float))
+    D.barrier(group)
+    D.shutdown()
+
+
+def parallel_phase(dev, card: str, tree: Path, model_path: str, p15: dict,
+                   synced: dict, timeout_s: float = PAR_TIMEOUT_S) -> dict:
+    """Phase 17 (see the module docstring): PAR_RANKS ranks on cuda:0 over
+    gloo, started as child processes of this script with torchrun's
+    environment; then a one-rank NCCL group in this process. Fails on a
+    rank's failure or any check; returns the launches of the data-mode run
+    (rank 0's) and the numbers."""
+    import socket
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    d = tree / "parallel"
+    d.mkdir(exist_ok=True)
+    root, pre = str(tree), str(tree / "preprocess")
+    job = dict(
+        model_path=model_path, eval_root=root, eval_pre=str(tree / "preprocess_eval"),
+        train_argv=["train-kitti", "--root", root, "--preprocess_root", pre, "--logdir",
+                    str(tree / "logs_parallel"), *TRAIN_KITTI_FLAGS, "--n_epochs", "1",
+                    "--bs", str(PAR_BS), "--parallel_mode", "data", "--device", "cuda:0",
+                    "--dist_backend", "gloo"],
+        eval_argv=["save-depth-metrics", "--root", root, "--preprocess_root",
+                   str(tree / "preprocess_eval"), "--model_path", model_path,
+                   "--eval_save_dir", str(tree / "eval_parallel"), "--n_devices",
+                   str(PAR_RANKS), "--device", "cuda:0", "--dist_backend", "gloo"])
+    (d / "job.json").write_text(json.dumps(job))
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    procs, logs = [], []
+    for k in range(PAR_RANKS):
+        env = dict(os.environ, MASTER_ADDR="127.0.0.1", MASTER_PORT=str(port),
+                   WORLD_SIZE=str(PAR_RANKS), RANK=str(k), LOCAL_RANK=str(k))
+        log = open(d / f"rank{k}.log", "w")
+        logs.append(log)
+        procs.append(subprocess.Popen([sys.executable, str(Path(__file__).resolve()),
+                                       "--parallel-rank", str(d)], env=env, stdout=log,
+                                      stderr=subprocess.STDOUT))
+    atexit.register(lambda: [p.kill() for p in procs if p.poll() is None])
+    deadline = time.monotonic() + timeout_s
+    failed = None
+    while failed is None and any(p.poll() is None for p in procs):
+        time.sleep(0.5)
+        bad = [k for k, p in enumerate(procs) if p.poll() not in (None, 0)]
+        if bad:
+            failed = f"rank {bad[0]} exited {procs[bad[0]].returncode}"
+        elif time.monotonic() > deadline:
+            failed = f"the ranks ran past {timeout_s} s"
+    for p in procs:
+        if p.poll() is None:
+            p.kill()
+        p.wait()
+    for log in logs:
+        log.close()
+    ranks_s = time.perf_counter() - t0
+    if failed is not None or any(p.returncode != 0 for p in procs):
+        tails = "\n".join(f"--- rank {k}:\n" + (d / f"rank{k}.log").read_text()[-3000:]
+                          for k in range(PAR_RANKS))
+        fail(f"phase 17: {failed or [p.returncode for p in procs]}\n{tails}")
+    recs = [json.loads((d / f"rank{k}.json").read_text()) for k in range(PAR_RANKS)]
+
+    # 1. data mode
+    tr = [r_["train"] for r_ in recs]
+    n_steps, n_val = tr[0]["steps"], sum(tr[0]["val_items"])
+    for k, t in enumerate(tr):
+        c = t["checks"]
+        if not (all(c["params_equal"]) and all(c["grads_equal"])
+                and len(c["params_equal"]) == n_steps == KITTI_STEPS):
+            fail(f"phase 17 data mode, rank {k}: parameters equal across the ranks after each "
+                 f"step {c['params_equal']}, gradients {c['grads_equal']} ({n_steps} steps)")
+        if not (c["stats_sites"] == BN_SITES and c["stats_err"] <= BN_STATS_TOL):
+            fail(f"phase 17 data mode, rank {k}: synced batch statistics at {c['stats_sites']} "
+                 f"sites {c['stats_err']:.3e} from f64 over the two items (limit {BN_STATS_TOL})")
+        if not (c["adam_excess"] <= ADAM_STEP_TOL and c["adam_all_moved"]):
+            fail(f"phase 17 data mode, rank {k}: AdamW's first move {c['adam_excess']:.3f} lr "
+                 f"from -lr g / (|g| + eps), every weight with a gradient moved "
+                 f"{c['adam_all_moved']}")
+        la = t["launches"]
+        want = {**{f"{s}_bf16": BN_SITES * n_steps for s in SYNC_KERNELS},
+                "bn_bwd_apply_bf16": BN_SITES * n_steps,
+                "bn_apply_bf16": BN_SITES * (n_steps + n_val // PAR_BS),
+                "bn_stats": 0, "bn_bwd_reduce": 0, "bn_forward_fused": 0,
+                "bn_backward_fused": 0}
+        got = {k_: la[k_] for k_ in want}
+        if got != want or t["sync_all_reduces"] != 2 * BN_SITES * n_steps or not all(
+                math.isfinite(v) for v in t["loss"]):
+            fail(f"phase 17 data mode, rank {k}: launches {got}, expected {want}; synced "
+                 f"all-reduces {t['sync_all_reduces']} (expected {2 * BN_SITES * n_steps}); "
+                 f"losses {t['loss']}")
+    # 0. the synced op across the ranks (each rank failed on a miss)
+    op_err = {k: max(r_["synced_op"]["rel_l2"][k] for r_ in recs)
+              for k in recs[0]["synced_op"]["rel_l2"]}
+    # 2. ray_shard, per compute dtype, against one rank and the split played
+    # on one rank: leaf by leaf in f32, as a whole against the run-to-run
+    # floor in bf16
+    def held(g, floor, dtype):
+        if dtype == "float32":
+            return g["worst_leaf"] <= SHARD_GRAD_REL_L2 and not g["tiny_bad"]
+        return g["rel_l2"] <= SHARD_FLOOR_RATIO * floor
+
+    for dtype, sh in recs[0]["ray_shard"].items():
+        if not all(r_["ray_shard"][dtype]["params_equal"] and r_["ray_shard"][dtype]["grads_equal"]
+                   for r_ in recs):
+            fail(f"phase 17 ray_shard {dtype}: parameters or gradients differ across the ranks")
+        loss_sh, loss_one = sh["metrics"]["total_loss"], sh["one_metrics"]["total_loss"]
+        floor = sh["one_vs_one"]["rel_l2"]
+        if not (abs(loss_sh - loss_one) <= SHARD_LOSS_RTOL * abs(loss_one)
+                and held(sh, floor, dtype) and held(sh["shard_vs_split"], floor, dtype)
+                and floor <= SHARD_BF16_FLOOR):
+            fail(f"phase 17 ray_shard {dtype}: loss {loss_sh} vs one rank's {loss_one} (rtol "
+                 f"{SHARD_LOSS_RTOL}); the gradient's relative L2 {sh['rel_l2']:.3e} from one "
+                 f"rank's, {sh['shard_vs_split']['rel_l2']:.3e} from the split played on one "
+                 f"rank; the one-rank step run twice {floor:.3e} (bf16: each within "
+                 f"{SHARD_FLOOR_RATIO}x that, it within {SHARD_BF16_FLOOR}); worst leaf "
+                 f"{sh['worst_name']} {sh['worst_leaf']:.3e}, against the split "
+                 f"{sh['shard_vs_split']['worst_name']} {sh['shard_vs_split']['worst_leaf']:.3e} "
+                 f"(f32: limit {SHARD_GRAD_REL_L2}; leaves zero up to rounding beyond 1e-5: "
+                 f"{sh['tiny_bad']}, {sh['shard_vs_split']['tiny_bad']}); the worst leaves "
+                 f"(relative L2, name, norm and difference over the largest leaf's) "
+                 f"{sh['leaves']}")
+    shards = recs[0]["ray_shard"]
+    # 3. the sharded eval: the same files as phase 15's one-rank run
+    ev0 = recs[0]["eval"]
+    one_dir, par_dir = tree / "eval" / "depth_metrics" / "08", \
+        tree / "eval_parallel" / "depth_metrics" / "08"
+    names = sorted(p.name for p in one_dir.glob("*.npy"))
+    if sorted(p.name for p in par_dir.glob("*.npy")) != names or not names:
+        fail(f"phase 17 sharded save-depth-metrics wrote "
+             f"{sorted(p.name for p in par_dir.glob('*.npy'))}; the one-rank run {names}")
+    worst_metric = 0.0
+    for name in names:
+        with open(one_dir / name, "rb") as f:
+            want_p = pickle.load(f)
+        with open(par_dir / name, "rb") as f:
+            got_p = pickle.load(f)
+        if got_p["n_frames"] != want_p["n_frames"]:
+            fail(f"phase 17 sharded {name}: n_frames {got_p['n_frames']} vs {want_p['n_frames']}")
+        for k_, w_ in want_p["depth_errors"].items():
+            g_ = got_p["depth_errors"][k_]
+            if not np.allclose(g_, w_, rtol=SHARD_EVAL_RTOL, atol=0):
+                fail(f"phase 17 sharded {name} at {k_} m: {g_} vs one rank {w_}")
+            worst_metric = max(worst_metric, float(np.max(
+                np.abs(g_ - w_) / np.maximum(np.abs(w_), 1e-30))))
+    rays = ev0["rays"]
+    if rays["share_equal"] < SHARD_MIN_SHARE or recs[1]["eval"]["done"]["frames"]:
+        fail(f"phase 17 sharded render: {rays['share_equal']:.4%} of {rays['n']} rays equal the "
+             f"one-rank render (rtol {SHARD_EVAL_RTOL}); rank 1 recorded frames "
+             f"{recs[1]['eval']['done']['frames']}")
+
+    # 4. NCCL: a one-rank group all-reduces one step's gradient buffer
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        nport = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{nport}", rank=0,
+                            world_size=1)
+    try:
+        g = torch.randn(tr[0]["grad_floats"], generator=torch.Generator(device=dev).manual_seed(1),
+                        device=dev)
+        want_g = g.clone()
+        dist.all_reduce(g)  # warm-up: builds the communicator
+        torch.cuda.synchronize()
+        nccl_ms = cuda_ms(lambda: dist.all_reduce(g), runs=5)
+        nccl_ok = torch.equal(g, want_g) and dist.get_backend() == "nccl"
+    finally:
+        dist.destroy_process_group()
+    if not nccl_ok:
+        fail("phase 17 NCCL: a one-rank all-reduce changed the buffer")
+
+    warm = [statistics.median(t["step_ms"][1:]) if len(t["step_ms"]) > 1 else t["step_ms"][0]
+            for t in tr]
+    ps = synced["per_step"]
+    numbers = dict(
+        step_ms=warm, peak_gib=[t["peak_gib"] for t in tr], loss=tr[0]["loss"],
+        bn_all_reduces=tr[0]["bn_all_reduces"],
+        bn_all_reduce_ms=[t["bn_all_reduce_ms"] for t in tr],
+        grad_all_reduce_ms=[t["grad_all_reduce_ms"] for t in tr],
+        grad_floats=tr[0]["grad_floats"], synced_k5=ps, save_ms=tr[0]["save_ms"],
+        train_run_s=[t["run_s"] for t in tr],
+        shard={dt: {**{k: sh_[k] for k in ("step_ms", "one_step_ms", "worst_leaf",
+                                             "worst_name", "zero_leaf_worst", "n_zero_leaves",
+                                             "rel_l2")},
+                    **{f"{w}_{k}": sh_[w][k]
+                       for w in ("one_vs_one", "split_vs_one", "shard_vs_split")
+                       for k in ("rel_l2", "worst_leaf", "worst_name")}}
+               for dt, sh_ in shards.items()},
+        synced_op_rel_l2=op_err, synced_op_s=[r_["synced_op"]["s"] for r_ in recs],
+        eval_command_s=[r_["eval"]["command_s"] for r_ in recs],
+        eval_one_rank_s=p15["numbers"]["command_s"][0], eval_worst_metric=worst_metric,
+        rays=rays, nccl_all_reduce_ms=nccl_ms, ranks_s=ranks_s)
+    label = f"2 ranks sharing one card through the host (gloo), no multi-GPU speed; {card}"
+    print(f"[17 parallel] data mode: train-kitti --parallel_mode data --bs {PAR_BS} "
+          f"{' '.join(TRAIN_KITTI_FLAGS)} on {PAR_RANKS} ranks, one item each: {n_steps} steps, "
+          f"losses {['%.5f' % v for v in tr[0]['loss']]}; parameters and gradients bit-equal "
+          f"across the ranks after every step; synced batch statistics at {BN_SITES} sites "
+          f"{max(t['checks']['stats_err'] for t in tr):.2e} from f64 over the two items (limit "
+          f"{BN_STATS_TOL}); AdamW's first move within "
+          f"{max(t['checks']['adam_excess'] for t in tr):.2e} lr; no cluster launch, "
+          f"{BN_SITES} synced launches of each stage a step, {2 * BN_SITES} all-reduces a step")
+    print(f"[17 parallel] ray_shard at lr 0 against one rank: " + "; ".join(
+              f"{dt} loss {sh_['metrics']['total_loss']:.6f} vs "
+              f"{sh_['one_metrics']['total_loss']:.6f},"
+              f" the gradient's relative L2 {sh_['rel_l2']:.2e}, the worst leaf's "
+              f"{sh_['worst_leaf']:.3e} ({sh_['worst_name']}; the {sh_['n_zero_leaves']} of "
+              f"{sh_['n_leaves']} leaves zero up to rounding at most "
+              f"{sh_['zero_leaf_worst']:.2e} of the largest apart); the one-rank step run "
+              f"twice {sh_['one_vs_one']['rel_l2']:.2e} (worst leaf "
+              f"{sh_['one_vs_one']['worst_leaf']:.3e}); the split played on one "
+              f"rank vs one rank {sh_['split_vs_one']['rel_l2']:.2e} (worst leaf "
+              f"{sh_['split_vs_one']['worst_leaf']:.3e}), the two ranks vs that split "
+              f"{sh_['shard_vs_split']['rel_l2']:.2e} (worst leaf "
+              f"{sh_['shard_vs_split']['worst_leaf']:.3e}, {sh_['shard_vs_split']['worst_name']})"
+              for dt, sh_ in shards.items())
+          + f"; ranks bit-equal. The synced op across the ranks vs the plain version on all "
+          f"rows at {len(SYNC_SITES)} sites, f32 and bf16: relative L2 "
+          f"{', '.join('%s %.1e' % kv for kv in op_err.items())}. "
+          f"save-depth-metrics --n_devices {PAR_RANKS}: the one-rank files ({len(names)} pickles), "
+          f"metrics within {worst_metric:.2e} relative; one source's {rays['n']} rays "
+          f"{rays['share_equal']:.4%} equal at rtol {SHARD_EVAL_RTOL}. NCCL: a one-rank group "
+          f"all-reduced {tr[0]['grad_floats']} floats")
+    print(f"[17 numbers] {label}: ms per data-mode step {['%.1f' % v for v in warm]} (ranks); "
+          f"peak {['%.2f' % v for v in numbers['peak_gib']]} GiB per rank; the "
+          f"{tr[0]['bn_all_reduces']} synced-BN all-reduces of a step "
+          f"{['%.1f' % v for v in numbers['bn_all_reduce_ms']]} ms, the gradient mean "
+          f"{['%.1f' % v for v in numbers['grad_all_reduce_ms']]} ms; synced K5 per bf16 step "
+          f"alone {ps['forward_ms']:.3f} + {ps['backward_ms']:.3f} ms (one rank's plan, cluster or "
+          f"streaming, at the same sites {ps['cluster_forward_ms']:.3f} + "
+          f"{ps['cluster_backward_ms']:.3f}); ray_shard "
+          f"first step (both ranks' first, cold) " + ", ".join(
+              f"{dt} {sh_['step_ms']:.1f} ms vs one rank {sh_['one_step_ms']:.1f}"
+              for dt, sh_ in shards.items()) + "; sharded "
+          f"save-depth-metrics {['%.1f' % v for v in numbers['eval_command_s']]} s vs one rank "
+          f"{numbers['eval_one_rank_s']:.1f} s (phase 15, ICP cold there); a frame's encode "
+          f"{rays['encode_ms']:.1f} ms vs broadcasting its levels "
+          f"({rays['level_bytes'] / 2**20:.1f} "
+          f"MiB) {rays['broadcast_levels_ms']:.1f} ms; NCCL one-rank all-reduce "
+          f"{nccl_ms:.3f} ms; ranks' wall {ranks_s:.1f} s")
+    return {"launches": recs[0]["train"]["launches"], "numbers": numbers}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA GPU.")
     ap.add_argument("--bf-som-chunk", default=None,
                     help="save phase 16's RaySOM chunk (512 rays) to this .npz")
+    ap.add_argument("--parallel-rank", default=None, help=argparse.SUPPRESS)
     opts = ap.parse_args()
     if not (ROOT / "scenerf_tpu_torch").is_dir():
         fail(f"the port package scenerf_tpu_torch is not beside {Path(__file__).name}")
@@ -1487,6 +2325,9 @@ def main() -> None:
 
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this smoke run needs a CUDA device")
+    if opts.parallel_rank is not None:  # a rank of phase 17, started by parallel_phase
+        parallel_rank(Path(opts.parallel_rank))
+        return
 
     import numpy as np
     import torch.nn.functional as F
@@ -3291,10 +4132,16 @@ def main() -> None:
                             {"fused_per_step": bn16_fused, "step_ms": warm16})
     # ---- 15. eval ----------------------------------------------------------
     p15 = eval_phase(dev, card, Path(tree_dir.name), p14["model_path"])
-    tree_dir.cleanup()
     # ---- 16. BundleFusion --------------------------------------------------
     p16 = bf_phase(dev, card, Path(bf_dir.name), bf_procs, opts.bf_som_chunk)
     bf_dir.cleanup()
+    # ---- 17. several ranks ---------------------------------------------------
+    synced = k5_synced_stages(dev, card, rows16, gen)
+    p17 = parallel_phase(dev, card, Path(tree_dir.name), p14["model_path"], p15, synced)
+    tree_dir.cleanup()
+    for name, row in synced["kernels"].items():
+        results[name] = {**row, "bf16": {"launches": p17["launches"][f"{name}_bf16"]},
+                         "per_step": synced["per_step"]}
     results["tsdf_integrate"]["bf"] = p16["tsdf"]
     results["ray_som"]["bf"] = p16["som"]
     results["bn_stats"]["bf_at_shapes"] = p16["k5_rows"]
@@ -3316,9 +4163,12 @@ def main() -> None:
                            "scenerf_tpu/fusion/tsdf.py:44"),
         **{k: ("scenerf_tpu_torch/ops/csrc/norm.cu", "scenerf_tpu/encoder/norm.py:31")
            for k in BN_KERNELS + BN_FUSED},
+        **{k: ("scenerf_tpu_torch/ops/csrc/norm.cu", SYNC_REPLACES) for k in SYNC_KERNELS},
     }
-    # launches: on the training path, or for T the reconstruction path's
-    main_launches = {**launches, "tsdf_integrate": recon_launches["tsdf_integrate"]}
+    # launches: on the training path, for T the reconstruction path's, for
+    # K5's synced stages phase 17's data-mode training (rank 0)
+    main_launches = {**launches, "tsdf_integrate": recon_launches["tsdf_integrate"],
+                     **{k: p17["launches"][k] for k in SYNC_KERNELS}}
     results["ray_som"]["empty_kernel_floor"] = floor
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
@@ -3327,7 +4177,8 @@ def main() -> None:
                               "reconstruction": recon_launches[name],
                               "train_kitti": p14["launches"][name],
                               "eval": p15["launches"][name],
-                              **{k: v[name] for k, v in p16["launches"].items()}},
+                              **{k: v[name] for k, v in p16["launches"].items()},
+                              "parallel": p17["launches"][name]},
          **results[name]}
         for name, (src, rep) in sources.items()]}))
     print(f"card: {card}")

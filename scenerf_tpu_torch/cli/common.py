@@ -14,6 +14,7 @@ import torch
 
 from scenerf_tpu_torch.data.kitti import KittiDataset
 from scenerf_tpu_torch.model import SceneRF
+from scenerf_tpu_torch.parallel import dist as D
 
 KITTI_OPTS = [
     click.option("--root", default=""),
@@ -29,8 +30,13 @@ KITTI_OPTS = [
 # more host time than level 1 by several times
 PNG_COMPRESS_LEVEL = 1
 
-DEVICE_OPT = click.option("--device", default="cuda:0",
-                          help="torch device; cuda:0 unless given cpu")
+DEVICE_OPT = click.option("--device", default=None,
+                          help="torch device; cuda:0 unless given (under torchrun: "
+                               "cuda:LOCAL_RANK, or the named device on every rank)")
+DIST_BACKEND_OPT = click.option("--dist_backend", default=None,
+                                type=click.Choice(["nccl", "gloo"]),
+                                help="under torchrun: nccl on CUDA, gloo on the CPU unless "
+                                     "given")
 
 
 def add_opts(opts):
@@ -41,15 +47,37 @@ def add_opts(opts):
     return deco
 
 
-def _at_most_one_device(ctx, param, value: int) -> int:
-    if value > 1:
-        raise click.UsageError(f"--n_devices {value}: the port renders on one device "
-                               "(0 or 1)", ctx)
-    return value
+N_DEVICES_OPT = click.option(
+    "--n_devices", default=0, type=click.IntRange(min=0),
+    help="ranks to shard the renders over (under torchrun): the first N of the world, 0 all")
 
 
-N_DEVICES_OPT = click.option("--n_devices", default=0, callback=_at_most_one_device,
-                             help="devices to render on: 0 or 1 (one, --device)")
+def join_world(device: Optional[str], backend: Optional[str]) -> D.World:
+    """The world of this process (`parallel.dist.init`): torchrun's ranks, or
+    one rank on `device` (cuda:0 unless given) without torchrun."""
+    try:
+        if D.env_ranks()[1] == 1:
+            return D.init(resolve_device(device or "cuda:0"))
+        return D.init(device, backend)
+    except RuntimeError as e:
+        raise click.UsageError(str(e))
+
+
+def render_world(n_devices: int, device: Optional[str], backend: Optional[str]):
+    """(this rank's device, whether it renders, the group of the ranks that
+    shard the renders) of an eval or sweep command: the first `n_devices`
+    ranks of the world (0: all of them). More than the world's ranks raises.
+    A sub-group is made by every rank of the world (a collective)."""
+    world = join_world(device, backend)
+    if n_devices > world.size:
+        raise click.UsageError(f"--n_devices {n_devices}: the world has {world.size} "
+                               f"rank{'s' if world.size > 1 else ''} (start more under "
+                               f"torchrun, or take 0 for all)")
+    n = n_devices or world.size
+    if n == world.size:
+        return world.device, True, world.group
+    group = torch.distributed.new_group(ranks=list(range(n))) if n > 1 else None
+    return world.device, world.rank < n, group
 
 
 def kitti_val_ds(root, preprocess_root, sequence_distance, frames_interval,
@@ -68,11 +96,12 @@ def eval_val_ds(root, preprocess_root, sequence_distance, frames_interval) -> Ki
                         n_rays=1_000_000, seed=0)
 
 
-def resolve_device(name: str) -> torch.device:
-    """The entry points' device: raises for a CUDA device without CUDA."""
-    device = torch.device(name)
+def resolve_device(name: Optional[str]) -> torch.device:
+    """The entry points' device (cuda:0 when None): raises for a CUDA device
+    without CUDA."""
+    device = torch.device(name or "cuda:0")
     if device.type == "cuda" and not torch.cuda.is_available():
-        raise click.UsageError(f"--device {name}: no CUDA device here (pass --device cpu "
+        raise click.UsageError(f"--device {device}: no CUDA device here (pass --device cpu "
                                "to run on the CPU)")
     return device
 

@@ -36,11 +36,18 @@ the file layouts, printed tables and skip-if-exists behaviour of
 
 `--model_path` is the port's checkpoint: a `save_checkpoint` file or a
 `CheckpointManager` directory (its best, else its last); the renders run in
-its compute dtype through the port's kernels, on one device. The renders
-draw their noise from one generator per source on the model's device:
-seeded `sid` in save-depth-metrics (every frame's source `sid` alike, as the
-JAX package folds `sid` into one key) and `idx * 1000 + sid` in
-render-colors (frame `idx` of the val set).
+its compute dtype through the port's kernels. The renders draw their noise
+from one generator per source on the model's device: seeded `sid` in
+save-depth-metrics (every frame's source `sid` alike, as the JAX package
+folds `sid` into one key) and `idx * 1000 + sid` in render-colors (frame
+`idx` of the val set).
+
+Under torchrun, `--n_devices N` (0: every rank) splits the renders of
+save-depth-metrics(-bf) and render-colors(-bf) over the first N ranks
+(`parallel/sharded_render.py`): rank 0 reads each item, decides what to skip
+and broadcasts it with the frame, every rank encodes the frame and renders
+its slice of the rays, and rank 0 gathers them, writes every file and prints
+every table (the other ranks write nothing).
 """
 from __future__ import annotations
 
@@ -63,6 +70,8 @@ from scenerf_tpu_torch.data.bundlefusion import BundlefusionDataset
 from scenerf_tpu_torch.data.kitti import VAL_ERROR_FRAMES
 from scenerf_tpu_torch.fusion.tsdf import tsdf2occ_bf
 from scenerf_tpu_torch.model import SceneRF
+from scenerf_tpu_torch.parallel import dist as D
+from scenerf_tpu_torch.parallel.sharded_render import make_sharded_renderer
 from scenerf_tpu_torch.utils.checkpoint import load_model
 from scenerf_tpu_torch.utils.image_metrics import psnr, ssim
 from scenerf_tpu_torch.utils.lpips import LPIPS
@@ -172,38 +181,77 @@ def kitti_lidar(item, sid):
             item["source_distances"][sid])
 
 
+def _source_renderer(model: SceneRF, group, chunk: int) -> Callable:
+    """render(pyramid, cam_K, T, pixels, seed) -> (depth [R], color [R, 3])
+    numpy, the noise from a generator on the model's device seeded `seed`:
+    `render_depth_at_pixels` on one rank; over a group the rays split over
+    its ranks, the result on rank 0 (None on the others)."""
+    dev = _device_of(model)
+    sharded = None if group is None else make_sharded_renderer(model, group, chunk)
+
+    def render(pyramid, cam_K, T, pixels, seed: int):
+        generator = torch.Generator(device=dev).manual_seed(seed)
+        if group is None:
+            return render_depth_at_pixels(model, pyramid, cam_K, T, pixels, chunk, generator)
+        if model.training:
+            raise ValueError("the eval renders take a model in eval mode")
+        on_dev = lambda a: torch.as_tensor(a, dtype=torch.float32).to(dev)  # noqa: E731
+        out = sharded(pyramid, on_dev(cam_K), on_dev(T), on_dev(pixels), generator)
+        return None if out is None else (out["depth"].cpu().numpy(), out["color"].cpu().numpy())
+
+    return render
+
+
+def _frame_job(item, **extra) -> Dict:
+    """What every rank needs of an item to encode it: its input frame and
+    camera (rank 0 broadcasts it), plus `extra`."""
+    return {"img_input": item["img_input"], "cam_K": item["cam_K"], **extra}
+
+
 def _save_depth_metrics_impl(dataset, model: SceneRF, eval_save_dir: str, eval_depth: float,
-                             chunk: int = EVAL_CHUNK, source_gt: Callable = kitti_lidar) -> Dict:
+                             chunk: int = EVAL_CHUNK, source_gt: Callable = kitti_lidar,
+                             group=None) -> Dict:
     """Per val frame: skip it if its pickle exists, else encode it once and
     render each source at its ground-truth pixels (`source_gt(item, sid)` ->
     pixels, depths, distance); sum the errors per ceil(distance), pickle
     them and print the frame's table. Returns the frames done and, per
     frame, the host seconds of the item read, the seconds of the encode and
     of the renders and errors (each ended by a synchronize), and the rays of
-    each source rendered."""
+    each source rendered. `group`: the ranks that split the renders (rank 0
+    reads, decides, writes and returns the record; the module docstring)."""
     dev = _device_of(model)
     encode = FrameEncoder(model)
+    render = _source_renderer(model, group, chunk)
+    lead = D.rank(group) == 0
     done = {"frames": [], "read_s": [], "encode_s": [], "render_s": [], "rays": []}
     for idx in range(len(dataset)):
-        scan = dataset.scans[idx]
-        save_dir = os.path.join(eval_save_dir, "depth_metrics", scan["sequence"])
-        os.makedirs(save_dir, exist_ok=True)
-        save_filepath = os.path.join(save_dir, f"{scan['frame_id']}.npy")
-        if os.path.exists(save_filepath):
+        job = None
+        if lead:
+            scan = dataset.scans[idx]
+            save_dir = os.path.join(eval_save_dir, "depth_metrics", scan["sequence"])
+            os.makedirs(save_dir, exist_ok=True)
+            save_filepath = os.path.join(save_dir, f"{scan['frame_id']}.npy")
+            if not os.path.exists(save_filepath):
+                t0 = time.perf_counter()
+                item = dataset[idx]
+                t1 = time.perf_counter()
+                gts = [(sid, *source_gt(item, sid)) for sid in range(len(item["img_sources"]))]
+                gts = [g for g in gts if len(g[2])]
+                job = _frame_job(item, renders=[(sid, pixels, item["T_source2infers"][sid])
+                                                for sid, pixels, _, _ in gts])
+        # rank 0's decision on every rank: a rank that skipped a frame another
+        # renders would meet the next collective out of step
+        job = D.broadcast_object(job, group)
+        if job is None:
             continue
-        t0 = time.perf_counter()
-        item = dataset[idx]
-        t1 = time.perf_counter()
-        pyramid = encode(item)
+        pyramid = encode(job)
         t2 = common.synced_clock(dev)
+        preds = [render(pyramid, job["cam_K"], T, pixels, sid)
+                 for sid, pixels, T in job["renders"]]
+        if not lead:
+            continue
         agg, n_frames, rays = {}, {}, []
-        for sid in range(len(item["img_sources"])):
-            pixels, gt, dist = source_gt(item, sid)
-            if len(gt) == 0:
-                continue
-            pred, _ = render_depth_at_pixels(
-                model, pyramid, item["cam_K"], item["T_source2infers"][sid], pixels, chunk,
-                torch.Generator(device=dev).manual_seed(sid))
+        for (sid, pixels, gt, dist), (pred, _) in zip(gts, preds):
             errors = compute_depth_errors_np(np.asarray(gt), pred, max_depth=eval_depth)
             rays.append(len(gt))
             k = math.ceil(dist)
@@ -212,7 +260,7 @@ def _save_depth_metrics_impl(dataset, model: SceneRF, eval_save_dir: str, eval_d
             else:
                 agg[k] = agg[k] + errors
                 n_frames[k] += 1
-        t3 = common.synced_clock(dev)
+        t4 = common.synced_clock(dev)
 
         with open(save_filepath, "wb") as f:
             pickle.dump({"depth_errors": agg, "n_frames": n_frames}, f)
@@ -221,7 +269,7 @@ def _save_depth_metrics_impl(dataset, model: SceneRF, eval_save_dir: str, eval_d
         done["frames"].append(item["frame_id"])
         done["read_s"].append(t1 - t0)
         done["encode_s"].append(t2 - t1)
-        done["render_s"].append(t3 - t2)
+        done["render_s"].append(t4 - t2)
         done["rays"].append(rays)
     return done
 
@@ -250,14 +298,17 @@ def _agg_depth_metrics_impl(eval_save_dir: str, sequences):
 @common.add_opts(common.KITTI_OPTS)
 @common.N_DEVICES_OPT
 @common.DEVICE_OPT
+@common.DIST_BACKEND_OPT
 def save_depth_metrics(root, preprocess_root, model_path, eval_save_dir, sequence_distance,
-                       frames_interval, n_devices, device):
+                       frames_interval, n_devices, device, dist_backend):
     """Render depth at the LiDAR pixels of every val source frame; save
     per-frame error pickles."""
-    device = common.resolve_device(device)
+    device, renders, group = common.render_world(n_devices, device, dist_backend)
+    if not renders:
+        return None
     ds = common.eval_val_ds(root, preprocess_root, sequence_distance, frames_interval)
     return _save_depth_metrics_impl(ds, load_model(model_path, device), eval_save_dir,
-                                    eval_depth=KITTI_EVAL_DEPTH)
+                                    eval_depth=KITTI_EVAL_DEPTH, group=group)
 
 
 def bf_source_distance(item, sid) -> float:
@@ -279,14 +330,18 @@ def bf_depth_png(item, sid):
 @common.add_opts(BF_OPTS)
 @common.N_DEVICES_OPT
 @common.DEVICE_OPT
+@common.DIST_BACKEND_OPT
 def save_depth_metrics_bf(root, model_path, eval_save_dir, frame_interval, n_frames, n_devices,
-                          device):
+                          device, dist_backend):
     """Render depth at every nonzero depth-PNG pixel of every BundleFusion val
     source frame; save per-frame error pickles (capped at 10 m)."""
-    device = common.resolve_device(device)
+    device, renders, group = common.render_world(n_devices, device, dist_backend)
+    if not renders:
+        return None
     return _save_depth_metrics_impl(bf_val_ds(root, frame_interval, n_frames),
                                     load_model(model_path, device), eval_save_dir,
-                                    eval_depth=BF_EVAL_DEPTH, source_gt=bf_depth_png)
+                                    eval_depth=BF_EVAL_DEPTH, source_gt=bf_depth_png,
+                                    group=group)
 
 
 @cli.command("agg-depth-metrics")
@@ -317,44 +372,56 @@ def kitti_distance(item, sid) -> float:
 def _render_colors_impl(dataset, model: SceneRF, eval_save_dir: str, stride: int, chunk: int,
                         source_image_saver: Callable,
                         source_distance: Callable = kitti_distance,
-                        upsample_to: Optional[tuple] = None) -> Dict:
+                        upsample_to: Optional[tuple] = None, group=None) -> Dict:
     """Per val frame and source whose render is missing: save the source
     image under rgb/ (`source_image_saver(item, sid, path)`) if missing, and
     the source pose's render at `stride` under render_rgb/, upsampled
     (bilinear) to `upsample_to` (H, W) where given; the frame is
-    encoded once, at its first missing render. Returns the images rendered
+    encoded once, where a render is missing. Returns the images rendered
     and, per rendered frame, the host seconds of the item read, and the
-    seconds of the encode, renders and PNG writes (ended by a synchronize)."""
+    seconds of the encode, renders and PNG writes (ended by a synchronize).
+    `group`: the ranks that split the renders (rank 0 reads, decides, writes
+    and returns the record; the module docstring)."""
     dev = _device_of(model)
     encode = FrameEncoder(model)
+    render = _source_renderer(model, group, chunk)
+    lead = D.rank(group) == 0
     pixels, grid_shape = common.strided_pixel_grid(model.cfg.img_size, stride)
     pixels = torch.from_numpy(pixels).to(dev)
     done = {"images": 0, "read_s": [], "render_s": []}
     for idx in range(len(dataset)):
-        t0 = time.perf_counter()
-        item = dataset[idx]
-        t1 = time.perf_counter()
-        frame_id, sequence = item["frame_id"], item["sequence"]
-        rgb_save_dir = os.path.join(eval_save_dir, "rgb", sequence)
-        render_save_dir = os.path.join(eval_save_dir, "render_rgb", sequence)
-        os.makedirs(rgb_save_dir, exist_ok=True)
-        os.makedirs(render_save_dir, exist_ok=True)
-
-        pyramid = None
-        for sid in range(len(item["img_sources"])):
-            dist = source_distance(item, sid)
-            name = f"{frame_id}_{item['source_frame_ids'][sid]}_{dist:.2f}.png"
-            rgb_filepath = os.path.join(rgb_save_dir, name)
-            render_filepath = os.path.join(render_save_dir, name)
-            if os.path.exists(render_filepath):
+        job = None
+        if lead:
+            t0 = time.perf_counter()
+            item = dataset[idx]
+            t1 = time.perf_counter()
+            frame_id, sequence = item["frame_id"], item["sequence"]
+            rgb_save_dir = os.path.join(eval_save_dir, "rgb", sequence)
+            render_save_dir = os.path.join(eval_save_dir, "render_rgb", sequence)
+            os.makedirs(rgb_save_dir, exist_ok=True)
+            os.makedirs(render_save_dir, exist_ok=True)
+            todo = []
+            for sid in range(len(item["img_sources"])):
+                dist = source_distance(item, sid)
+                name = f"{frame_id}_{item['source_frame_ids'][sid]}_{dist:.2f}.png"
+                rgb_filepath = os.path.join(rgb_save_dir, name)
+                render_filepath = os.path.join(render_save_dir, name)
+                if os.path.exists(render_filepath):
+                    continue
+                if not os.path.exists(rgb_filepath):
+                    source_image_saver(item, sid, rgb_filepath)
+                todo.append((sid, item["T_source2infers"][sid], render_filepath))
+            if todo:
+                job = _frame_job(item, renders=todo)
+        job = D.broadcast_object(job, group)  # rank 0's decision on every rank
+        if job is None:
+            continue
+        pyramid = encode(job)
+        for sid, T, render_filepath in job["renders"]:
+            out = render(pyramid, job["cam_K"], T, pixels, idx * 1000 + sid)
+            if out is None:
                 continue
-            if not os.path.exists(rgb_filepath):
-                source_image_saver(item, sid, rgb_filepath)
-            if pyramid is None:
-                pyramid = encode(item)
-            _, color = render_depth_at_pixels(
-                model, pyramid, item["cam_K"], item["T_source2infers"][sid], pixels, chunk,
-                torch.Generator(device=dev).manual_seed(idx * 1000 + sid))
+            color = out[1]
             # the grid is x-major (n_x, n_y): transpose to (H, W, 3)
             img = np.transpose(color.reshape(grid_shape[0], grid_shape[1], 3), (1, 0, 2))
             if upsample_to is not None:
@@ -362,7 +429,7 @@ def _render_colors_impl(dataset, model: SceneRF, eval_save_dir: str, stride: int
             common.save_color_png(render_filepath, img)
             print("Color saved", render_filepath)
             done["images"] += 1
-        if pyramid is not None:
+        if lead:
             done["read_s"].append(t1 - t0)
             done["render_s"].append(common.synced_clock(dev) - t1)
     return done
@@ -372,10 +439,13 @@ def _render_colors_impl(dataset, model: SceneRF, eval_save_dir: str, stride: int
 @common.add_opts(common.KITTI_OPTS)
 @common.N_DEVICES_OPT
 @common.DEVICE_OPT
+@common.DIST_BACKEND_OPT
 def render_colors(root, preprocess_root, model_path, eval_save_dir, sequence_distance,
-                  frames_interval, n_devices, device):
+                  frames_interval, n_devices, device, dist_backend):
     """Render novel RGB views at stride 3 for every val source frame."""
-    device = common.resolve_device(device)
+    device, renders, group = common.render_world(n_devices, device, dist_backend)
+    if not renders:
+        return None
     ds = common.eval_val_ds(root, preprocess_root, sequence_distance, frames_interval)
 
     def save_src(item, sid, path):
@@ -385,18 +455,21 @@ def render_colors(root, preprocess_root, model_path, eval_save_dir, sequence_dis
 
     return _render_colors_impl(ds, load_model(model_path, device), eval_save_dir,
                                stride=KITTI_COLOR_STRIDE, chunk=EVAL_CHUNK,
-                               source_image_saver=save_src)
+                               source_image_saver=save_src, group=group)
 
 
 @cli.command("render-colors-bf")
 @common.add_opts(BF_OPTS)
 @common.N_DEVICES_OPT
 @common.DEVICE_OPT
+@common.DIST_BACKEND_OPT
 def render_colors_bf(root, model_path, eval_save_dir, frame_interval, n_frames, n_devices,
-                     device):
+                     device, dist_backend):
     """Render novel RGB views at stride 2 for every BundleFusion val source
     frame, upsampled to 640x480."""
-    device = common.resolve_device(device)
+    device, renders, group = common.render_world(n_devices, device, dist_backend)
+    if not renders:
+        return None
 
     def save_src(item, sid, path):
         common.save_color_png(path, item["img_sources"][sid])
@@ -406,7 +479,7 @@ def render_colors_bf(root, model_path, eval_save_dir, frame_interval, n_frames, 
                                load_model(model_path, device), eval_save_dir,
                                stride=BF_COLOR_STRIDE, chunk=EVAL_CHUNK,
                                source_image_saver=save_src, source_distance=bf_source_distance,
-                               upsample_to=(H, W))
+                               upsample_to=(H, W), group=group)
 
 
 def _eval_color_impl(eval_save_dir: str, sequence: str, resize, skip_frames=(),

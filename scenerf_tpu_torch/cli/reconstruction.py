@@ -22,8 +22,13 @@ occupancy (`generate-sc-gt-bf`); print a camera's spherical angles
     (likewise depth2tsdf-bf and generate-sc-gt-bf, without --model_path)
 
 The BundleFusion sweep's file names carry the step and angle with two
-decimals (`000016_0.20_-30.00`). `--model_path` is the port's checkpoint
-(`utils/checkpoint.save_checkpoint`, or a `CheckpointManager` directory).
+decimals (`000016_0.20_-30.00`). Under torchrun, `--n_devices N` (0: every
+rank) splits each pose's rays of the two sweep commands over the first N
+ranks (`parallel/sharded_render.py`): rank 0 reads the frame and decides the
+skip, every rank encodes it and renders its rows, rank 0 gathers and writes;
+the fuse, mesh and GT-fuse commands run on one rank, as in JAX.
+`--model_path` is the port's checkpoint (`utils/checkpoint.save_checkpoint`,
+or a `CheckpointManager` directory).
 """
 from __future__ import annotations
 
@@ -42,6 +47,8 @@ from scenerf_tpu_torch.cli import common
 from scenerf_tpu_torch.cli.evaluation import BF_WINDOW_OPTS, bf_val_ds
 from scenerf_tpu_torch.fusion.tsdf import tsdf_to_gt_occupancy
 from scenerf_tpu_torch.model import SceneRF
+from scenerf_tpu_torch.parallel import dist as D
+from scenerf_tpu_torch.parallel.sharded_render import make_sharded_pose_sweep
 from scenerf_tpu_torch.utils.checkpoint import load_model
 
 SWEEP_CHUNK = 5000
@@ -63,41 +70,56 @@ def _sweep_opts(f):
 
 
 def _generate_novel_depths_impl(ds, model: SceneRF, recon_save_dir: str, scale: int,
-                                rel_poses: Dict) -> Dict:
+                                rel_poses: Dict, group=None) -> Dict:
     """Render each val frame's sweep (`rel_poses`: {(step, angle): 4x4},
     the keys naming the files) at stride `scale`, upsampled to the image
     size; a frame whose files all exist is skipped. Pose p of frame idx
     draws its noise from a generator seeded idx * P + p. Returns the frames
     done and, per frame, the seconds of the encode, of the sweep's renders
-    and upsampling (each ended by a synchronize), and of the file writes."""
+    and upsampling (each ended by a synchronize), and of the file writes.
+    `group`: the ranks that split each pose's rays (rank 0 reads, decides,
+    writes and returns the record; the module docstring)."""
     device = next(model.parameters()).device
     pose_names = [f"_{s}_{a}" for (s, a) in rel_poses]
     poses = torch.from_numpy(geo.rel_pose_stack(rel_poses)).to(device)
+    sweep = (None if group is None
+             else make_sharded_pose_sweep(model, group, stride=scale, ray_chunk=SWEEP_CHUNK))
+    lead = D.rank(group) == 0
     sphere_maps = {}  # per intrinsics: built on the host once
     done = {"frames": [], "encode_s": [], "render_s": [], "write_s": []}
     for idx in range(len(ds)):
-        item = ds[idx]
-        frame_id, sequence = item["frame_id"], item["sequence"]
-        dirs = {k: os.path.join(recon_save_dir, k, sequence)
-                for k in ("depth", "depth_visual", "render_rgb")}
-        for d in dirs.values():
-            os.makedirs(d, exist_ok=True)
-        names = [f"{frame_id}{pn}" for pn in pose_names]
-        if all(os.path.exists(os.path.join(dirs["depth"], n + ".npy"))
-               and os.path.exists(os.path.join(dirs["depth_visual"], n + ".png"))
-               and os.path.exists(os.path.join(dirs["render_rgb"], n + ".png"))
-               for n in names):
+        item = None
+        if lead:
+            item = ds[idx]
+            frame_id, sequence = item["frame_id"], item["sequence"]
+            dirs = {k: os.path.join(recon_save_dir, k, sequence)
+                    for k in ("depth", "depth_visual", "render_rgb")}
+            for d in dirs.values():
+                os.makedirs(d, exist_ok=True)
+            names = [f"{frame_id}{pn}" for pn in pose_names]
+            if all(os.path.exists(os.path.join(dirs["depth"], n + ".npy"))
+                   and os.path.exists(os.path.join(dirs["depth_visual"], n + ".png"))
+                   and os.path.exists(os.path.join(dirs["render_rgb"], n + ".png"))
+                   for n in names):
+                item = None
+        # rank 0's frame (or skip) on every rank
+        job = D.broadcast_object(None if item is None else {
+            "img_input": item["img_input"], "cam_K": item["cam_K"]}, group)
+        if job is None:
             continue
 
         t0 = time.perf_counter()
-        K = item["cam_K"]
+        K = job["cam_K"]
         if K.tobytes() not in sphere_maps:
             sphere_maps[K.tobytes()] = model.compute_sphere_maps(K)
-        levels = common.encode_frame(model, item["img_input"], K, sphere_maps[K.tobytes()])
+        levels = common.encode_frame(model, job["img_input"], K, sphere_maps[K.tobytes()])
         t1 = common.synced_clock(device)
         out = recon.render_sweep_full_res(model, model.pyramid_for_item(levels, 0),
                                           torch.from_numpy(K).to(device), poses, stride=scale,
-                                          chunk=SWEEP_CHUNK, seed=idx * len(names))
+                                          chunk=SWEEP_CHUNK, seed=idx * len(pose_names),
+                                          sweep=sweep)
+        if not lead:
+            continue
         depths, colors = out["depth"].cpu().numpy(), out["color"].cpu().numpy()
         t2 = time.perf_counter()
         for pi, name in enumerate(names):
@@ -117,17 +139,21 @@ def _generate_novel_depths_impl(ds, model: SceneRF, recon_save_dir: str, scale: 
 @common.add_opts(common.KITTI_OPTS)
 @_sweep_opts
 @click.option("--scale", default=2, help="render stride")
+@common.N_DEVICES_OPT
 @common.DEVICE_OPT
+@common.DIST_BACKEND_OPT
 def generate_novel_depths(root, preprocess_root, model_path, eval_save_dir, sequence_distance,
                           frames_interval, recon_save_dir, angle, step, max_distance, scale,
-                          device):
+                          n_devices, device, dist_backend):
     """Render depth + RGB for the pose sweep on every val frame, upsampled to
     the full image size."""
-    device = common.resolve_device(device)
+    device, renders, group = common.render_world(n_devices, device, dist_backend)
+    if not renders:
+        return None
     ds = common.kitti_val_ds(root, preprocess_root, sequence_distance, frames_interval)
     rel_poses = geo.sample_rel_poses(step=step, angle=angle, max_distance=max_distance)
     return _generate_novel_depths_impl(ds, load_model(model_path, device), recon_save_dir,
-                                       scale, rel_poses)
+                                       scale, rel_poses, group=group)
 
 
 def bf_rel_poses(angle: float, step: float, max_distance: float) -> Dict:
@@ -153,14 +179,18 @@ def _bf_sweep_opts(f):
 @_bf_sweep_opts
 @common.N_DEVICES_OPT
 @common.DEVICE_OPT
+@common.DIST_BACKEND_OPT
 def generate_novel_depths_bf(root, model_path, scale, recon_save_dir, angle, step,
-                             max_distance, frame_interval, n_frames, n_devices, device):
+                             max_distance, frame_interval, n_frames, n_devices, device,
+                             dist_backend):
     """Render depth + RGB for BundleFusion's pose sweep (steps of 0.2 m up to
     2.1 m, yaw 0, -30, +30 degrees) on every val frame, upsampled to 640x480."""
-    device = common.resolve_device(device)
+    device, renders, group = common.render_world(n_devices, device, dist_backend)
+    if not renders:
+        return None
     return _generate_novel_depths_impl(bf_val_ds(root, frame_interval, n_frames, n_sources=0),
                                        load_model(model_path, device), recon_save_dir, scale,
-                                       bf_rel_poses(angle, step, max_distance))
+                                       bf_rel_poses(angle, step, max_distance), group=group)
 
 
 def _load_sweep_frames(recon_save_dir, sequence, frame_id, rel_poses):

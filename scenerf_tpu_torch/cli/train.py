@@ -16,7 +16,17 @@ the val split (sequence 08; copyroom) and saves `last` (and `best`, on the
 mean val `depth/abs_rel`) under `{logdir}/ckpts/{exp_name}`; metrics go to
 `{logdir}/tb/{exp_name}/metrics.jsonl`. A run whose checkpoint directory
 holds `last` resumes from it at the start of the epoch its step is in.
-Multi-GPU training is not ported yet.
+
+Multi-GPU training: one process per card, started by torchrun, with
+`--parallel_mode` (JAX's modes; `--bs` is the global batch):
+
+    torchrun --nproc_per_node 4 -m scenerf_tpu_torch.cli.train train-kitti \
+        --parallel_mode data --bs 4 ...          # or ray_parallel, ray_shard
+
+Rank r takes cuda:{LOCAL_RANK} (unless `--device` names one card for all);
+`--dist_backend` is nccl on CUDA and gloo on the CPU by default. In data mode
+the world must divide `--bs`. Rank 0 writes the checkpoints, the metrics and
+the printed lines; every rank resumes from the same `last`.
 """
 from __future__ import annotations
 
@@ -33,7 +43,8 @@ from scenerf_tpu_torch import config as CFG
 from scenerf_tpu_torch.cli import common
 from scenerf_tpu_torch.data.loader import DataLoader
 from scenerf_tpu_torch.model import SceneRF
-from scenerf_tpu_torch.train import Trainer
+from scenerf_tpu_torch.parallel import dist as D
+from scenerf_tpu_torch.train import MODES, Trainer
 from scenerf_tpu_torch.utils.checkpoint import CheckpointManager
 from scenerf_tpu_torch.utils.logging_utils import MetricLogger
 
@@ -44,7 +55,8 @@ def run_training(cfg: CFG.SceneRFConfig, train_ds, val_ds,
                  collate: Callable[[List[Dict]], Dict[str, np.ndarray]], exp_name: str,
                  logdir: str, n_epochs: int, enable_log: bool,
                  limit_train_fraction: float = 0.5, batch_size: int = 1, seed: int = 42,
-                 max_steps_per_epoch: Optional[int] = None, device="cuda:0") -> Dict:
+                 max_steps_per_epoch: Optional[int] = None, device="cuda:0", group=None,
+                 parallel_mode: str = "data") -> Dict:
     """The epoch loop. The model's weights come from `torch.manual_seed(seed)`
     on the host, the training draws from the trainer's host generator seeded
     with `seed`, val batch i's draws from a generator seeded by (seed, 0x5EED,
@@ -53,28 +65,40 @@ def run_training(cfg: CFG.SceneRFConfig, train_ds, val_ds,
     epochs it has done, so its epochs read the batches an uninterrupted run
     reads (the datasets' own draws restart from their seeds).
 
+    `group` (a process group; None: one rank) and `parallel_mode` (one of
+    train.MODES): in data mode each rank reads its slice of every global
+    batch of `batch_size` items (train and val), in the ray modes every rank
+    reads the whole batch; each rank's draws are the trainer's
+    (`Trainer.draw_seed`); the val metrics are the ranks' mean; rank 0 alone
+    writes checkpoints and metrics, and the ranks meet at a barrier after
+    each save.
+
     Returns the trainer, the step it started from, and the host clock's
     record: "loss" (per step, read once an epoch), "step_s" (per step, the
     time between consecutive step ends; the epoch's last ends at a
     synchronize), "val_s", "val_items" and "val_metrics" per epoch, "save_s"
     per save, and the loaders' timings of their last epoch."""
     device = torch.device(device)
+    rank, world = D.rank(group), D.size(group)
+    lead = rank == 0
+    sliced = dict(process_index=rank, process_count=world) if parallel_mode == "data" else {}
     train_loader = DataLoader(train_ds, collate, batch_size=batch_size, shuffle=True,
                               limit_fraction=limit_train_fraction, seed=seed,
-                              max_batches=max_steps_per_epoch)
+                              max_batches=max_steps_per_epoch, **sliced)
     val_loader = DataLoader(val_ds, collate, batch_size=batch_size, shuffle=False,
-                            max_batches=max_steps_per_epoch)
+                            max_batches=max_steps_per_epoch, **sliced)
     steps_per_epoch = max(1, len(train_loader))
 
     torch.manual_seed(seed)
     trainer = Trainer(cfg, device=device, steps_per_epoch=steps_per_epoch, model=SceneRF(cfg),
-                      seed=seed)
+                      seed=seed, group=group, mode=parallel_mode)
     mgr = CheckpointManager(os.path.join(logdir, "ckpts", exp_name), monitor="depth/abs_rel",
                             mode="min")
-    logger = MetricLogger(os.path.join(logdir, "tb", exp_name) if enable_log else None)
+    logger = MetricLogger(os.path.join(logdir, "tb", exp_name) if enable_log and lead else None)
     if mgr.latest() is not None:
         trainer.load_state_dict(mgr.restore("last"))
-        print(f"resumed from step {trainer.step} (epoch {trainer.step // steps_per_epoch})")
+        if lead:
+            print(f"resumed from step {trainer.step} (epoch {trainer.step // steps_per_epoch})")
     start_step = trainer.step
     start_epoch = trainer.step // steps_per_epoch
     for _ in range(start_epoch):
@@ -87,7 +111,7 @@ def run_training(cfg: CFG.SceneRFConfig, train_ds, val_ds,
         for batch in train_loader:
             metrics = trainer.train_step(batch)
             losses.append(metrics["total_loss"])
-            if trainer.step % LOG_EVERY == 0:
+            if trainer.step % LOG_EVERY == 0 and lead:
                 host = {k: float(v) for k, v in metrics.items()}
                 logger.log(host, trainer.step, "train")
                 logger.log_lr(trainer.lr_at(trainer.step), trainer.step)
@@ -104,8 +128,8 @@ def run_training(cfg: CFG.SceneRFConfig, train_ds, val_ds,
         t0 = time.perf_counter()
         sums, n_val = None, 0
         for bi, batch in enumerate(val_loader):
-            val_seed = np.random.SeedSequence([seed, 0x5EED, bi]).generate_state(1)[0]
-            m = trainer.val_step(batch, torch.Generator().manual_seed(int(val_seed)))
+            val_seed = int(np.random.SeedSequence([seed, 0x5EED, bi]).generate_state(1)[0])
+            m = trainer.val_step(batch, torch.Generator().manual_seed(trainer.draw_seed(val_seed)))
             sums = m if sums is None else {k: sums[k] + m[k] for k in m}
             n_val += 1
         val_metrics = {k: float(v) / n_val for k, v in sums.items()} if sums else None
@@ -114,9 +138,12 @@ def run_training(cfg: CFG.SceneRFConfig, train_ds, val_ds,
         record["val_metrics"].append(val_metrics)
 
         t0 = time.perf_counter()
-        mgr.save(trainer.state_dict(), cfg, metrics=val_metrics)
+        state = trainer.state_dict()  # a collective over several ranks
+        if lead:
+            mgr.save(state, cfg, metrics=val_metrics)
+        D.barrier(group)
         record["save_s"].append(time.perf_counter() - t0)
-        if val_metrics:
+        if val_metrics and lead:
             logger.log(val_metrics, trainer.step, "val")
             print(f"epoch {epoch} ({time.perf_counter() - t_epoch:.0f}s) "
                   f"val abs_rel {val_metrics.get('depth/abs_rel', float('nan')):.4f}")
@@ -124,6 +151,24 @@ def run_training(cfg: CFG.SceneRFConfig, train_ds, val_ds,
     return {"trainer": trainer, "start_step": start_step, "checkpoints": mgr,
             "train_timings": train_loader.timings, "val_timings": val_loader.timings,
             **record}
+
+
+PARALLEL_OPT = click.option(
+    "--parallel_mode", default="data", type=click.Choice(MODES),
+    help="under torchrun: data (items split over the ranks), ray_parallel (every rank the "
+         "same items, its own rays), ray_shard (every rank 1/W of each item's rays)")
+
+
+def check_world(world: D.World, parallel_mode: str, bs: int) -> None:
+    """Data mode needs a world that divides the global batch (JAX meshes over
+    the largest device count that does; torchrun's world is fixed)."""
+    if parallel_mode == "data":
+        try:
+            D.local_batch_size(bs, world.size)
+        except ValueError:
+            raise click.UsageError(f"--parallel_mode data: the {world.size} ranks do not "
+                                   f"divide --bs {bs} (start as many ranks as divide it, or "
+                                   f"take a ray mode)") from None
 
 
 @click.group()
@@ -165,17 +210,21 @@ def cli():
 @click.option("--sequences", default="", help="comma list overriding the train split")
 @click.option("--val_sequences", default="", help="comma list overriding the val split")
 @click.option("--seed", default=42, help="weights, draws and shuffles")
+@PARALLEL_OPT
 @common.DEVICE_OPT
+@common.DIST_BACKEND_OPT
 def train_kitti(root, preprocess_root, logdir, bs, n_rays, n_sources, lr, weight_decay,
                 n_epochs, enable_log, sequence_distance, frames_interval, n_gaussians,
                 n_pts_per_gaussian, n_pts_uni, n_gt_depth, std, add_fov_hor, add_fov_ver,
                 sphere_w, sphere_h, som_sigma, max_sample_depth, eval_depth, use_color,
                 use_reprojection, encoder, exp_prefix, compute_dtype, max_steps_per_epoch,
-                sequences, val_sequences, seed, device):
+                sequences, val_sequences, seed, parallel_mode, device, dist_backend):
     """Train SceneRF on SemanticKITTI."""
     from scenerf_tpu_torch.data.kitti import KittiDataset, to_model_batch
 
-    device = common.resolve_device(device)
+    world = common.join_world(device, dist_backend)
+    device = world.device
+    check_world(world, parallel_mode, bs)
     cfg = CFG.kitti(
         n_rays=n_rays, n_sources=n_sources, lr=lr, weight_decay=weight_decay,
         n_gaussians=n_gaussians, n_pts_per_gaussian=n_pts_per_gaussian, n_pts_uni=n_pts_uni,
@@ -197,7 +246,7 @@ def train_kitti(root, preprocess_root, logdir, bs, n_rays, n_sources, lr, weight
     return run_training(cfg, train_ds, val_ds, lambda items: to_model_batch(items, cfg),
                         exp_name, logdir, n_epochs, enable_log, limit_train_fraction=0.5,
                         batch_size=bs, seed=seed, max_steps_per_epoch=max_steps_per_epoch,
-                        device=device)
+                        device=device, group=world.group, parallel_mode=parallel_mode)
 
 
 @cli.command("train-bundlefusion")
@@ -238,18 +287,22 @@ def train_kitti(root, preprocess_root, logdir, bs, n_rays, n_sources, lr, weight
 @click.option("--sequences", default="", help="comma list overriding the train scenes")
 @click.option("--val_sequences", default="", help="comma list overriding the val scenes")
 @click.option("--seed", default=42, help="weights, draws and shuffles")
+@PARALLEL_OPT
 @common.DEVICE_OPT
+@common.DIST_BACKEND_OPT
 def train_bundlefusion(root, logdir, bs, n_rays, n_sources, lr, weight_decay, n_epochs,
                        enable_log, frame_interval, n_frames, n_gaussians, n_pts_per_gaussian,
                        n_pts_uni, n_gt_depth, std, som_sigma, sample_grid_size, sampling_method,
                        max_sample_depth, eval_depth, add_fov_hor, add_fov_ver, sphere_w,
                        sphere_h, use_color, use_reprojection, img_w, img_h, encoder,
                        encoder_features, exp_prefix, compute_dtype, max_steps_per_epoch,
-                       sequences, val_sequences, seed, device):
+                       sequences, val_sequences, seed, parallel_mode, device, dist_backend):
     """Train SceneRF on BundleFusion."""
     from scenerf_tpu_torch.data.bundlefusion import BundlefusionDataset, to_model_batch
 
-    device = common.resolve_device(device)
+    world = common.join_world(device, dist_backend)
+    device = world.device
+    check_world(world, parallel_mode, bs)
     cfg = CFG.bundlefusion(
         n_rays=n_rays, n_sources=n_sources, lr=lr, weight_decay=weight_decay,
         n_gaussians=n_gaussians, n_pts_per_gaussian=n_pts_per_gaussian, n_pts_uni=n_pts_uni,
@@ -275,7 +328,7 @@ def train_bundlefusion(root, logdir, bs, n_rays, n_sources, lr, weight_decay, n_
     return run_training(cfg, train_ds, val_ds, lambda items: to_model_batch(items, cfg),
                         exp_name, logdir, n_epochs, enable_log, limit_train_fraction=1.0,
                         batch_size=bs, seed=seed, max_steps_per_epoch=max_steps_per_epoch,
-                        device=device)
+                        device=device, group=world.group, parallel_mode=parallel_mode)
 
 
 if __name__ == "__main__":

@@ -2,8 +2,12 @@
 prefetch thread that reads and collates the next batches while the device
 runs the current step. The port's own copy of `scenerf_tpu/data/loader.py`.
 
-One process reads every batch: the JAX loader's multi-process slicing
-(`process_index` / `process_count`) waits for multi-GPU training.
+Several ranks (`process_index` / `process_count`, as the JAX loader): every
+rank draws the same shuffled order from the shared seed, and yields only its
+contiguous batch_size / process_count items of each global batch
+(`batch_size` is the global batch); a trailing partial batch is dropped. The
+ray modes of multi-GPU training read the unsliced batches on every rank
+(process_count 1).
 """
 from __future__ import annotations
 
@@ -19,7 +23,8 @@ class DataLoader:
     def __init__(self, dataset, collate_fn: Callable[[List[Dict]], Dict[str, np.ndarray]],
                  batch_size: int = 1, shuffle: bool = False, drop_last: bool = True,
                  limit_fraction: float = 1.0, prefetch: int = 2, seed: int = 42,
-                 max_batches: Optional[int] = None):
+                 max_batches: Optional[int] = None, process_index: int = 0,
+                 process_count: int = 1):
         """Each epoch shuffles the whole dataset with `seed`'s generator (one
         shuffle per epoch, as the JAX loader draws them), keeps its first
         `limit_fraction`, and, with `max_batches`, reads no more than that
@@ -31,6 +36,14 @@ class DataLoader:
         thread spent reading its items (`read_s`) and collating them
         (`collate_s`), and the seconds the consumer waited on the queue
         (`wait_s`)."""
+        if batch_size % process_count:
+            raise ValueError(f"global batch {batch_size} not divisible by process_count "
+                             f"{process_count}")
+        if not 0 <= process_index < process_count:
+            raise ValueError(f"process_index {process_index} of {process_count}")
+        self.process_index = process_index
+        self.process_count = process_count
+        self.local_batch_size = batch_size // process_count
         self.dataset = dataset
         self.collate_fn = collate_fn
         self.batch_size = batch_size
@@ -44,11 +57,15 @@ class DataLoader:
 
     def __len__(self):
         n = int(len(self.dataset) * self.limit_fraction)
-        n = n // self.batch_size if self.drop_last else -(-n // self.batch_size)
+        if self.drop_last or self.process_count > 1:
+            n = n // self.batch_size
+        else:
+            n = -(-n // self.batch_size)
         return n if self.max_batches is None else min(n, self.max_batches)
 
     def epoch_order(self) -> np.ndarray:
-        """The next epoch's item order (draws its shuffle)."""
+        """The next epoch's item order (draws its shuffle): this rank's items
+        of it."""
         idx = np.arange(len(self.dataset))
         if self.shuffle:
             self.rng.shuffle(idx)
@@ -56,6 +73,11 @@ class DataLoader:
         idx = idx[:int(len(idx) * self.limit_fraction)]
         if self.max_batches is not None:
             idx = idx[:self.max_batches * self.batch_size]
+        if self.process_count > 1:
+            n_full = len(idx) // self.batch_size
+            idx = idx[:n_full * self.batch_size].reshape(
+                n_full, self.process_count, self.local_batch_size)[:, self.process_index]
+            idx = idx.reshape(-1)
         return idx
 
     def _produce(self, order: Sequence[int], out_q: queue.Queue, stop: threading.Event):
@@ -69,9 +91,9 @@ class DataLoader:
             return False
 
         try:
-            bs = self.batch_size
+            bs = self.local_batch_size
             batches = [order[i:i + bs] for i in range(0, len(order), bs)]
-            if self.drop_last and batches and len(batches[-1]) < self.batch_size:
+            if self.drop_last and batches and len(batches[-1]) < bs:
                 batches.pop()
             for b in batches:
                 t0 = time.perf_counter()

@@ -13,6 +13,12 @@ batch` (the opposite of torch BatchNorm's `momentum`). `forward(x,
 residual)` returns `act(x * mul + add + residual)`, one fused op
 (`ops/norm.py`: kernel K5 on the card). Parameter and buffer names are torch
 BatchNorm's (weight, bias, running_mean, running_var).
+
+`group` (a `torch.distributed` process group, or None) is JAX's `axis_name`:
+in train mode the batch statistics are those of every rank's rows together
+(`ops/norm.py batch_norm_act_synced`), so the running statistics move alike
+on every rank. Eval mode, and a module without a group, take the one-rank
+path.
 """
 from __future__ import annotations
 
@@ -26,13 +32,14 @@ from scenerf_tpu_torch.ops.norm import ACTS, batch_norm_act
 
 class FusedBatchNorm(nn.Module):
     def __init__(self, channels: int, eps: float = 1e-5, momentum: float = 0.99,
-                 act: str = "identity"):
+                 act: str = "identity", group=None):
         super().__init__()
         if act not in ACTS:
             raise ValueError(f"act must be one of {ACTS}, got {act!r}")
         self.eps = eps
         self.momentum = momentum
         self.act = act
+        self.group = group
         self.weight = nn.Parameter(torch.ones(channels))
         self.bias = nn.Parameter(torch.zeros(channels))
         self.register_buffer("running_mean", torch.zeros(channels))
@@ -41,4 +48,14 @@ class FusedBatchNorm(nn.Module):
     def forward(self, x: torch.Tensor, residual: Optional[torch.Tensor] = None) -> torch.Tensor:
         """x, residual: [..., C] channel-last."""
         return batch_norm_act(x, self.weight, self.bias, self.running_mean, self.running_var,
-                              self.training, self.momentum, self.eps, self.act, residual)
+                              self.training, self.momentum, self.eps, self.act, residual,
+                              self.group)
+
+
+def set_sync_group(module: nn.Module, group) -> int:
+    """Give every FusedBatchNorm under `module` the process group `group`
+    (None: no sync); returns how many there are."""
+    sites = [m for m in module.modules() if isinstance(m, FusedBatchNorm)]
+    for m in sites:
+        m.group = group
+    return len(sites)

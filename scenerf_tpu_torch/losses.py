@@ -8,6 +8,7 @@ from typing import Dict, Optional, Tuple
 import torch
 
 from scenerf_tpu_torch import geometry as geo
+from scenerf_tpu_torch.parallel.dist import sum_over_ranks
 
 DEPTH_METRIC_NAMES = ("abs_rel", "sq_rel", "rmse", "rmse_log", "a1", "a2", "a3")
 
@@ -48,10 +49,17 @@ def reprojection_loss(
     return torch.minimum(loss_re, loss_id), valid
 
 
-def masked_mean(x: torch.Tensor, mask: torch.Tensor, eps: float = 1e-8) -> torch.Tensor:
-    """Mean of x over mask."""
+def masked_mean(x: torch.Tensor, mask: torch.Tensor, eps: float = 1e-8,
+                group=None) -> torch.Tensor:
+    """Mean of x over mask. With a process `group`, numerator and denominator
+    are summed over its ranks first (differentiably), so rays split over the
+    ranks give the unsplit masked mean (each rank's valid count may
+    differ)."""
     m = mask.to(x.dtype)
-    return torch.sum(x * m) / torch.clamp(torch.sum(m), min=eps)
+    num, den = torch.sum(x * m), torch.sum(m)
+    if group is not None:
+        num, den = sum_over_ranks(torch.stack([num, den]), group)
+    return num / torch.clamp(den, min=eps)
 
 
 def dist2closest_gaussian(
@@ -77,16 +85,19 @@ def depth_metrics(
     mask: Optional[torch.Tensor] = None,
     min_depth: float = 1e-3,
     max_depth: float = 80.0,
+    group=None,
 ) -> Dict[str, torch.Tensor]:
     """abs_rel / sq_rel / rmse / rmse_log / a1 / a2 / a3 over the masked GT
-    pixels, predictions clamped to [min_depth, max_depth]."""
+    pixels, predictions clamped to [min_depth, max_depth]. With a process
+    `group`, each mean sums its numerator and denominator over the ranks
+    (rmse and rmse_log take the square root after the mean over all)."""
     pred = torch.clamp(pred, min_depth, max_depth)
     if mask is None:
         mask = torch.ones_like(gt, dtype=torch.bool)
     gt_safe = torch.where(mask, gt, torch.ones_like(gt))
 
     def mmean(x):
-        return masked_mean(x, mask)
+        return masked_mean(x, mask, group=group)
 
     thresh = torch.maximum(gt_safe / pred, pred / gt_safe)
     return {

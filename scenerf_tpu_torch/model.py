@@ -33,6 +33,7 @@ from scenerf_tpu_torch.encoder.sphere_decoder import build_sphere_maps
 from scenerf_tpu_torch.encoder.unet_sphere import UNet2DSphere
 from scenerf_tpu_torch.fields import ResnetFC
 from scenerf_tpu_torch.ops.gather import PyramidGrads, share_pyramid_grads
+from scenerf_tpu_torch.parallel import dist as D
 
 LEVEL_KEYS = ("1_1", "1_2", "1_4", "1_8", "1_16")
 LOSS_KEYS = ("loss_reprojection", "loss_color", "loss_kl", "loss_dist2closest_gauss")
@@ -180,9 +181,11 @@ class SceneRF(nn.Module):
     def _per_source(self, pyramid: R.Pyramid, pyramid_grads: Optional[PyramidGrads],
                     item_K: torch.Tensor, item_inv_K: torch.Tensor,
                     src: Dict[str, torch.Tensor], noise: Noise, with_losses: bool = True,
-                    with_depth_eval: bool = True) -> Dict[str, torch.Tensor]:
+                    with_depth_eval: bool = True, ray_group=None) -> Dict[str, torch.Tensor]:
         """Losses and logs (the training render) and the depth metrics (the
-        GT-depth render) of one (item, source) pair, each when asked for."""
+        GT-depth render) of one (item, source) pair, each when asked for.
+        `ray_group`: the rays (and GT rows) of `noise` and `src` are this
+        rank's slice, and the masked means sum over the group."""
         cfg = self.cfg
         res = {}
         if with_losses:
@@ -197,7 +200,7 @@ class SceneRF(nn.Module):
                 noise["reproj"], pix, color_src, out["depth"], src["img_target"], item_inv_K,
                 item_K, src["T_source2target"])
             res = {
-                "loss_reprojection": L.masked_mean(loss_reproj, valid),
+                "loss_reprojection": L.masked_mean(loss_reproj, valid, group=ray_group),
                 "loss_color": torch.abs(out["color"] - color_src).mean(),
                 "loss_kl": out["loss_kl"].mean(),
                 "loss_dist2closest_gauss": d2g["loss_dist2closest_gauss"].mean(),
@@ -214,13 +217,33 @@ class SceneRF(nn.Module):
                                       ray_chunk=cfg.eval_ray_chunk, noise_uni=noise["gt_uni"],
                                       noise_gauss=noise["gt_gauss"])
                 dm = L.depth_metrics(src["gt_depth"], ev["depth"], mask=src["gt_mask"] > 0,
-                                     max_depth=cfg.eval_depth)
+                                     max_depth=cfg.eval_depth, group=ray_group)
             res.update({f"depth/{k}": v for k, v in dm.items()})
         return res
 
+    def _ray_slice(self, noise: Noise, batch: Dict[str, torch.Tensor], group,
+                   with_losses: bool, with_depth_eval: bool) -> Tuple[Noise, Dict]:
+        """This rank's rows of every source's rays and GT rows (`forward`'s
+        `ray_group`); raises unless the world divides them."""
+        W, r = D.size(group), D.rank(group)
+        n, g = noise["pixels"].shape[2], batch["gt_pix"].shape[2]
+        if with_losses and n % W:
+            raise ValueError(f"n_rays={n} must be a multiple of the {W} ranks for ray_shard")
+        if with_depth_eval and g % W:
+            raise ValueError(f"n_gt_depth={g} must be a multiple of the {W} ranks for "
+                             f"ray_shard with depth eval (the GT rows are split like the "
+                             f"rays)")
+        rows = {"pixels": n, "uni": n, "gauss": n, "reproj": n, "gt_uni": g, "gt_gauss": g}
+        noise = {k: v[:, :, r * (rows[k] // W):(r + 1) * (rows[k] // W)]
+                 for k, v in noise.items()}
+        gk = g // W
+        batch = {**batch, **{k: batch[k][:, :, r * gk:(r + 1) * gk]
+                             for k in ("gt_pix", "gt_depth", "gt_mask")}}
+        return noise, batch
+
     def forward(self, batch: Dict[str, torch.Tensor], noise: Noise, train: bool = True,
                 sphere_maps: Optional[Dict[int, torch.Tensor]] = None,
-                with_losses: bool = True, with_depth_eval: bool = True
+                with_losses: bool = True, with_depth_eval: bool = True, ray_group=None
                 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The training (train=True) or validation forward over a batch of
         device tensors (see data/synthetic.py for the contract) with every
@@ -231,13 +254,25 @@ class SceneRF(nn.Module):
         package's. `with_losses=False` skips the training renders (no loss
         or log keys; total_loss 0), `with_depth_eval=False` the GT-depth
         renders (no depth/* keys); one of them must be on. Nothing here waits
-        for the device."""
+        for the device.
+
+        `ray_group` (a process group of W ranks, JAX's `ray_shard_n`): every
+        rank holds the same batch and noise, and rank r renders rows [r n/W,
+        (r+1) n/W) of each source's n_rays pixel sample and of its n_gt_depth
+        GT rows, with those rows' noise; the masked means (reprojection, depth
+        metrics) sum numerator and denominator over the group, the other
+        losses and logs are this rank's means. Averaged over the ranks (the
+        trainer's gradient and metric mean), a step equals the unsplit one up
+        to the order of f32 sums."""
         if not (with_losses or with_depth_eval):
             raise ValueError("forward with with_losses=False requires with_depth_eval=True "
                              "(nothing to compute)")
         cfg = self.cfg
         self.train(train)
         B, S_n = batch["T_source2infer"].shape[:2]
+        if ray_group is not None:
+            noise, batch = self._ray_slice(noise, batch, ray_group, with_losses,
+                                           with_depth_eval)
         levels = self.encode(batch["img_input"], batch["cam_K"][0], sphere_maps=sphere_maps)
 
         sums: Dict[str, torch.Tensor] = {}
@@ -259,7 +294,7 @@ class SceneRF(nn.Module):
                 }
                 res = self._per_source(pyramid, pyramid_grads, item_K, item_inv_K, src,
                                        {k: v[b, s] for k, v in noise.items()}, with_losses,
-                                       with_depth_eval)
+                                       with_depth_eval, ray_group)
                 m = batch["source_mask"][b, s]
                 for k, v in res.items():
                     sums[k] = sums[k] + m * v if k in sums else m * v

@@ -34,10 +34,16 @@ LAUNCHES = {"gather_levels": 0, "gather_levels_bwd": 0, "sort_composite": 0,
             # kernel K5 (batch norm + activation): N1-N4; of those, the one-launch
             # cluster path's (counted under both its stages' keys too)
             "bn_stats": 0, "bn_apply": 0, "bn_bwd_reduce": 0, "bn_bwd_apply": 0,
-            "bn_forward_fused": 0, "bn_backward_fused": 0}
-# of those launches, the ones of a bf16 instantiation (counted under both keys)
+            "bn_forward_fused": 0, "bn_backward_fused": 0,
+            # K5's synced path (a training site whose statistics are reduced
+            # over the ranks): N1 and N3 without their finalize, and the two
+            # finalize launches after the all-reduce (N2 and N4 count above)
+            "bn_sync_sums": 0, "bn_sync_stats": 0, "bn_sync_bwd_sums": 0, "bn_sync_grads": 0}
+BN_SYNC_KERNELS = ("bn_sync_sums", "bn_sync_stats", "bn_sync_bwd_sums", "bn_sync_grads")
+# of those launches, the ones of a bf16 instantiation (counted under both keys;
+# the synced path's at a bf16 site)
 BF16_KERNELS = ("gather_levels", "gather_levels_bwd", "bn_stats", "bn_apply", "bn_bwd_reduce",
-                "bn_bwd_apply", "bn_forward_fused", "bn_backward_fused")
+                "bn_bwd_apply", "bn_forward_fused", "bn_backward_fused", *BN_SYNC_KERNELS)
 LAUNCHES.update({f"{k}_bf16": 0 for k in BF16_KERNELS})
 
 _lib = None
@@ -169,9 +175,14 @@ def library() -> ctypes.CDLL:
                                       + [i32, i32, i64, i64, vp],
             "scenerf_bn_backward_f32": [vp] * 5 + [i64, i32, i64] + [vp] * 4
                                        + [i64, f32, i32, i32, i32] + [i32, i32, i64, i64, vp],
+            "scenerf_bn_sums_f32": [vp, i64, i32, i64, vp, vp, i64, vp],
+            "scenerf_bn_bwd_sums_f32": [vp, vp, vp, i64, i32, i64, vp, vp, vp, i64, i32, vp],
+            "scenerf_bn_stats_finalize": [vp, i64, i32] + [vp] * 5 + [f32, f32, f32, vp],
+            "scenerf_bn_grads_finalize": [vp, vp, i64, i32, vp, vp, vp, f32, i32, vp],
             "scenerf_empty_launch": [i32, vp],
         }
-        for name in ("gather_levels", "gather_levels_bwd", "bn_forward", "bn_backward"):
+        for name in ("gather_levels", "gather_levels_bwd", "bn_forward", "bn_backward",
+                     "bn_sums", "bn_bwd_sums"):
             # the bf16 instantiations take the f32 entries' arguments
             signatures[f"scenerf_{name}_bf16"] = signatures[f"scenerf_{name}_f32"]
         for name, argtypes in signatures.items():

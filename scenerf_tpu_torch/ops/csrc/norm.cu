@@ -335,7 +335,53 @@ struct GradsFin {
     float alpha, beta;
     (*this)(c, sg, sgx, true, alpha, beta);
   }
+  // the synced path: dx's coefficients from the world's sums (sgw, sgxw, over
+  // the world's M rows), dweight and dbias from this rank's own (sg, sgx), as
+  // JAX's autodiff of a pmean'd FusedBatchNorm gives them before the gradient
+  // pmean; with one rank the two are the same numbers, and so is the result
+  __device__ __forceinline__ void split(int c, double sg, double sgx, double sgw,
+                                        double sgxw) const {
+    float alpha, beta;
+    (*this)(c, sgw, sgxw, false, alpha, beta);
+    grads[kDWeight * C + c] = (float)((sgx - (double)stats[kMean * C + c] * sg) *
+                                      (double)stats[kInv * C + c]);
+    grads[kDBias * C + c] = (float)sg;
+    grads[kAlpha * C + c] = alpha;
+    grads[kBeta * C + c] = beta;
+  }
 };
+
+// the synced path's reductions (N1 or N3 without its finalize): the last block
+// of a column writes its channels' f64 sums [2, C] where the streaming path
+// would finalize them. ops/norm.py all-reduces them over the ranks, then a
+// finalize launch (bn_stats_finalize_kernel, bn_grads_finalize_kernel) reads
+// them. The sums are those the streaming finalize takes, in the same order.
+struct SumsOut {
+  int C;
+  double* sums;
+
+  __device__ __forceinline__ void operator()(int c, double s, double q) const {
+    sums[c] = s;
+    sums[C + c] = q;
+  }
+};
+
+// the synced forward's finalize from the world's sums [2, C] over fin.M rows:
+// one thread a channel
+__global__ void __launch_bounds__(kThreads)
+bn_stats_finalize_kernel(const double* __restrict__ sums, StatsFin fin) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c < fin.C) fin(c, sums[c], sums[fin.C + c]);
+}
+
+// the synced backward's finalize from this rank's sums and the world's
+// (fin.M: the world's rows)
+__global__ void __launch_bounds__(kThreads)
+bn_grads_finalize_kernel(const double* __restrict__ local, const double* __restrict__ world,
+                         GradsFin fin) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c < fin.C) fin.split(c, local[c], local[fin.C + c], world[c], world[fin.C + c]);
+}
 
 // ---- the streaming path ----------------------------------------------------
 
@@ -513,10 +559,11 @@ __device__ __forceinline__ void finalize_columns4(const float* __restrict__ part
 }
 
 // N1: partial sums of x and x^2, the last block of a column finalizing it
-template <typename T, int VW>
+// (StatsFin) or writing its sums (SumsOut)
+template <typename T, int VW, typename Fin>
 __global__ void __launch_bounds__(kThreads)
 bn_stats_kernel(const T* __restrict__ x, int64_t M, int C, int TW, int RB,
-                float* __restrict__ partials, unsigned* __restrict__ tickets, StatsFin fin) {
+                float* __restrict__ partials, unsigned* __restrict__ tickets, Fin fin) {
   const int tx = threadIdx.x % TW, ty = threadIdx.x / TW;
   const int cv = blockIdx.y * TW + tx;
   const bool active = cv * VW < C;
@@ -626,14 +673,15 @@ __device__ __forceinline__ void grad_at(const T* __restrict__ x, const T* __rest
   grad_of<VW, ACT, RES && ACT != kIdentity>(xv, rv, mul, add, g);
 }
 
-// N3: partial sums of g and g x, the last block of a column finalizing it;
-// at most 64 registers (4 blocks an SM), so kRedBlocks blocks run in one wave
-template <typename T, int VW, int ACT, bool RES, bool WIDE>
+// N3: partial sums of g and g x, the last block of a column finalizing it
+// (GradsFin) or writing its sums (SumsOut); at most 64 registers (4 blocks an
+// SM), so kRedBlocks blocks run in one wave
+template <typename T, int VW, int ACT, bool RES, bool WIDE, typename Fin>
 __global__ void __launch_bounds__(kThreads, kRedBlocks / kSMs)
 bn_bwd_reduce_kernel(const T* __restrict__ x, const T* __restrict__ res,
                      const T* __restrict__ dy, int64_t M, int C, int TW, int RB,
                      const float* __restrict__ stats, float* __restrict__ partials,
-                     unsigned* __restrict__ tickets, GradsFin fin) {
+                     unsigned* __restrict__ tickets, Fin fin) {
   const int tx = threadIdx.x % TW, ty = threadIdx.x / TW;
   const int cv = blockIdx.y * TW + tx;
   const bool active = cv * VW < C;
@@ -724,10 +772,10 @@ bn_bwd_apply_kernel(const T* __restrict__ x, const T* __restrict__ res,
   }
 
 // N1, channel-first
-template <typename T>
+template <typename T, typename Fin>
 __global__ void __launch_bounds__(kThreads)
 bn_stats_cf_kernel(const T* __restrict__ x, int64_t B, int C, int64_t S,
-                   float* __restrict__ partials, unsigned* __restrict__ tickets, StatsFin fin) {
+                   float* __restrict__ partials, unsigned* __restrict__ tickets, Fin fin) {
   const int c = blockIdx.y;
   float a[2][1] = {{0.0f}, {0.0f}};
   SCENERF_PLANES({
@@ -769,12 +817,12 @@ bn_apply_cf_kernel(const T* __restrict__ x, const T* __restrict__ res, T* __rest
 }
 
 // N3, channel-first
-template <typename T, int ACT, bool RES>
+template <typename T, int ACT, bool RES, typename Fin>
 __global__ void __launch_bounds__(kThreads)
 bn_bwd_reduce_cf_kernel(const T* __restrict__ x, const T* __restrict__ res,
                         const T* __restrict__ dy, int64_t B, int C, int64_t S,
                         const float* __restrict__ stats, float* __restrict__ partials,
-                        unsigned* __restrict__ tickets, GradsFin fin) {
+                        unsigned* __restrict__ tickets, Fin fin) {
   const int c = blockIdx.y;
   const float mul[1] = {stats[kMul * C + c]}, add[1] = {stats[kAdd * C + c]};
   float a[2][1] = {{0.0f}, {0.0f}};
@@ -1186,20 +1234,46 @@ cudaError_t cluster_check(Kern kernel, const ClusterPlan& p, int64_t want_smem, 
   return it->second > 0 ? cudaSuccess : cudaErrorLaunchOutOfResources;
 }
 
-// N1 with its finalize (into work: tickets, then partials)
-template <typename T, int VW>
-cudaError_t launch_stats(const T* x, const Geometry& g, const StatsFin& fin, float* work,
+// N1 with its finalize, or its sums (into work: tickets, then partials)
+template <typename T, int VW, typename Fin>
+cudaError_t launch_stats(const T* x, const Geometry& g, const Fin& fin, float* work,
                          cudaStream_t s) {
   unsigned* tickets = reinterpret_cast<unsigned*>(work);
   float* partials = work + kTickets;
   if (g.cf) {
-    bn_stats_cf_kernel<T><<<dim3(cf_splits(g, reduce_cap(g, sizeof(T))), g.C), kThreads, 0, s>>>(
-        x, g.B, g.C, g.S, partials, tickets, fin);
+    bn_stats_cf_kernel<T, Fin>
+        <<<dim3(cf_splits(g, reduce_cap(g, sizeof(T))), g.C), kThreads, 0, s>>>(
+            x, g.B, g.C, g.S, partials, tickets, fin);
   } else {
     const Tile t = reduce_tile(g, VW, sizeof(T), false);
     if (t.gy > kTickets) return cudaErrorInvalidValue;
-    bn_stats_kernel<T, VW><<<dim3(t.gx, t.gy), t.TW * t.RB, 0, s>>>(x, g.M, g.C, t.TW, t.RB,
-                                                                   partials, tickets, fin);
+    bn_stats_kernel<T, VW, Fin><<<dim3(t.gx, t.gy), t.TW * t.RB, 0, s>>>(
+        x, g.M, g.C, t.TW, t.RB, partials, tickets, fin);
+  }
+  return cudaGetLastError();
+}
+
+// N3 with its finalize, or its sums (into work: tickets, then partials)
+template <typename T, int VW, int ACT, bool RES, typename Fin>
+cudaError_t launch_bwd_reduce(const T* x, const T* res, const T* dy, const Geometry& g,
+                              const float* stats, const Fin& fin, float* work, cudaStream_t s) {
+  unsigned* tickets = reinterpret_cast<unsigned*>(work);
+  float* partials = work + kTickets;
+  if (g.cf) {
+    bn_bwd_reduce_cf_kernel<T, ACT, RES, Fin>
+        <<<dim3(cf_splits(g, reduce_cap(g, sizeof(T))), g.C), kThreads, 0, s>>>(
+            x, res, dy, g.B, g.C, g.S, stats, partials, tickets, fin);
+  } else {
+    const Tile t = reduce_tile(g, VW, sizeof(T), true);
+    if (t.gy > kTickets) return cudaErrorInvalidValue;
+    const dim3 grid(t.gx, t.gy), block(t.TW * t.RB);
+    if (bwd_wide(g)) {
+      bn_bwd_reduce_kernel<T, VW, ACT, RES, true, Fin><<<grid, block, 0, s>>>(
+          x, res, dy, g.M, g.C, t.TW, t.RB, stats, partials, tickets, fin);
+    } else {
+      bn_bwd_reduce_kernel<T, VW, ACT, RES, false, Fin><<<grid, block, 0, s>>>(
+          x, res, dy, g.M, g.C, t.TW, t.RB, stats, partials, tickets, fin);
+    }
   }
   return cudaGetLastError();
 }
@@ -1297,26 +1371,9 @@ cudaError_t backward_act(const T* x, const T* res, const T* dy, T* dx, T* dres,
     if (e != cudaSuccess) return e;
     return cudaLaunchKernelEx(&cfg, kernel, x, res, dy, dx, dres, g.M, g.C, p.SV, p.rows, fin);
   }
-  unsigned* tickets = reinterpret_cast<unsigned*>(work);
-  float* partials = work + kTickets;
   if (stages & 1) {
-    if (g.cf) {
-      bn_bwd_reduce_cf_kernel<T, ACT, RES><<<dim3(cf_splits(g, reduce_cap(g, sizeof(T))), g.C), kThreads, 0,
-                                             s>>>(x, res, dy, g.B, g.C, g.S, fin.stats,
-                                                  partials, tickets, fin);
-    } else {
-      const Tile t = reduce_tile(g, VW, sizeof(T), true);
-      if (t.gy > kTickets) return cudaErrorInvalidValue;
-      const dim3 grid(t.gx, t.gy), block(t.TW * t.RB);
-      if (bwd_wide(g)) {
-        bn_bwd_reduce_kernel<T, VW, ACT, RES, true><<<grid, block, 0, s>>>(
-            x, res, dy, g.M, g.C, t.TW, t.RB, fin.stats, partials, tickets, fin);
-      } else {
-        bn_bwd_reduce_kernel<T, VW, ACT, RES, false><<<grid, block, 0, s>>>(
-            x, res, dy, g.M, g.C, t.TW, t.RB, fin.stats, partials, tickets, fin);
-      }
-    }
-    const cudaError_t e = cudaGetLastError();
+    const cudaError_t e =
+        launch_bwd_reduce<T, VW, ACT, RES>(x, res, dy, g, fin.stats, fin, work, s);
     if (e != cudaSuccess) return e;
   }
   if (stages & 2) {
@@ -1421,6 +1478,54 @@ int backward_entry(const T* x, const T* res, const T* dy, T* dx, T* dres, long l
                              train, stages, p, s);
 }
 
+// the synced path's N1: this rank's sums [2, C] (f64) of x and x^2
+template <typename T>
+int sums_entry(const T* x, long long M, int C, long long plane, double* sums, float* work,
+               long long work_cap, void* stream) {
+  if (!valid(M, C, plane, 0) || sums == nullptr) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M == 0) return (int)cudaMemsetAsync(sums, 0, 2 * C * sizeof(double), s);
+  const Geometry g = geometry(M, C, plane);
+  constexpr int kW = kVecWidth<T>;
+  const bool vec = !g.cf && C % kW == 0 && aligned16(x);
+  if (work_cap < work_floats(g, vec ? kW : 1, sizeof(T))) return (int)cudaErrorInvalidValue;
+  const SumsOut out{C, sums};
+  if (vec) return (int)launch_stats<T, kW>(x, g, out, work, s);
+  return (int)launch_stats<T, 1>(x, g, out, work, s);
+}
+
+// the synced path's N3: this rank's sums [2, C] (f64) of g and g x
+template <typename T, int VW>
+cudaError_t bwd_sums(const T* x, const T* res, const T* dy, const Geometry& g,
+                     const float* stats, const SumsOut& out, float* work, int act,
+                     cudaStream_t s) {
+  const bool r = res != nullptr;
+#define SCENERF_BN_SUMS(A, R) \
+  return launch_bwd_reduce<T, VW, A, R>(x, res, dy, g, stats, out, work, s)
+  switch (act) {
+    case kIdentity: SCENERF_BN_SUMS(kIdentity, false);
+    case kSilu: if (r) SCENERF_BN_SUMS(kSilu, true); SCENERF_BN_SUMS(kSilu, false);
+    default: if (r) SCENERF_BN_SUMS(kLeaky, true); SCENERF_BN_SUMS(kLeaky, false);
+  }
+#undef SCENERF_BN_SUMS
+}
+
+template <typename T>
+int bwd_sums_entry(const T* x, const T* res, const T* dy, long long M, int C, long long plane,
+                   const float* stats, double* sums, float* work, long long work_cap, int act,
+                   void* stream) {
+  if (!valid(M, C, plane, act) || sums == nullptr) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M == 0) return (int)cudaMemsetAsync(sums, 0, 2 * C * sizeof(double), s);
+  const Geometry g = geometry(M, C, plane);
+  constexpr int kW = kVecWidth<T>;
+  const bool vec = !g.cf && C % kW == 0 && aligned16(x) && aligned16(res) && aligned16(dy);
+  if (work_cap < work_floats(g, vec ? kW : 1, sizeof(T))) return (int)cudaErrorInvalidValue;
+  const SumsOut out{C, sums};
+  if (vec) return (int)bwd_sums<T, kW>(x, res, dy, g, stats, out, work, act, s);
+  return (int)bwd_sums<T, 1>(x, res, dy, g, stats, out, work, act, s);
+}
+
 }  // namespace
 }  // namespace scenerf
 
@@ -1507,4 +1612,75 @@ SCENERF_API int scenerf_bn_backward_bf16(const __nv_bfloat16* x, const __nv_bflo
   return scenerf::backward_entry<__nv_bfloat16>(x, res, dy, dx, dres, M, C, plane, weight,
                                                 stats, grads, work, work_cap, eps, act, train,
                                                 stages, {cluster, sv, rows, smem}, stream);
+}
+
+// The synced path of a training site (ops/norm.py `batch_norm_act_synced`):
+// each direction split at its reduction, with an all-reduce of the sums over
+// the ranks between the two halves.
+//
+// x: [M, C] of the layout `plane` gives, f32 (_f32) or bf16 (_bf16). sums:
+// [2, C] f64 out, this rank's sum x and sum x^2 (N1 without its finalize).
+// work: as the forward's.
+SCENERF_API int scenerf_bn_sums_f32(const float* x, long long M, int C, long long plane,
+                                    double* sums, float* work, long long work_cap,
+                                    void* stream) {
+  return scenerf::sums_entry<float>(x, M, C, plane, sums, work, work_cap, stream);
+}
+
+SCENERF_API int scenerf_bn_sums_bf16(const __nv_bfloat16* x, long long M, int C,
+                                     long long plane, double* sums, float* work,
+                                     long long work_cap, void* stream) {
+  return scenerf::sums_entry<__nv_bfloat16>(x, M, C, plane, sums, work, work_cap, stream);
+}
+
+// x, res (or null), dy: as the backward's; stats: the [5, C] statistics;
+// sums: [2, C] f64 out, this rank's sum g and sum g x (N3 without its
+// finalize).
+SCENERF_API int scenerf_bn_bwd_sums_f32(const float* x, const float* res, const float* dy,
+                                        long long M, int C, long long plane,
+                                        const float* stats, double* sums, float* work,
+                                        long long work_cap, int act, void* stream) {
+  return scenerf::bwd_sums_entry<float>(x, res, dy, M, C, plane, stats, sums, work, work_cap,
+                                        act, stream);
+}
+
+SCENERF_API int scenerf_bn_bwd_sums_bf16(const __nv_bfloat16* x, const __nv_bfloat16* res,
+                                         const __nv_bfloat16* dy, long long M, int C,
+                                         long long plane, const float* stats, double* sums,
+                                         float* work, long long work_cap, int act,
+                                         void* stream) {
+  return scenerf::bwd_sums_entry<__nv_bfloat16>(x, res, dy, M, C, plane, stats, sums, work,
+                                                work_cap, act, stream);
+}
+
+// The forward's finalize from the world's sums [2, C] (f64) over M rows (every
+// rank's): stats [5, C] out and the running statistics moved in place, as
+// N1's finalize computes them.
+SCENERF_API int scenerf_bn_stats_finalize(const double* sums, long long M, int C,
+                                          const float* weight, const float* bias,
+                                          float* run_mean, float* run_var, float* stats,
+                                          float momentum, float one_minus_momentum, float eps,
+                                          void* stream) {
+  if (M < 1 || C < 1 || C > scenerf::kMaxChannels) return (int)cudaErrorInvalidValue;
+  const scenerf::StatsFin fin{M, C, weight, bias, run_mean, run_var, momentum,
+                              one_minus_momentum, eps, stats};
+  scenerf::bn_stats_finalize_kernel<<<(C + scenerf::kThreads - 1) / scenerf::kThreads,
+                                      scenerf::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      sums, fin);
+  return (int)cudaGetLastError();
+}
+
+// The backward's finalize: grads [4, C] out, dweight and dbias from this
+// rank's sums `local` [2, C], alpha and beta from the world's `world` [2, C]
+// over the world's M rows.
+SCENERF_API int scenerf_bn_grads_finalize(const double* local, const double* world,
+                                          long long M, int C, const float* weight,
+                                          const float* stats, float* grads, float eps,
+                                          int train, void* stream) {
+  if (M < 1 || C < 1 || C > scenerf::kMaxChannels) return (int)cudaErrorInvalidValue;
+  const scenerf::GradsFin fin{M, C, weight, stats, eps, train, grads};
+  scenerf::bn_grads_finalize_kernel<<<(C + scenerf::kThreads - 1) / scenerf::kThreads,
+                                      scenerf::kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      local, world, fin);
+  return (int)cudaGetLastError();
 }

@@ -44,6 +44,30 @@ The stage functions `stats_plain`, `apply_plain`, `bwd_reduce_plain` and
 per-channel [5, C] statistics and [4, C] gradients the kernels pass on);
 composed, they give the gradient autograd gives `batch_norm_act_plain`.
 
+Synced batch norm (`batch_norm_act_synced`, a training site of data-parallel
+training: JAX's `FusedBatchNorm(axis_name=...)`, which takes the pmean of each
+device's mean and mean(x^2)). The cluster path reduces inside one launch and
+cannot sync, so a synced site splits each direction at its reduction, on the
+card and in the plain version alike:
+- forward: this rank's per-channel sums [2, C] of x and x^2 (`sums_plain`;
+  on the card N1 without its finalize, `bn_sync_sums`), all-reduced (SUM)
+  over the group on the current stream, then the finalize over the world's
+  rows (`stats_finalize_plain`, `bn_sync_stats`: the [5, C] statistics and
+  the running statistics moved, the same on every rank), then N2;
+- backward: this rank's sums of g and g x (`bwd_sums_plain`,
+  `bn_sync_bwd_sums`), a copy all-reduced, then the finalize
+  (`grads_finalize_plain`, `bn_sync_grads`): dx's alpha and beta from the
+  world's sums over the world's rows, dweight and dbias from this rank's own
+  sums, then N4. This is JAX's autodiff of the pmean: every rank's loss
+  reaches every rank's x through the shared statistics (the transpose of a
+  psum is a psum), while each device's parameter gradients are its own
+  until the gradient pmean (which the trainer does).
+The sums are f64: the streaming reduction's last block adds its partials in
+f64, and the synced path hands exactly those numbers on, so at a world of one
+rank (`group=None`: no all-reduce) its statistics and gradients are bit-equal
+to the streaming path's. 2C f64 per site and direction is 3 KB at the widest
+site; the 384 all-reduces of a B7 step are latency, not bytes.
+
 bf16. x, the residual, y and the cotangents dy, dx, d_residual are bf16; the
 statistics, mul/add, the parameter gradients and the running statistics f32.
 The kernels and the plain versions round at the same points: every bf16
@@ -66,6 +90,7 @@ import torch
 import torch.nn.functional as F
 
 from scenerf_tpu_torch.ops import build
+from scenerf_tpu_torch.parallel import dist as D
 
 ACTS = ("identity", "silu", "leaky")
 LEAKY_SLOPE = 0.01
@@ -212,6 +237,28 @@ def stats_plain(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
     return torch.stack([mean, var_raw, inv, mul, bias - mean * mul])
 
 
+def sums_plain(x: torch.Tensor) -> torch.Tensor:
+    """The synced N1's reduction: [2, C] f64 sums of x and x^2 over the
+    rows."""
+    xr = _rows(x).double()
+    return torch.stack([xr.sum(0), (xr * xr).sum(0)])
+
+
+def stats_finalize_plain(sums: torch.Tensor, M: int, weight: torch.Tensor, bias: torch.Tensor,
+                         running_mean: torch.Tensor, running_var: torch.Tensor, momentum: float,
+                         eps: float) -> torch.Tensor:
+    """The synced N1's finalize: the [5, C] statistics of M rows from their
+    sums [2, C]; the running statistics move in place."""
+    mean = (sums[0] / M).float()
+    var_raw = (sums[1] / M).float() - torch.square(mean)
+    var = torch.clamp(var_raw, min=0.0)
+    inv = torch.rsqrt(var + eps)
+    mul = weight * inv
+    running_mean.mul_(momentum).add_((1.0 - momentum) * mean)
+    running_var.mul_(momentum).add_((1.0 - momentum) * var)
+    return torch.stack([mean, var_raw, inv, mul, bias - mean * mul])
+
+
 def fold_plain(weight: torch.Tensor, bias: torch.Tensor, running_mean: torch.Tensor,
                running_var: torch.Tensor, eps: float) -> torch.Tensor:
     """The [5, C] statistics of eval mode, folded from the running ones (N2
@@ -234,28 +281,44 @@ def apply_plain(x: torch.Tensor, stats: torch.Tensor, act: str,
     return activation(_pre_activation(x, stats, residual), act).to(x.dtype)
 
 
-def bwd_reduce_plain(x: torch.Tensor, dy: torch.Tensor, stats: torch.Tensor,
-                     weight: torch.Tensor, eps: float, act: str, training: bool,
-                     residual: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """N3 and its finalize: the [4, C] gradients (dweight, dbias, and dx's
-    alpha and beta), from sum g and sum g x with g = dy act'(z)."""
+def bwd_sums_plain(x: torch.Tensor, dy: torch.Tensor, stats: torch.Tensor, act: str,
+                   residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The synced N3's reduction: [2, C] f64 sums of g and g x, g = dy
+    act'(z)."""
     g = _rows(dy * activation_grad(_pre_activation(x, stats, residual), act)).double()
-    xr = _rows(x).double()
-    sg, sgx = g.sum(0), (g * xr).sum(0)
+    return torch.stack([g.sum(0), (g * _rows(x).double()).sum(0)])
+
+
+def grads_finalize_plain(local: torch.Tensor, world: torch.Tensor, M: int, stats: torch.Tensor,
+                         weight: torch.Tensor, eps: float, training: bool = True) -> torch.Tensor:
+    """N3's finalize: the [4, C] gradients, dweight and dbias from the sums
+    `local` [2, C] (sum g, sum g x), dx's alpha and beta from the sums
+    `world` over M rows (the same sums where nothing is synced)."""
     st = stats.double()
-    dmul = sgx - st[MEAN] * sg
+    sg, sgx = world[0], world[1]
     alpha = torch.zeros_like(sg)
     beta = torch.zeros_like(sg)
     if training:
+        dmul = sgx - st[MEAN] * sg
         var_raw = st[VAR_RAW]
         var = torch.clamp(var_raw, min=0.0)
         dvar = dmul * weight.double() * (-0.5 * st[INV] / (var + eps))
         share = torch.where(var_raw > 0, 1.0, torch.where(var_raw == 0, 0.5, 0.0))
         dvar_raw = dvar * share
-        m = xr.shape[0]
-        alpha = (-st[MUL] * sg - 2.0 * st[MEAN] * dvar_raw) / m
-        beta = 2.0 * dvar_raw / m
-    return torch.stack([dmul * st[INV], sg, alpha, beta]).float()
+        alpha = (-st[MUL] * sg - 2.0 * st[MEAN] * dvar_raw) / M
+        beta = 2.0 * dvar_raw / M
+    dweight = (local[1] - st[MEAN] * local[0]) * st[INV]
+    return torch.stack([dweight, local[0], alpha, beta]).float()
+
+
+def bwd_reduce_plain(x: torch.Tensor, dy: torch.Tensor, stats: torch.Tensor,
+                     weight: torch.Tensor, eps: float, act: str, training: bool,
+                     residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """N3 and its finalize: the [4, C] gradients (dweight, dbias, and dx's
+    alpha and beta), from sum g and sum g x with g = dy act'(z)."""
+    sums = bwd_sums_plain(x, dy, stats, act, residual)
+    return grads_finalize_plain(sums, sums, x.numel() // x.shape[-1], stats, weight, eps,
+                                training)
 
 
 def bwd_apply_plain(x: torch.Tensor, dy: torch.Tensor, stats: torch.Tensor,
@@ -497,14 +560,163 @@ class _BatchNormAct(torch.autograd.Function):
         return dx, grads[DWEIGHT], grads[DBIAS], d_res, None, None, None, None, None
 
 
+# ---------------------------------------------------------------- synced
+
+sync_all_reduces = 0  # all-reduces of the synced path (two a site and step)
+
+
+def _all_reduce(sums: torch.Tensor, group) -> torch.Tensor:
+    """SUM over the group, in place, on the current stream (None: a world of
+    one rank, the identity)."""
+    global sync_all_reduces
+    if group is not None:
+        D.all_reduce_sum(sums, group)
+        sync_all_reduces += 1
+    return sums
+
+
+def _sync_work(x: torch.Tensor, layout: int, *tensors) -> Tuple[torch.Tensor, int]:
+    stream = build.stream_handle(x.device)
+    return _work_for(x, layout, _vector(x, layout, *tensors), stream), stream
+
+
+def launch_sums(x: torch.Tensor) -> torch.Tensor:
+    """The synced N1's reduction on the card: [2, C] f64 sums of x and x^2."""
+    layout = _check(x, None)
+    sums = torch.empty((2, x.shape[-1]), dtype=torch.float64, device=x.device)
+    work, stream = _sync_work(x, layout)
+    status = getattr(build.library(), f"scenerf_bn_sums_{DTYPES[x.dtype]}")(
+        x.data_ptr(), x.numel() // x.shape[-1], x.shape[-1], layout, sums.data_ptr(),
+        work.data_ptr(), work.numel(), stream)
+    build.check(status, "batch_norm_act synced sums")
+    build.count_launch("bn_sync_sums", x.dtype)
+    return sums
+
+
+def launch_stats_finalize(sums: torch.Tensor, M: int, x: torch.Tensor, weight: torch.Tensor,
+                          bias: torch.Tensor, running_mean: torch.Tensor,
+                          running_var: torch.Tensor, momentum: float, eps: float) -> torch.Tensor:
+    """The synced N1's finalize on the card (`stats_finalize_plain`); x names
+    the site's dtype for the launch count."""
+    C = sums.shape[1]
+    _check(x, None, weight, bias, running_mean, running_var)
+    stats = torch.empty((5, C), dtype=torch.float32, device=sums.device)
+    status = build.library().scenerf_bn_stats_finalize(
+        sums.data_ptr(), M, C, weight.data_ptr(), bias.data_ptr(), running_mean.data_ptr(),
+        running_var.data_ptr(), stats.data_ptr(), momentum, 1.0 - momentum, eps,
+        build.stream_handle(sums.device))
+    build.check(status, "batch_norm_act synced statistics")
+    build.count_launch("bn_sync_stats", x.dtype)
+    return stats
+
+
+def launch_bwd_sums(x: torch.Tensor, dy: torch.Tensor, stats: torch.Tensor, act: str,
+                    residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The synced N3's reduction on the card: [2, C] f64 sums of g and g x."""
+    layout = _check(x, residual)
+    if dy.shape != x.shape or dy.dtype != x.dtype or plane(dy) != layout:
+        raise ValueError(f"batch_norm_act synced backward: cotangent {dy.dtype} "
+                         f"{tuple(dy.shape)} strides {dy.stride()} for x {x.dtype} "
+                         f"{tuple(x.shape)} strides {x.stride()}")
+    if act == "identity":
+        residual = None  # z is not needed
+    sums = torch.empty((2, x.shape[-1]), dtype=torch.float64, device=x.device)
+    work, stream = _sync_work(x, layout, residual, dy)
+    status = getattr(build.library(), f"scenerf_bn_bwd_sums_{DTYPES[x.dtype]}")(
+        x.data_ptr(), build.ptr(residual), dy.data_ptr(), x.numel() // x.shape[-1], x.shape[-1],
+        layout, stats.data_ptr(), sums.data_ptr(), work.data_ptr(), work.numel(),
+        ACTS.index(act), stream)
+    build.check(status, "batch_norm_act synced backward sums")
+    build.count_launch("bn_sync_bwd_sums", x.dtype)
+    return sums
+
+
+def launch_grads_finalize(local: torch.Tensor, world: torch.Tensor, M: int, x: torch.Tensor,
+                          stats: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+    """The synced N3's finalize on the card (`grads_finalize_plain`)."""
+    C = local.shape[1]
+    grads = torch.empty((4, C), dtype=torch.float32, device=local.device)
+    status = build.library().scenerf_bn_grads_finalize(
+        local.data_ptr(), world.data_ptr(), M, C, weight.data_ptr(), stats.data_ptr(),
+        grads.data_ptr(), eps, 1, build.stream_handle(local.device))
+    build.check(status, "batch_norm_act synced gradients")
+    build.count_launch("bn_sync_grads", x.dtype)
+    return grads
+
+
+class _SyncedBatchNormAct(torch.autograd.Function):
+    """The synced path of a training site (the module docstring), on the card
+    or in the plain stage functions (a CPU tensor). Saves x, the residual and
+    the statistics."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, residual, running, momentum, eps, act, group):
+        kernel = build.use_kernel(x, "bn")
+        M = (x.numel() // x.shape[-1]) * D.size(group)
+        sums = _all_reduce(launch_sums(x) if kernel else sums_plain(x), group)
+        if kernel:
+            stats = launch_stats_finalize(sums, M, x, weight, bias, *running, momentum, eps)
+            y, _ = launch_forward(x, weight, bias, *running, True, momentum, eps, act, residual,
+                                  stages=2, stats=stats)
+        else:
+            with torch.no_grad():
+                stats = stats_finalize_plain(sums, M, weight, bias, *running, momentum, eps)
+            y = apply_plain(x, stats, act, residual)
+        ctx.save_for_backward(x, residual, weight, stats)
+        ctx.args = (eps, act, group, M, kernel)
+        return y
+
+    @staticmethod
+    def backward(ctx, dy):
+        x, residual, weight, stats = ctx.saved_tensors
+        eps, act, group, M, kernel = ctx.args
+        if kernel:
+            if plane(dy) != plane(x):
+                dy = torch.empty_like(x).copy_(dy)
+            local = launch_bwd_sums(x, dy, stats, act, residual)
+            world = _all_reduce(local.clone(), group)
+            grads = launch_grads_finalize(local, world, M, x, stats, weight, eps)
+            dx, _, d_res = launch_backward(x, dy, weight, stats, True, eps, act, residual,
+                                           residual_grad=ctx.needs_input_grad[3], stages=2,
+                                           grads=grads)
+        else:
+            local = bwd_sums_plain(x, dy, stats, act, residual)
+            world = _all_reduce(local.clone(), group)
+            grads = grads_finalize_plain(local, world, M, stats, weight, eps)
+            dx, d_res = bwd_apply_plain(x, dy, stats, grads, act, residual)
+            if not ctx.needs_input_grad[3]:
+                d_res = None
+        return dx, grads[DWEIGHT], grads[DBIAS], d_res, None, None, None, None, None
+
+
+def batch_norm_act_synced(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                          running_mean: torch.Tensor, running_var: torch.Tensor,
+                          momentum: float, eps: float, act: str = "identity",
+                          residual: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
+    """The training op with its batch statistics reduced over `group` (a
+    `torch.distributed` process group; None: a world of one rank, whose
+    all-reduces are the identity): the split of the module docstring, on
+    the card for a CUDA tensor and in the plain stage functions for a CPU
+    one. Every rank must call it at the same sites in the same order, with
+    the same number of rows."""
+    if act not in ACTS:
+        raise ValueError(f"act must be one of {ACTS}, got {act!r}")
+    return _SyncedBatchNormAct.apply(x, weight, bias, residual, (running_mean, running_var),
+                                     momentum, eps, act, group)
+
+
 def batch_norm_act(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
                    running_mean: torch.Tensor, running_var: torch.Tensor, training: bool,
                    momentum: float, eps: float, act: str = "identity",
-                   residual: Optional[torch.Tensor] = None) -> torch.Tensor:
+                   residual: Optional[torch.Tensor] = None, group=None) -> torch.Tensor:
     """The fused op (see the module docstring): the kernels on a CUDA tensor,
-    `batch_norm_act_plain` on a CPU tensor."""
+    `batch_norm_act_plain` on a CPU tensor; in training mode with a `group`,
+    the synced path (`batch_norm_act_synced`)."""
     if act not in ACTS:
         raise ValueError(f"act must be one of {ACTS}, got {act!r}")
+    if training and group is not None:
+        return batch_norm_act_synced(x, weight, bias, running_mean, running_var, momentum, eps,
+                                     act, residual, group)
     if not build.use_kernel(x, "bn"):
         return batch_norm_act_plain(x, weight, bias, running_mean, running_var, training,
                                     momentum, eps, act, residual)

@@ -11,7 +11,7 @@ upsampling and kernel T take f32 as before.
 """
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -47,12 +47,18 @@ def upsample_to(img: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
 
 def render_sweep_full_res(model: SceneRF, pyramid: R.Pyramid, cam_K: torch.Tensor,
                           poses: torch.Tensor, stride: int = 2, chunk: int = 5000,
-                          seed: int = 0) -> Dict[str, torch.Tensor]:
-    """`render_pose_sweep` at `stride`, then each pose's depth and color
-    upsampled to the image size: depth [P, H, W], color [P, H, W, 3]."""
-    out = model.render_pose_sweep(pyramid, cam_K, poses, seed=seed, stride=stride,
-                                  ray_chunk=chunk)
-    if stride == 1:
+                          seed: int = 0, sweep=None) -> Optional[Dict[str, torch.Tensor]]:
+    """`render_pose_sweep` at `stride` (or `sweep`, a
+    `parallel.sharded_render.make_sharded_pose_sweep` of the same stride and
+    chunk), then each pose's depth and color upsampled to the image size:
+    depth [P, H, W], color [P, H, W, 3]; None where `sweep` gives None (a
+    rank other than 0)."""
+    if sweep is None:
+        out = model.render_pose_sweep(pyramid, cam_K, poses, seed=seed, stride=stride,
+                                      ray_chunk=chunk)
+    else:
+        out = sweep(pyramid, cam_K, poses, seed)
+    if out is None or stride == 1:
         return out
     W, H = model.cfg.img_size
     return {k: torch.stack([upsample_to(x, (H, W)) for x in v]) for k, v in out.items()}

@@ -24,7 +24,8 @@ frames at interval 1):
   (the threshold shares a1-a3 within one pixel in a thousand), the
   upsampled renders rtol 1e-3, the PNGs within one level; then
   `agg-depth-metrics-bf` and `eval-color-bf` equal to JAX's on the port's
-  files;
+  files (the JAX commands' frame encode jitted, once for both, where they
+  run it op by op);
 - `generate-novel-depths-bf` -> `depth2tsdf-bf` -> `generate-sc-gt-bf` ->
   `eval-sc-bf` on the CPU: JAX's file names; JAX's depth2tsdf-bf on the
   port's sweep gives the same grid (but for pixel-rounding ties) and the
@@ -426,6 +427,25 @@ def jax_noise_render(monkeypatch, cfg):
     monkeypatch.setattr(E, "render_depth_at_pixels", fed)
 
 
+def jit_jax_encode(monkeypatch):
+    """JAX's CLI `encode_frame` compiled, once per config, where the commands
+    run it op by op: the same function of the same inputs, traced and
+    compiled once instead of dispatched as hundreds of small programs."""
+    encoders = {}
+
+    def encode_frame(model, state, img_input, cam_K):
+        variables = state.variables()
+        if img_input.ndim == 3:
+            img_input = img_input[None]
+        if model.cfg not in encoders:
+            encoders[model.cfg] = jax.jit(
+                lambda v, x, k, m=model: m.encode(v, x, k, train=False)[0])
+        return encoders[model.cfg](variables, jnp.asarray(img_input), jnp.asarray(cam_K)), \
+            variables
+
+    monkeypatch.setattr(jcommon, "encode_frame", encode_frame)
+
+
 def _invoke(group, args):
     res = CliRunner().invoke(group, args, catch_exceptions=False, standalone_mode=False)
     assert res.exit_code == 0, res.output
@@ -458,6 +478,7 @@ def test_eval_commands_match_jax(bf_root, ckpts, tmp_path, monkeypatch, capsys):
 
     capture(jcommon)
     capture(common)
+    jit_jax_encode(monkeypatch)
     for cmd in (jeval.save_depth_metrics_bf, jeval.render_colors_bf):
         res = CliRunner().invoke(cmd, jargs)
         assert res.exit_code == 0, res.output
@@ -595,9 +616,11 @@ def test_cli_help_and_device():
                          (train_cli.cli, ("train-bundlefusion",))):
         out = CliRunner().invoke(group, ["--help"]).output
         assert all(n in out for n in names), out
+    # outside a two-rank world (no torchrun here: one rank) --n_devices 2 refuses
     res = CliRunner().invoke(E.cli, ["save-depth-metrics-bf", "--n_devices", "2", "--device",
                                      "cpu"])
     assert res.exit_code == 2 and "--n_devices 2" in res.output
+    assert "the world has 1 rank" in res.output
     if not torch.cuda.is_available():
         for group, cmd in ((E.cli, "render-colors-bf"), (RC.cli, "depth2tsdf-bf"),
                            (RC.cli, "generate-sc-gt-bf")):

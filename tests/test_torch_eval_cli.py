@@ -310,8 +310,10 @@ def test_cli_flags_and_help():
                  "eval-color"):
         assert name in res.output
     for cmd in ("save-depth-metrics", "render-colors"):
+        # outside a two-rank world (no torchrun here: one rank) it refuses
         res = CliRunner().invoke(E.cli, [cmd, "--n_devices", "2", "--device", "cpu"])
         assert res.exit_code == 2 and "--n_devices 2" in res.output
+        assert "the world has 1 rank" in res.output
     if not torch.cuda.is_available():  # the default device is the card's
         res = CliRunner().invoke(E.cli, ["save-depth-metrics"])
         assert res.exit_code == 2 and "no CUDA device" in res.output

@@ -26,7 +26,8 @@ batch norm + activation + residual) against the plain version and its
 autograd in train and eval mode: C in {2, 3, 80, 3840}, M from 1 to 678,000,
 a constant channel, every activation with and without the residual, the
 vector and scalar paths, a directional derivative of its autograd.Function,
-and the launch counts.
+and the launch counts; its synced path (split at the reductions) at a world
+of one rank bit-equal to the streaming kernels.
 
 Marked `cuda`: skipped where no CUDA device is present (a CUDA kernel has no
 CPU mode). The package under test imports no JAX, and neither does this
@@ -1197,6 +1198,80 @@ def test_bn_paths_deterministic_and_graph_replay(dev, M, C):
             assert torch.equal(a, b_)
     for buf in N._work.values():
         assert int(buf[:WORK_TICKETS].view(torch.int32).count_nonzero()) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,C,act,res", [(169500, 160, "silu", True), (28365, 288, "silu", False),
+                                         (10528, 640, "leaky", True)])
+def test_bn_synced_split_bit_equal_to_streaming(dev, M, C, act, res, dtype):
+    """The synced path (`batch_norm_act_synced`) at a world of one rank (no
+    group: the all-reduces are the identity), through its autograd.Function,
+    against the streaming kernels launched stage by stage, at three sites of
+    the B7 training step (226x750x160 + residual, 93x305x288, 56x188x640 +
+    residual): the reductions take the same tiles and hand the same f64 sums
+    to the same finalize arithmetic, so y, the running statistics, dx,
+    dweight, dbias and d_residual are bit-equal; one launch of each synced
+    stage, none of the one-launch path."""
+    mom, eps = 0.99, 1e-3
+    x, w, b, rm, rv, r, dy = _bn_inputs(dev, M, C, res, seed=11)
+    x, r, dy = (None if t is None else t.to(dtype) for t in (x, r, dy))
+    run_s = [rm.clone(), rv.clone()]
+    y_s, st_s = N.launch_forward(x, w, b, *run_s, True, mom, eps, act, r, stages=1)
+    N.launch_forward(x, w, b, *run_s, True, mom, eps, act, r, stages=2, y=y_s, stats=st_s)
+    dx_s, gr_s, dr_s = N.launch_backward(x, dy, w, st_s, True, eps, act, r, residual_grad=res,
+                                         stages=1)
+    N.launch_backward(x, dy, w, st_s, True, eps, act, r, residual_grad=res, stages=2,
+                      grads=gr_s, dx=dx_s, d_res=dr_s)
+    leaves = [t.clone().requires_grad_(True) for t in (x, w, b)]
+    rr = None if r is None else r.clone().requires_grad_(True)
+    run = [rm.clone(), rv.clone()]
+    build.reset_launch_counts()
+    y = N.batch_norm_act_synced(*leaves, *run, mom, eps, act, rr, group=None)
+    y.backward(dy)
+    torch.cuda.synchronize()
+    launches = dict(build.LAUNCHES)
+    assert all(launches[k] == 1 for k in build.BN_SYNC_KERNELS + ("bn_apply", "bn_bwd_apply")), \
+        launches
+    assert launches["bn_stats"] == launches["bn_bwd_reduce"] == 0, launches
+    assert launches["bn_forward_fused"] == launches["bn_backward_fused"] == 0, launches
+    for got, want, what in ((y, y_s, "y"), (run[0], run_s[0], "running mean"),
+                            (run[1], run_s[1], "running var"), (leaves[0].grad, dx_s, "dx"),
+                            (leaves[1].grad, gr_s[N.DWEIGHT], "dweight"),
+                            (leaves[2].grad, gr_s[N.DBIAS], "dbias")):
+        assert torch.equal(got, want), (what, float((got.float() - want.float()).abs().max()))
+    if res:
+        assert torch.equal(rr.grad, dr_s if act != "identity" else dy)
+
+
+@pytest.mark.parametrize("M,C,act", [(169500, 160, "silu"), (10528, 640, "leaky")])
+def test_bn_synced_finalizes_local_and_world(dev, M, C, act):
+    """The synced finalizes on sums as two ranks hand them over: this rank's
+    and the world's (this rank's plus a second rank's, over 2M rows). The
+    statistics from the world's sums, the running statistics moved, and the
+    gradients (dweight, dbias from the rank's sums; dx's alpha and beta from
+    the world's) against their plain versions on the same sums; the local
+    and world sums swapped miss the plain gradients a thousandfold beyond
+    the bar, so the check tells them apart."""
+    mom, eps = 0.99, 1e-3
+    x, w, b, rm, rv, r, dy = _bn_inputs(dev, M, C, True, seed=11)
+    xo, _, _, _, _, ro, dyo = _bn_inputs(dev, M, C, True, seed=12)
+    world = N.sums_plain(x) + N.sums_plain(xo)
+    run_k, run_p = [rm.clone(), rv.clone()], [rm.clone(), rv.clone()]
+    st_k = N.launch_stats_finalize(world, 2 * M, x, w, b, *run_k, mom, eps)
+    st_p = N.stats_finalize_plain(world, 2 * M, w, b, *run_p, mom, eps)
+    for got, want in ((st_k, st_p), (run_k[0], run_p[0]), (run_k[1], run_p[1])):
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-6 * float(want.abs().max()))
+    local = N.bwd_sums_plain(x, dy, st_p, act, r)
+    g_world = local + N.bwd_sums_plain(xo, dyo, st_p, act, ro)
+    got = N.launch_grads_finalize(local, g_world, 2 * M, x, st_p, w, eps)
+    want = N.grads_finalize_plain(local, g_world, 2 * M, st_p, w, eps)
+    torch.cuda.synchronize()
+    rel = lambda a, b_: float((a - b_).norm() / b_.norm())  # noqa: E731
+    for row in range(4):
+        assert rel(got[row], want[row]) <= 1e-5, (row, rel(got[row], want[row]))
+    from_world = N.grads_finalize_plain(g_world, g_world, 2 * M, st_p, w, eps)
+    from_local = N.grads_finalize_plain(local, local, 2 * M, st_p, w, eps)
+    assert rel(from_world[:2], want[:2]) > 1e-2 and rel(from_local[2:], want[2:]) > 1e-2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -45,7 +45,8 @@ def test_port_imports_without_jax(part):
         out = run('''
 lib = [n for n in names if not n.startswith("scenerf_tpu_torch.cli")]
 for n in ("scenerf_tpu_torch.data.bundlefusion", "scenerf_tpu_torch.fusion.meshing",
-          "scenerf_tpu_torch.fusion.tsdf", "scenerf_tpu_torch.native.build"):
+          "scenerf_tpu_torch.fusion.tsdf", "scenerf_tpu_torch.native.build",
+          "scenerf_tpu_torch.parallel.dist", "scenerf_tpu_torch.parallel.sharded_render"):
     assert n in lib, n
 for n in lib:
     importlib.import_module(n)
