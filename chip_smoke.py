@@ -60,7 +60,12 @@ Phases (each prints one line and raises on failure):
      grid with kernel T; observed voxels, weight <= 63; T against its plain
      version in both modes (bit-equal but for pixel-rounding ties) and the
      kernel's occupancy scored against the plain version's (SSCMetrics);
-     s per frame, fuse ms, T's time (events, fresh volume; alone) and bound
+     s per frame, fuse ms and its parts (the volume, pack_colors, the host's
+     pose inversion and upload, T), T's time (events, fresh volume; alone),
+     its work (voxel-frames in view and valid, distinct depth pixels and
+     taken colors, 32-B sectors per warp depth load with lanes along z and
+     along the image rows, the share its cull keeps) and its bounds (the pixels it
+     touches and the instructions in view; every pixel read once)
  12. kernel K5 (N1-N4: batch norm statistics, affine + activation +
      residual, and their backward) at every distinct batch norm configuration
      of the encoder and decoder (shape, activation, residual, layout; the
@@ -165,6 +170,7 @@ Phases (each prints one line and raises on failure):
      (host read, encode, renders) and GT-pixel rays/s; render-colors-bf ms
      per image; eval-color-bf ms per pair; s per sweep frame, fuse, mesh and
      GT-fuse ms, the mesh's vertex count; kernel T's time at the BF grid
+     (events, alone), its work and bounds as in phase 11
  17. several ranks: K5's synced stages (N1 and N3 without their finalize,
      the two finalize launches) at every distinct bf16 training
      configuration of phase 13 against their plain versions (the finalizes
@@ -266,6 +272,8 @@ TIE_PX = 1e-4              # a projection this close to a .5 boundary is a round
 RECON_MIN_IOU = 0.9999     # kernel-vs-plain occupancy IoU
 GRAPH_REPS = 50
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM (NVIDIA data sheet)
+ISSUE_PER_S = 132 * 4 * 32 * 1.98e9  # H100 SXM lane-instructions/s: 132 SMs x 4 schedulers
+                                     # x 32 lanes at the 1.98 GHz boost clock
 L2_BYTES = 50 * 2**20      # H100 SXM L2 cache
 F32_FLOPS = 67e12          # H100 SXM f32 outside the tensor cores
 KITTI_TREE_FRAMES = {"00": 16, "08": 12}  # train and val sequences of phase 14's tree
@@ -1062,12 +1070,121 @@ def start_bf_tree(root: Path) -> list:
     return procs
 
 
+def tsdf_footprint(shape, vol_origin, voxel_size, trunc, depths, packed, intrs, w2cs,
+                   warp_groups=None) -> dict:
+    """What fusing these frames into a fresh volume in closest mode (the
+    CLI's) needs, from the plain version's pixel indices (its projection,
+    repeated here): voxel-frames in view and valid; the distinct depth pixels
+    the in-view voxel-frames touch and the distinct pixels whose color is
+    taken, summed over frames; and for each [X, Y, Z] map of warp-load
+    groups in `warp_groups` (name -> int64 group of each voxel), the
+    distinct 32-B sectors of its groups' depth loads and the loads (groups
+    with a lane in view), summed over frames."""
+    import torch
+
+    from scenerf_tpu_torch.ops.tsdf import _origin_values, world_coords
+
+    dev = depths.device
+    F_, H, W = depths.shape
+    f32 = dict(dtype=torch.float32, device=dev)
+    wx, wy, wz = world_coords(shape, torch.tensor(_origin_values(vol_origin), **f32),
+                              torch.tensor(float(voxel_size), **f32))
+    tsdf = torch.full(tuple(shape), 255.0, **f32)
+    trunc = torch.tensor(float(trunc), **f32)
+    groups = {k: v.to(dev) for k, v in (warp_groups or {}).items()}
+    out = dict(n_voxels=tsdf.numel(), n_frames=F_, in_view=0, valid=0, depth_px=0,
+               color_px=0, sectors={k: 0 for k in groups}, loads={k: 0 for k in groups})
+    n_sectors = -(-H * W // 8)
+    for f in range(F_):
+        K, M = intrs[f], w2cs[f]
+        cx, cy, cz = (M[r, 0] * wx + M[r, 1] * wy + M[r, 2] * wz + M[r, 3] for r in range(3))
+        sz = torch.where(cz > 0, cz, torch.ones((), **f32))
+        px = torch.round(K[0, 0] * cx / sz + K[0, 2])
+        py = torch.round(K[1, 1] * cy / sz + K[1, 2])
+        seen = (px >= 0) & (px < W) & (py >= 0) & (py < H) & (cz > 0)
+        flat = (torch.clamp(py, 0, H - 1).to(torch.int64) * W
+                + torch.clamp(px, 0, W - 1).to(torch.int64))
+        d = torch.where(seen, torch.take(depths[f], flat), torch.zeros((), **f32))
+        dd = d - cz
+        valid = (d > 0) & (dd >= -trunc)
+        take = valid & (tsdf.abs() >= dd.abs())
+        tsdf = torch.where(take, dd, tsdf)
+        out["in_view"] += int(seen.sum())
+        out["valid"] += int(valid.sum())
+        out["depth_px"] += int(torch.unique(flat[seen]).numel())
+        out["color_px"] += int(torch.unique(flat[take]).numel())
+        for k, g in groups.items():
+            out["sectors"][k] += int(torch.unique(g[seen] * n_sectors + flat[seen] // 8).numel())
+            out["loads"][k] += int(torch.unique(g[seen]).numel())
+    return out
+
+
+def tsdf_warp_groups(shape, axis: int) -> dict:
+    """The warp loads of kernel T's depth gathers, as maps of the voxels
+    ([X, Y, Z] int64 group): a warp per 32 consecutive voxels of the flat
+    grid (lanes along z) and kernel T's (lanes along `axis`, one load per
+    voxel of each thread's run)."""
+    import torch
+
+    from scenerf_tpu_torch.ops import tsdf as T
+
+    (A, B, L), (_, nB, nL) = T.tile_layout(axis)
+    idx = [torch.arange(n).view([n if b == a else 1 for b in range(3)])
+           for a, n in enumerate(shape)]
+    rows = (T.voxel_tiles(shape, axis) * nB + idx[B] % nB) * nL + idx[L] % nL
+    return {"lanes_along_z": torch.arange(math.prod(shape)).view(tuple(shape)) // 32,
+            "lanes_along_rows": rows}
+
+
+def tsdf_bounds(fp: dict, vol_bytes: int, frame_bytes: int, cam_bytes: int) -> dict:
+    """Kernel T's bounds on footprint `fp`. `bound_ms`: the volume in and
+    out, the distinct depth pixels touched and colors taken, the cameras, at
+    the HBM rate; 32 instructions per voxel-frame in view and 7 per valid
+    one at the issue rate (a voxel-frame out of view needs none where whole
+    tiles of them are culled). `all_pixels_bound_ms`: every pixel of every
+    frame read once and 32 operations per voxel-frame and 7 per valid one at
+    the f32 peak."""
+    old = bound(2 * vol_bytes + frame_bytes + cam_bytes,
+                32 * fp["n_voxels"] * fp["n_frames"] + 7 * fp["valid"])
+    t_bytes = (2 * vol_bytes + 4 * (fp["depth_px"] + fp["color_px"]) + cam_bytes) \
+        / HBM_BYTES_PER_S * 1e3
+    t_ops = (32 * fp["in_view"] + 7 * fp["valid"]) / ISSUE_PER_S * 1e3
+    return {"bound_ms": max(t_bytes, t_ops), "bound_by": "bytes" if t_bytes >= t_ops
+            else "operations", "bytes_ms": t_bytes, "issue_ms": t_ops,
+            "all_pixels_bound_ms": old["bound_ms"], "all_pixels_bound_by": old["bound_by"]}
+
+
+def tsdf_work_text(fp: dict, b: dict, cull: dict) -> str:
+    """One line of kernel T's work and bounds at a shape."""
+    n = fp["n_voxels"] * fp["n_frames"]
+    return (f"in view {fp['in_view'] / n:.4f}, valid {fp['valid'] / n:.4f} of {n} "
+            f"voxel-frames; live tiles {cull['live_share']:.4f} (lanes along axis "
+            f"{cull['lane_axis']}); distinct depth px/frame {fp['depth_px'] / fp['n_frames']:.0f}, "
+            f"colors taken/frame {fp['color_px'] / fp['n_frames']:.0f}; bound "
+            f"{b['bound_ms']:.4f} ms ({b['bound_by']}: bytes {b['bytes_ms']:.4f}, issue "
+            f"{b['issue_ms']:.4f}), all-pixels bound {b['all_pixels_bound_ms']:.4f} ms")
+
+
+def tsdf_cull(shape, vol_origin, voxel_size, intrs, w2cs, H: int, W: int) -> dict:
+    """Kernel T's plan for these poses (its plain twin, ops.tsdf): the lanes'
+    axis, the share of tile-frames culled and the share of voxel-frames in
+    tiles that keep their frame."""
+    from scenerf_tpu_torch.ops import tsdf as T
+
+    axis = T.lane_axis(w2cs)
+    unseen = T.tiles_unseen(shape, vol_origin, voxel_size, intrs, w2cs, H, W)
+    _, count = T.tile_boxes(shape, axis)
+    live = float((count.prod(1)[:, None] * ~unseen).sum())
+    return {"lane_axis": axis, "culled_tile_frames": float(unseen.float().mean()),
+            "live_share": live / (math.prod(shape) * len(w2cs))}
+
+
 def tsdf_against_plain(dev, depths, colors, intrs, w2cs) -> dict:
     """Kernel T against its plain version on a fresh BundleFusion grid
     (closest mode, the CLI's): bit-equal but at pixel-rounding ties (at least
-    TSDF_MIN_EQUAL of the voxels); T's time on a fresh volume (events), the
-    plain version's, and T's bound (phase 11's count of bytes and
-    operations). `colors` 0..255."""
+    TSDF_MIN_EQUAL of the voxels); T's time on a fresh volume (events) and
+    alone (a CUDA graph), the plain version's, its work (`tsdf_footprint`,
+    `tsdf_cull`) and bounds (`tsdf_bounds`). `colors` 0..255."""
     import torch
 
     from scenerf_tpu_torch import reconstruction as recon
@@ -1096,15 +1213,24 @@ def tsdf_against_plain(dev, depths, colors, intrs, w2cs) -> dict:
         fail(f"tsdf_integrate at {vol.shape}: bit-equal on {equal:.6%} of voxels, {untied} "
              f"differing voxels with no pixel-rounding tie")
     err = max(float((a - b).abs().max()) for a, b in zip(got, want))
-    n_valid = float(want[1].sum())
+    H, W = depths.shape[1:]
+    fp = tsdf_footprint(vol.shape, vol._vol_origin, vol._voxel_size, vol._trunc_margin, depths,
+                        packed, intrs, w2cs)
+    n_valid = int(want[1].double().sum())  # obs 1: the weights count the valid voxel-frames
+    if fp["valid"] != n_valid:
+        fail(f"tsdf_footprint at {vol.shape}: {fp['valid']} valid voxel-frames, the plain "
+             f"version's weights {n_valid}")
+    cull = tsdf_cull(vol.shape, vol._vol_origin, vol._voxel_size, intrs, w2cs, H, W)
     ms = cuda_ms(lambda: integrate(*fresh(), *args))
     plain_ms = cuda_ms(lambda: integrate_plain(*fresh(), *args))
-    n_vox, n_frames = got[0].numel(), depths.shape[0]
-    b = bound(2 * nbytes(*got) + nbytes(depths, packed, intrs, w2cs),
-              32 * n_vox * n_frames + 7 * n_valid)
+    work = fresh()
+    dev_ms = graph_ms(lambda: integrate(*work, *args))
+    del work
+    b = tsdf_bounds(fp, nbytes(*got), nbytes(depths, packed), nbytes(intrs, w2cs))
     return dict(shape=[*vol.shape, *depths.shape], equal_share=equal,
                 differ=int(differs.sum()), tie_voxels=int(ties.sum()), max_abs_err=err,
-                ms=ms, plain_ms=plain_ms, **b)
+                ms=ms, device_ms=dev_ms, plain_ms=plain_ms, footprint=fp, cull=cull,
+                work=tsdf_work_text(fp, b, cull), **b)
 
 
 def bf_phase(dev, card: str, tree: Path, tree_procs: list, som_chunk: str | None) -> dict:
@@ -1454,6 +1580,10 @@ def bf_phase(dev, card: str, tree: Path, tree_procs: list, som_chunk: str | None
           + "; ".join(f"{k} {r['shape']}: bit-equal on {r['equal_share']:.6%} ({r['differ']} "
                       f"differ, each at a pixel tie; {r['tie_voxels']} tie voxels)"
                       for k, r in t_rows.items()))
+    for k, r in t_rows.items():
+        print(f"[16 kernel T] {k} {r['shape']} on {card}: {r['ms']:.4f} ms (events, fresh "
+              f"volume), alone {r['device_ms']:.4f} ms; plain {r['plain_ms']:.3f} ms; "
+              f"{r['work']}")
 
     numbers = dict(
         tree_s=tree_s, train_s=train_s,
@@ -3195,6 +3325,7 @@ def main() -> None:
     from scenerf_tpu_torch import reconstruction as recon
     from scenerf_tpu_torch.data.synthetic import kitti_calibration
     from scenerf_tpu_torch.fusion.tsdf import pack_colors, tsdf2occ
+    from scenerf_tpu_torch.ops import tsdf as T
     from scenerf_tpu_torch.ops.tsdf import integrate, integrate_plain, pixel_ties
     from scenerf_tpu_torch.utils.ssc_metrics import SSCMetrics
 
@@ -3298,7 +3429,7 @@ def main() -> None:
             if occ_p.sum() == 0 or occ_stats["iou"] < RECON_MIN_IOU:
                 fail(f"occupancy: {int(occ_p.sum())} plain voxels occupied, kernel-vs-plain "
                      f"IoU {occ_stats['iou']}")
-            n_valid = float(want_v[1].sum())  # valid voxel-frames: the weights, obs 1
+            n_valid = int(want_v[1].double().sum())  # valid voxel-frames: the weights, obs 1
         del got_v, want_v
 
     work = fresh()
@@ -3323,26 +3454,88 @@ def main() -> None:
     t_ms = timed_on_fresh(lambda: integrate(*work, *t_args))
     t_plain_ms = timed_on_fresh(lambda: integrate_plain(*work, *t_args))
     # alone: 50 launches in one CUDA graph on the same (no longer fresh)
-    # volume; each reads the volume and its frames' pixels from HBM (278 MB)
+    # volume
     t_dev_ms = graph_ms(lambda: integrate(*work, *t_args))
     del work
-    # each voxel and frame: the camera point (9 mul + 9 add), the pixel
-    # (2 x mul, div, add, rint), z select and 5 range tests = 32; each valid
-    # voxel-frame: sub, 2 tests, 2 abs, compare, add = 7
-    n_vox = vol.tsdf.numel()
-    t_bound = bound(2 * nbytes(vol.tsdf, vol.weight, vol.color) + nbytes(depths, packed, intrs, w2cs),
-                    32 * n_vox * n_poses + 7 * n_valid)
+    # the work: voxel-frames in view and valid, the distinct pixels touched,
+    # the sectors a warp's depth loads touch with lanes along z and along
+    # the rows; the tiles the kernel culls (its plain twin)
+    plan_constants = (T.TILE_LANES, T.TILE_WARPS, T.TILE_RUN, T.CULL_MARGIN, T.CULL_MAX_PIXEL)
+    if T.kernel_plan_constants() != plan_constants:
+        fail(f"kernel T's tile and cull constants {T.kernel_plan_constants()} are not its plain "
+             f"twin's {plan_constants}")
+    t_cull = tsdf_cull(vol.shape, vol._vol_origin, vol._voxel_size, intrs, w2cs, H, W)
+    t_fp = tsdf_footprint(vol.shape, vol._vol_origin, vol._voxel_size, vol._trunc_margin,
+                          depths, packed, intrs, w2cs,
+                          tsdf_warp_groups(vol.shape, t_cull["lane_axis"]))
+    if t_fp["valid"] != n_valid:
+        fail(f"tsdf_footprint: {t_fp['valid']} valid voxel-frames, the plain version's "
+             f"weights {n_valid}")
+    t_bound = tsdf_bounds(t_fp, nbytes(vol.tsdf, vol.weight, vol.color), nbytes(depths, packed),
+                          nbytes(intrs, w2cs))
+    sectors = {k: t_fp["sectors"][k] / max(t_fp["loads"][k], 1) for k in t_fp["sectors"]}
+
+    # the fuse's parts, as fuse_kitti_sweep and TSDFVolume.integrate_frames
+    # run them on the same arrays (each ended by a synchronize): the volume,
+    # pack_colors, the host's pose inversion and the upload of K and the
+    # poses, kernel T; then the whole fuse again (the parts' synchronizes
+    # keep the host's work from overlapping the card's, so they sum to more).
+    # The split's poses and volume are the main path's, bit for bit.
+    parts = {k: [] for k in ("volume", "pack_colors", "poses", "T", "fuse_again")}
+    for _ in range(5):
+        marks = [time.perf_counter()]
+        part_vol = recon.kitti_volume(dev)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        part_packed = pack_colors(part_vol._f32(colors))
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        part_cams = np.stack([np.linalg.inv(T_velo_2_cam) @ np.asarray(p) for p in rel_poses])
+        part_w2cs = part_vol._f32(np.stack([np.linalg.inv(np.asarray(p)) for p in part_cams])
+                                  .astype(np.float32))
+        part_intrs = part_vol._f32(np.tile(np.asarray(K_kitti)[None], (n_poses, 1, 1)))
+        part_depths = part_vol._f32(depths)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        integrate(part_vol.tsdf, part_vol.weight, part_vol.color, part_depths, part_packed,
+                  part_intrs, part_w2cs, part_vol._vol_origin, part_vol._voxel_size,
+                  part_vol._trunc_margin, 1.0, mode=part_vol.mode)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        recon.fuse_kitti_sweep(depths, colors, K_kitti, T_velo_2_cam, rel_poses)
+        torch.cuda.synchronize()
+        marks.append(time.perf_counter())
+        for k, t0_, t1_ in zip(parts, marks, marks[1:]):
+            parts[k].append((t1_ - t0_) * 1e3)
+    if not (torch.equal(part_w2cs, w2cs) and torch.equal(part_intrs, intrs)
+            and all(torch.equal(a, b) for a, b in zip(
+                (part_vol.tsdf, part_vol.weight, part_vol.color),
+                (vol.tsdf, vol.weight, vol.color)))):
+        fail("fuse split: its poses or its volume differ from the main path's")
+    parts = {k: statistics.median(v) for k, v in parts.items()}
+    parts["sum"] = sum(parts[k] for k in ("volume", "pack_colors", "poses", "T"))
+    if parts["T"] < t_dev_ms:
+        fail(f"fuse split: kernel T {parts['T']:.3f} ms by the host's clock, launch included, "
+             f"is below its graph replay's {t_dev_ms:.3f} ms")
+    del part_vol, part_packed, part_w2cs, part_intrs, part_depths
     results["tsdf_integrate"] = dict(
         max_abs_err=t_err, ms=t_ms, plain_ms=t_plain_ms, device_ms=t_dev_ms, **t_bound,
-        library_ms=None, shape=[*vol.shape, n_poses, H, W])
+        library_ms=None, shape=[*vol.shape, n_poses, H, W], footprint=t_fp, cull=t_cull,
+        sectors_per_load=sectors, fuse_parts_ms=parts)
     print(f"[11 kernel T] {n_poses} frames of {W}x{H} into {vol.shape}: " + "; ".join(t_text)
           + f"; kernel-vs-plain occupancy IoU {occ_stats['iou']:.6f} "
           f"({int(occ_p.sum())} plain voxels occupied)")
+    print(f"[11 kernel T work] {tsdf_work_text(t_fp, t_bound, t_cull)}; 32-B sectors per warp "
+          "depth load " + ", ".join(f"{k} {v:.2f}" for k, v in sectors.items()))
     print(f"[11 numbers] on {card}: {sweep_s / n_poses * 1e3:.1f} ms/pose, {sweep_s:.2f} s "
-          f"sweep + {encode11_ms:.1f} ms encode + {fuse_ms:.2f} ms fuse per frame; kernel T "
-          f"{t_ms:.3f} ms (events, fresh volume, median of {TIMING_RUNS}), alone "
+          f"sweep + {encode11_ms:.1f} ms encode + {fuse_ms:.2f} ms fuse per frame (again, "
+          f"median of 5: volume {parts['volume']:.3f} + pack_colors {parts['pack_colors']:.3f} "
+          f"+ host pose inversion and upload {parts['poses']:.3f} + T {parts['T']:.3f} = "
+          f"{parts['sum']:.3f} ms; the whole fuse again {parts['fuse_again']:.3f} ms); "
+          f"kernel T {t_ms:.3f} ms (events, fresh volume, median of {TIMING_RUNS}), alone "
           f"{t_dev_ms:.3f} ms (graph of {GRAPH_REPS}), bound {t_bound['bound_ms']:.3f} ms "
-          f"({t_bound['bound_by']}); plain {t_plain_ms:.3f} ms")
+          f"({t_bound['bound_by']}; all-pixels bound {t_bound['all_pixels_bound_ms']:.3f}); "
+          f"plain {t_plain_ms:.3f} ms")
     # ---- 12. kernel K5 ---------------------------------------------------
     # every distinct batch norm configuration of the B7 encoder and decoder
     # (the sites recorded in phase 4; the training step runs the same): the

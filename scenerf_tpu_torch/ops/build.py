@@ -170,6 +170,7 @@ def library() -> ctypes.CDLL:
             "scenerf_ray_som_f32": [vp, vp, vp, vp, i32, i32, i32, f32, f32, f32,
                                     vp, vp, vp, vp],
             "scenerf_tsdf_integrate_f32": [vp] * 7 + [i32] * 6 + [f32] * 6 + [i32, vp],
+            "scenerf_tsdf_plan_constants": [vp],
             "scenerf_bn_forward_f32": [vp, vp, vp, i64, i32, i64] + [vp] * 6
                                       + [i64, f32, f32, f32, i32, i32, i32]
                                       + [i32, i32, i64, i64, vp],

@@ -23,9 +23,19 @@ channel). Kernel T computes those two with `fmaf`, the plain version with
 Modes, as the JAX package: "closest" keeps the signed distance of smallest
 magnitude (`>=`, so a later frame wins a tie: the result depends on the frame
 order), "average" the truncated weighted running average.
+
+What kernel T decides from the poses has a plain twin here: `lane_axis` (the
+grid axis, x or y, its warps' lanes run along, voted by the frames' camera
+rows),
+`tile_boxes` (its tiles of TILE_LANES x TILE_WARPS x TILE_RUN voxels, in its
+block order) and `tiles_unseen` (the frames it culls per tile before the
+exact chain: every voxel of the tile behind the camera or past one image
+edge, with a margin that covers the f32 chain's rounding). The plain
+version culls nothing.
 """
 from __future__ import annotations
 
+import ctypes
 from typing import Sequence, Union
 
 import torch
@@ -149,6 +159,110 @@ def pixel_ties(shape, vol_origin: Origin, voxel_size: float, cam_intrs: torch.Te
         for p in (K[0, 0] * cx / z + K[0, 2], K[1, 1] * cy / z + K[1, 2]):
             near |= ((p - torch.floor(p) - 0.5).abs() < tol) & (cz > 0)
     return near
+
+
+# kernel T's tile and cull (csrc/tsdf.cu: kWarpSize, kWarps, kRun, kMargin,
+# kMaxPixel; `kernel_plan_constants` reads them from the built kernel)
+TILE_LANES, TILE_WARPS, TILE_RUN = 32, 8, 4
+CULL_MARGIN = 2.0 ** -18
+CULL_MAX_PIXEL = 2.0 ** 20
+
+
+def kernel_plan_constants() -> tuple:
+    """(TILE_LANES, TILE_WARPS, TILE_RUN, CULL_MARGIN, CULL_MAX_PIXEL) as the
+    built kernel T has them: the twins below must use the same."""
+    out = (ctypes.c_double * 5)()
+    build.check(build.library().scenerf_tsdf_plan_constants(out), "tsdf_plan_constants")
+    return tuple(out)
+
+
+def lane_axis(world2cams: torch.Tensor) -> int:
+    """The grid axis, x (0) or y (1), kernel T's lanes run along for these
+    poses [F, 4, 4]: each frame votes for y where |R[0][1]| - |R[1][1]|
+    exceeds |R[0][0]| - |R[1][0]| in f32, else for x, and y wins with more
+    than half the votes: the axis whose step moves a projection along an
+    image row."""
+    R = world2cams.to(torch.float32)
+    s = R[:, 0, :2].abs() - R[:, 1, :2].abs()
+    return int(2 * int((s[:, 1] > s[:, 0]).sum()) > len(R))
+
+
+def tile_layout(axis: int):
+    """Kernel T's roles of the grid axes for lanes along `axis` (x or y):
+    (A, B, L), lanes along A, warps along B (the other of x and y), each
+    thread's run along L = z, and the tile's extent along each."""
+    if axis not in (0, 1):
+        raise ValueError(f"kernel T lays its lanes along x or y, not axis {axis}")
+    return (axis, 1 - axis, 2), (TILE_LANES, TILE_WARPS, TILE_RUN)
+
+
+def tile_boxes(shape, axis: int):
+    """Kernel T's tiles for lanes along `axis`, in its block order: starts and
+    counts [T, 3] (int64, per grid axis)."""
+    roles, ext = tile_layout(axis)
+    n = [-(-shape[r] // e) for r, e in zip(roles, ext)]
+    t = torch.arange(n[0] * n[1] * n[2])
+    tl, ta, tb = t % n[2], (t // n[2]) % n[0], t // (n[2] * n[0])
+    start = torch.zeros(len(t), 3, dtype=torch.int64)
+    for role, e, ti in zip(roles, ext, (ta, tb, tl)):
+        start[:, role] = ti * e
+    count = torch.minimum(torch.tensor([ext[roles.index(a)] for a in range(3)]),
+                          torch.tensor(shape) - start)
+    return start, count
+
+
+def voxel_tiles(shape, axis: int) -> torch.Tensor:
+    """[X, Y, Z] int64: the index of the kernel's tile that holds each voxel."""
+    roles, ext = tile_layout(axis)
+    n = [-(-shape[r] // e) for r, e in zip(roles, ext)]
+    t = [torch.arange(shape[a]) // ext[roles.index(a)] for a in range(3)]
+    ta, tb, tl = (t[r].view([shape[r] if b == r else 1 for b in range(3)]) for r in roles)
+    return (tb * n[0] + ta) * n[2] + tl
+
+
+def tiles_unseen(shape, vol_origin: Origin, voxel_size: float, cam_intrs: torch.Tensor,
+                 world2cams: torch.Tensor, H: int, W: int) -> torch.Tensor:
+    """[T, F] bool, kernel T's cull per tile (lanes along
+    `lane_axis(world2cams)`): True where tile t skips frame f, tested on the
+    tile's corner voxels in f64 (csrc/tsdf.cu "The cull's margins"): every
+    corner behind the camera, or every corner in front and past the same
+    image edge, each by a margin of 2^-18 times the rows' magnitudes."""
+    f64 = torch.float64
+    start, count = tile_boxes(shape, lane_axis(world2cams))
+    origin = torch.tensor(_origin_values(vol_origin), dtype=torch.float32)
+    vs = torch.tensor(float(voxel_size), dtype=torch.float32)
+    lo = fma(start.float(), vs, origin).to(f64)  # [T, 3]
+    hi = fma((start + count - 1).float(), vs, origin).to(f64)
+    K = cam_intrs.to(torch.float32).cpu()
+    M = world2cams.to(torch.float32).cpu()[:, :3, :]  # [F, 3, 4]
+    k = torch.stack([K[:, 0, 0], K[:, 0, 2], K[:, 1, 1], K[:, 1, 2]], 1)  # [F, 4]
+    finite = (torch.isfinite(k).all(1) & torch.isfinite(M).flatten(1).all(1)
+              & (k[:, 1].double().abs() < CULL_MAX_PIXEL)
+              & (k[:, 3].double().abs() < CULL_MAX_PIXEL)
+              & (float(W) < CULL_MAX_PIXEL) & (float(H) < CULL_MAX_PIXEL))
+    k, M = k.to(f64), M.to(f64)
+    wmax = torch.maximum(lo.abs(), hi.abs())  # [T, 3]
+    S = M[None, :, :, 3].abs() + torch.einsum("ta,fra->tfr", wmax, M[:, :, :3].abs())
+    e = {"left": -1.5 - k[:, 1], "right": W + 0.5 - k[:, 1],
+         "top": -1.5 - k[:, 3], "bottom": H + 0.5 - k[:, 3]}
+    fx, fy = k[:, 0].abs() * S[..., 0], k[:, 2].abs() * S[..., 1]
+    tz = CULL_MARGIN * S[..., 2]
+    tau = {name: CULL_MARGIN * ((fx if name in ("left", "right") else fy)
+                                + e[name].abs() * S[..., 2]) for name in e}
+    out = {name: torch.ones(len(start), len(k), dtype=torch.bool)
+           for name in ("behind", "front", *e)}
+    for q in range(8):
+        w = torch.stack([hi[:, a] if q >> a & 1 else lo[:, a] for a in range(3)], 1)
+        c = torch.einsum("ta,fra->tfr", w, M[:, :, :3]) + M[None, :, :, 3]  # [T, F, 3]
+        u, v = k[:, 0] * c[..., 0], k[:, 2] * c[..., 1]
+        out["behind"] &= c[..., 2] <= -tz
+        out["front"] &= c[..., 2] > tz
+        out["left"] &= u - e["left"] * c[..., 2] <= -tau["left"]
+        out["right"] &= u - e["right"] * c[..., 2] >= tau["right"]
+        out["top"] &= v - e["top"] * c[..., 2] <= -tau["top"]
+        out["bottom"] &= v - e["bottom"] * c[..., 2] >= tau["bottom"]
+    past = out["left"] | out["right"] | out["top"] | out["bottom"]
+    return (out["behind"] | (out["front"] & past)) & finite
 
 
 def integrate(tsdf: torch.Tensor, weight: torch.Tensor, color: torch.Tensor,

@@ -18,9 +18,14 @@ at one level of every KITTI tap width and lane-group size; G-bwd's vector
 and scalar atomics, its run-merging mapping, and a training step's chunk
 gathers adding into one pyramid's shared buffers. Kernel T (TSDF
 integrate) in both modes: one frame, ties on `>=`, voxels behind the camera
-and on its z = 0 plane, pixels at the image border and on .5 boundaries, and
-63 frames at the KITTI grid; bit-equal to the plain version but for voxels
-at a pixel-rounding tie (at most 0.01% of the grid); marching cubes of a
+and on its z = 0 plane, pixels at the image border and on .5 boundaries and
+an ulp either side of them, 63 frames at the KITTI grid, a grid whose axes
+are no multiple of the kernel's tile under 1 and 63 KITTI sweep poses,
+frames the kernel culls for every tile (out of view, behind), volumes that
+start 4-12 B past a 16-B boundary, BundleFusion's grid under its 33-pose
+sweep; bit-equal to the plain version but for voxels at a pixel-rounding
+tie (at most 0.01% of the grid); its plan's constants equal to those of
+the plain twin in ops/tsdf.py; marching cubes of a
 volume the card fused at the BundleFusion grid. Kernel K5 (N1-N4:
 batch norm + activation + residual) against the plain version and its
 autograd in train and eval mode: C in {2, 3, 80, 3840}, M from 1 to 678,000,
@@ -752,6 +757,150 @@ def test_tsdf_kernel_kitti_grid_63_frames(dev, mode):
                       torch.from_numpy(np.tile(K[None], (63, 1, 1))).to(dev), w2cs,
                       KITTI_VOX_ORIGIN, 0.2, 10.0, mode)
     assert float(got[1].max()) <= 63 and bool((got[1] > 0).any())
+
+
+def _kitti_sweep_cams(dev, n_frames):
+    from scenerf_tpu_torch.data.synthetic import kitti_calibration
+
+    K, T_velo_2_cam = kitti_calibration()
+    rel = geo.rel_pose_stack(geo.sample_rel_poses(0.5, 10.0, 10.1))[:n_frames]
+    w2cs = torch.from_numpy(np.stack([np.linalg.inv(np.linalg.inv(T_velo_2_cam) @ p)
+                                      for p in rel]).astype(np.float32)).to(dev)
+    return torch.from_numpy(np.tile(K[None], (len(rel), 1, 1))).to(dev), w2cs
+
+
+@pytest.mark.parametrize("mode", ["closest", "average"])
+@pytest.mark.parametrize("n_frames", [1, 63])
+def test_tsdf_kernel_ragged_tiles_kitti_poses(dev, mode, n_frames):
+    """A 37x53x11 grid (no axis a multiple of the kernel's 32 x 8 x 4 tile,
+    lanes along j) of KITTI's voxel size beside and above the camera, where
+    the frustum's edges cut it, under the first frame or all 63 of KITTI's
+    sweep; the kernel culls some of its tiles (ops.tsdf.tiles_unseen)."""
+    from scenerf_tpu_torch.ops.tsdf import lane_axis, tiles_unseen
+
+    K, w2cs = _kitti_sweep_cams(dev, n_frames)
+    g = torch.Generator(device=dev).manual_seed(37)
+    depths = torch.rand(n_frames, 370, 1220, generator=g, device=dev) * 40 + 1.0
+    colors = torch.floor(torch.rand(n_frames, 370, 1220, generator=g, device=dev) * 2**24)
+    shape, origin = (37, 53, 11), (2.0, -5.2, -2.0)
+    got = _tsdf_check(dev, shape, depths, colors, K, w2cs, origin, 0.2, 10.0, mode)
+    assert bool((got[1] > 0).any())
+    assert lane_axis(w2cs.cpu()) == 1
+    assert bool(tiles_unseen(shape, origin, 0.2, K.cpu(), w2cs.cpu(), 370, 1220).any())
+
+
+@pytest.mark.parametrize("mode", ["closest", "average"])
+def test_tsdf_kernel_culled_frames(dev, mode):
+    """Between two frames in view, one whose camera stands 1 km to the side
+    (every tile past the image's right edge) and one turned round (every
+    voxel behind it): the kernel culls those frames for every tile, and the
+    volumes equal the plain version's."""
+    from scenerf_tpu_torch.ops.tsdf import tiles_unseen
+
+    shape, depths, colors, K, w2cs = _look_at_grid(dev, 2, rng_seed=5)
+    far = torch.eye(4, device=dev)
+    far[0, 3], far[2, 3] = 1000.0, 1.0
+    back = torch.diag(torch.tensor([-1.0, 1.0, -1.0, 1.0], device=dev))
+    back[2, 3] = -1.0
+    M = torch.stack([w2cs[0], far, back, w2cs[1]])
+    K4 = K[:1].expand(4, 3, 3).contiguous()
+    got = _tsdf_check(dev, shape, torch.cat([depths, depths]), torch.cat([colors, colors]), K4,
+                      M, (0.0, 0.0, 0.0), 0.25, 0.8, mode)
+    assert bool((got[1] > 0).any())
+    unseen = tiles_unseen(shape, (0.0, 0.0, 0.0), 0.25, K4.cpu(), M.cpu(), *depths.shape[1:])
+    assert bool(unseen[:, 1].all() and unseen[:, 2].all())
+
+
+@pytest.mark.parametrize("mode", ["closest", "average"])
+def test_tsdf_kernel_projections_an_ulp_from_half(dev, mode):
+    """A voxel layer at depth 1 under fx = fy = 8 at 0.125 m voxels: every
+    projection is an integer plus a principal point an ulp above .5 (one
+    frame) or below it (the next), so each rounds the other way, and the
+    image's last column and row take a voxel in one frame only:
+    bit-equal to the plain version, no voxel excepted."""
+    H, W = 10, 12
+    w2c = torch.eye(4, device=dev)
+    w2c[2, 3] = 1.0  # the grid's first z layer at camera depth 1
+    Ks = []
+    for delta in (2.0**-20, -(2.0**-20)):
+        Ks.append(torch.tensor([[8.0, 0, 0.5 + delta], [0, 8.0, 0.5 + delta], [0, 0, 1]],
+                               device=dev))
+    K = torch.stack(Ks)
+    depths = torch.full((2, H, W), 1.5, device=dev)
+    colors = torch.stack([torch.full((H, W), 11.0, device=dev),
+                          torch.full((H, W), 5.0 * 65536, device=dev)])
+    shape = (W + 3, H + 3, 5)
+    vols = [[torch.full(shape, 255.0, device=dev), torch.zeros(shape, device=dev),
+             torch.zeros(shape, device=dev)] for _ in range(2)]
+    args = (depths, colors, K, w2c.expand(2, 4, 4).contiguous(), (0.0, 0.0, 0.0), 0.125, 10.0,
+            1.0)
+    build.reset_launch_counts()
+    integrate(*vols[0], *args, mode=mode)
+    integrate_plain(*vols[1], *args, mode=mode)
+    torch.cuda.synchronize()
+    assert build.LAUNCHES["tsdf_integrate"] == 1
+    for a, b in zip(*vols):
+        assert torch.equal(a, b)
+    assert bool((vols[0][1] == 2).any()) and bool((vols[0][1] == 1).any())
+
+
+@pytest.mark.parametrize("mode", ["closest", "average"])
+@pytest.mark.parametrize("offset", [1, 2, 3])
+def test_tsdf_kernel_volume_at_unaligned_offset(dev, mode, offset):
+    """Volumes that are contiguous views starting `offset` floats into their
+    buffers (4-B aligned, not 16-B): the kernel reads and writes them with
+    scalar loads, and equals the plain version."""
+    shape, depths, colors, K, w2cs = _look_at_grid(dev, 3, rng_seed=offset)
+    n = math.prod(shape)
+    got = [torch.empty(n + offset, device=dev)[offset:].view(shape) for _ in range(3)]
+    assert all(v.is_contiguous() and v.data_ptr() % 16 == 4 * offset for v in got)
+    got[0].fill_(255.0)
+    got[1].zero_()
+    got[2].zero_()
+    want = [torch.full(shape, 255.0, device=dev), torch.zeros(shape, device=dev),
+            torch.zeros(shape, device=dev)]
+    args = (depths, colors, K, w2cs, (0.0, 0.0, 0.0), 0.25, 0.8, 1.0)
+    integrate(*got, *args, mode=mode)
+    integrate_plain(*want, *args, mode=mode)
+    torch.cuda.synchronize()
+    differs = torch.zeros(shape, dtype=torch.bool, device=dev)
+    for a, b in zip(got, want):
+        differs |= a != b
+    ties = pixel_ties(shape, (0.0, 0.0, 0.0), 0.25, K, w2cs)
+    assert not bool((differs & ~ties).any()) and bool((got[1] > 0).any())
+
+
+def test_tsdf_plan_constants_match_the_kernel(dev):
+    """The plain twin of kernel T's plan (ops.tsdf: tiles and cull) uses the
+    tile extents and cull constants the built kernel has."""
+    from scenerf_tpu_torch.ops import tsdf as T
+
+    assert T.kernel_plan_constants() == (T.TILE_LANES, T.TILE_WARPS, T.TILE_RUN,
+                                         T.CULL_MARGIN, T.CULL_MAX_PIXEL)
+
+
+@pytest.mark.parametrize("mode", ["closest", "average"])
+def test_tsdf_kernel_bf_grid_sweep(dev, mode):
+    """BundleFusion's 120x120x96 grid at 0.04 m under its 33-pose sweep
+    (lanes along x) of a 640x480 room 1-4 m deep."""
+    from scenerf_tpu_torch.cli.reconstruction import bf_rel_poses
+    from scenerf_tpu_torch.ops.tsdf import lane_axis
+    from scenerf_tpu_torch.reconstruction import BF_VOX_ORIGIN
+
+    poses = list(bf_rel_poses(30.0, 0.2, 2.1).values())
+    w2cs = torch.from_numpy(np.stack([np.linalg.inv(np.asarray(p)) for p in poses])
+                            .astype(np.float32)).to(dev)
+    F_, H, W = len(poses), 480, 640
+    yy, xx = torch.meshgrid(torch.arange(H, device=dev), torch.arange(W, device=dev),
+                            indexing="ij")
+    room = 2.5 + 1.5 * torch.sin(xx / 160.0) * torch.sin(yy / 120.0)
+    g = torch.Generator(device=dev).manual_seed(33)
+    depths = (room + 0.05 * torch.rand(F_, H, W, generator=g, device=dev)).contiguous()
+    colors = torch.floor(torch.rand(F_, H, W, generator=g, device=dev) * 2**24)
+    K = torch.tensor([[525.0, 0, 320.0], [0, 525.0, 240.0], [0, 0, 1]], device=dev)
+    got = _tsdf_check(dev, (120, 120, 96), depths, colors, K.expand(F_, 3, 3).contiguous(),
+                      w2cs, tuple(float(o) for o in BF_VOX_ORIGIN), 0.04, 10.0, mode)
+    assert lane_axis(w2cs.cpu()) == 0 and bool((got[1] > 0).any())
 
 
 def test_marching_cubes_on_card_fused_volume(dev):
