@@ -202,9 +202,34 @@ Phases (each prints one line and raises on failure):
      buffer. Prints ms per step, peak memory per rank, the synced-BN and
      gradient all-reduces' ms per step, the synced K5 ms per step, all
      labelled as two ranks sharing one card through the host
+ 18. the last workflows, on phase 14's tree: (a) import: phase 14's `best`
+     written in the layout of a published checkpoint (`state_dict` under the
+     reference's names plus the keys it carries and the forward never reads:
+     the encoder's bn2 and classifier, the decoder's resize convs, every BN's
+     batch counter; `hyper_parameters` at phase 14's KITTI values under the
+     reference's flag names), imported by
+     `scripts/import_reference_ckpt_torch.py` in a subprocess; load_model
+     gives every tensor bit-equal and every hparam on the config (f32). (b)
+     the KITTI reconstruction CLIs through click on cuda:0 with the imported
+     checkpoint on one val frame (08/000005, a root linking phase 14's files
+     with that frame's voxel GT alone) and a cut sweep (--max_distance 2.1:
+     15 of the 63 poses, stride 2): generate-novel-depths -> depth2tsdf ->
+     eval-sr. Checks: the depths finite at 370x1220; depth2tsdf's volume
+     bit-equal to the plain version of T on the written depths and PNGs on
+     at least TSDF_MIN_EQUAL of the voxels; eval-sr's IoU, precision and
+     recall equal to a host recompute from the written volume; G, C, N2 and
+     T at their counted launches. (c) `scripts/quality_runs_torch.py
+     --configs bf16x4,f32x4 --steps 4 --val_every 2` at full width (B7,
+     1220x370, 1500x452, ray_chunk 1200): its JSON read by
+     `scripts/quality_table.py`, every value finite, both arms on the same
+     frames, every training kernel launched in both dtypes. (d)
+     `scripts/overfit_probe_torch.py --steps 25` on the card: a finite
+     abs_rel. Prints each stage's seconds, both trajectories, the table, the
+     arms' wall time and peak memory
 Then one JSON line of per-kernel results (each bf16 kernel's bf16 results
 under "bf16"; "launches_by_path" gains "train_kitti", "eval", "bf_train",
-"bf_eval", "bf_recon" and "parallel"; T, RaySOM and K5 gain their BF rows; K5's
+"bf_eval", "bf_recon", "parallel", "chain", "quality" and "overfit"; T,
+RaySOM and K5 gain their BF rows; K5's
 synced stages count their launches in phase 17's data-mode run), the card
 line, and the last line
 {"ok": true, "device": {...}}. It exits non-zero, printing no result, when no
@@ -2442,6 +2467,283 @@ def parallel_phase(dev, card: str, tree: Path, model_path: str, p15: dict,
     return {"launches": recs[0]["train"]["launches"], "numbers": numbers}
 
 
+# ---- phase 18: import, the KITTI reconstruction CLIs, quality, overfit -------
+
+CHAIN_FRAME = "000005"     # phase 14's first val anchor (000000 is a corrupt-GT frame)
+CHAIN_MAX_DISTANCE = 2.1   # the sweep's reach: 15 of the CLI's 63 poses
+QUALITY_ARMS = ("bf16x4", "f32x4")
+QUALITY_STEPS = 4
+QUALITY_VAL_EVERY = 2
+OVERFIT_STEPS = 25
+IMPORT_PRESET = "kitti"    # the preset of phase 14's checkpoint
+
+
+def load_script(name: str):
+    """A module of scripts/ by file name (scripts/ is not a package)."""
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location(name, ROOT / "scripts" / f"{name}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    return module
+
+
+def reference_hparams(cfg) -> dict:
+    """`cfg`'s values under the reference's Lightning hparam names (the keys
+    of tests/test_port_reference.py's checkpoint)."""
+    hp = {k: getattr(cfg, k) for k in (
+        "som_sigma", "lr", "weight_decay", "n_rays", "max_infer_depth", "max_sample_depth",
+        "eval_depth", "std", "n_gaussians", "n_pts_uni", "n_pts_per_gaussian",
+        "sampling_method", "batch_size", "use_color", "use_reprojection")}
+    return {**hp, "img_size": list(cfg.img_size), "add_fov_hor": cfg.sphere.add_fov_hor,
+            "add_fov_ver": cfg.sphere.add_fov_ver, "sphere_H": cfg.sphere.height,
+            "sphere_W": cfg.sphere.width}
+
+
+def chain_root(tree: Path) -> Path:
+    """A KITTI root showing one val frame of phase 14's tree: sequence 08's
+    poses, calibration, images and scans linked, and the voxel GT of
+    CHAIN_FRAME alone (the val split anchors on voxels/*.bin)."""
+    root = tree / "chain_root"
+    src = tree / "dataset"
+    seq = root / "dataset" / "sequences" / "08"
+    (seq / "voxels").mkdir(parents=True)
+    (root / "dataset" / "poses").mkdir(parents=True)
+    (root / "dataset" / "poses" / "08.txt").symlink_to(src / "poses" / "08.txt")
+    for name in ("calib.txt", "image_2", "velodyne"):
+        (seq / name).symlink_to(src / "sequences" / "08" / name)
+    for ext in ("bin", "label", "invalid"):
+        (seq / "voxels" / f"{CHAIN_FRAME}.{ext}").symlink_to(
+            src / "sequences" / "08" / "voxels" / f"{CHAIN_FRAME}.{ext}")
+    return root
+
+
+def import_chain_phase(dev, card: str, tree: Path, model_path: str) -> dict:
+    """Phase 18 (a) and (b): phase 14's `best` written as a checkpoint in
+    the reference's layout, imported by scripts/import_reference_ckpt_torch.py
+    in a subprocess, then generate-novel-depths -> depth2tsdf -> eval-sr
+    through click on cuda:0 with the imported checkpoint; the checks and
+    numbers of the module docstring. Returns the chain's launches and the
+    numbers."""
+    import numpy as np
+    import torch
+
+    from scenerf_tpu_torch import geometry as geo
+    from scenerf_tpu_torch import reconstruction as recon
+    from scenerf_tpu_torch.cli import common
+    from scenerf_tpu_torch.cli import evaluation as ev
+    from scenerf_tpu_torch.cli import reconstruction as rc
+    from scenerf_tpu_torch.fusion.tsdf import pack_colors, tsdf2occ
+    from scenerf_tpu_torch.ops import build
+    from scenerf_tpu_torch.ops.tsdf import integrate_plain
+    from scenerf_tpu_torch.utils.checkpoint import load_model
+    from scenerf_tpu_torch.utils.port_reference import save_reference_layout
+    from scenerf_tpu_torch.utils.ssc_metrics import SSCMetrics
+
+    # (a) the import
+    src = load_model(model_path, "cpu")
+    want = {k: v.clone() for k, v in src.state_dict().items()}
+    hp = reference_hparams(src.cfg)
+    ckpt = tree / "scenerf_kitti_layout.ckpt"
+    save_reference_layout(str(ckpt), want, hp)
+    del src
+    out = tree / "imported"
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, str(ROOT / "scripts" / "import_reference_ckpt_torch.py"),
+                          "--ckpt", str(ckpt), "--preset", IMPORT_PRESET, "--out", str(out)],
+                         capture_output=True, text=True, timeout=600)
+    import_s = time.perf_counter() - t0
+    if res.returncode != 0:
+        fail(f"import_reference_ckpt_torch.py ({res.returncode}):\n{res.stdout}\n{res.stderr}")
+    model = load_model(str(out), "cpu")
+    got = model.state_dict()
+    unequal = [k for k in want if k not in got or not torch.equal(got[k], want[k])]
+    wrong_hp = {k: (v, getattr(model.cfg, k)) for k, v in hp.items()
+                if k in model.cfg.__dataclass_fields__ and k != "img_size"
+                and getattr(model.cfg, k) != v}
+    cfg = model.cfg
+    sphere = (cfg.sphere.width, cfg.sphere.height, cfg.sphere.add_fov_hor, cfg.sphere.add_fov_ver)
+    if (unequal or got.keys() != want.keys() or wrong_hp or list(cfg.img_size) != hp["img_size"]
+            or sphere != (hp["sphere_W"], hp["sphere_H"], hp["add_fov_hor"], hp["add_fov_ver"])
+            or cfg.compute_dtype != "float32"):
+        fail(f"imported checkpoint: {len(unequal)} tensors differ from the source ({unequal[:5]}),"
+             f" keys equal {got.keys() == want.keys()}; hparams off the config {wrong_hp}, "
+             f"img_size {cfg.img_size}, sphere {sphere}, dtype {cfg.compute_dtype}")
+    del model, got
+    ckpt_mib = ckpt.stat().st_size / 2**20
+    ckpt.unlink()
+
+    # (b) generate-novel-depths -> depth2tsdf -> eval-sr through click
+    root = chain_root(tree)
+    recon_dir = tree / "chain_recon"
+    kitti = ["--root", str(root), "--preprocess_root", str(tree / "preprocess_chain"),
+             "--model_path", str(out), "--recon_save_dir", str(recon_dir), "--max_distance",
+             str(CHAIN_MAX_DISTANCE)]
+    stage_s = {}
+
+    def run(cli, *argv):
+        t0_ = time.perf_counter()
+        res_ = cli.main(list(argv), standalone_mode=False)
+        stage_s[argv[0]] = time.perf_counter() - t0_
+        return res_
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    sweep = run(rc.cli, "generate-novel-depths", *kitti)
+    run(rc.cli, "depth2tsdf", *kitti)
+    sr = run(ev.cli, "eval-sr", *kitti[:6], "--recon_save_dir", str(recon_dir))
+    launches = dict(build.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+
+    rel_poses = geo.sample_rel_poses(step=0.5, angle=10.0, max_distance=CHAIN_MAX_DISTANCE)
+    n_poses = len(rel_poses)
+    ds = common.kitti_val_ds(str(root), str(tree / "preprocess_chain"), 10.0, 0.4,
+                             load_voxels=True)
+    if len(ds) != 1 or sweep["frames"] != [CHAIN_FRAME]:
+        fail(f"chain: {len(ds)} val frames, the sweep did {sweep['frames']}; expected "
+             f"[{CHAIN_FRAME}]")
+    item = ds[0]
+    depths, colors, poses = rc._load_sweep_frames(str(recon_dir), "08", CHAIN_FRAME, rel_poses)
+    W, H = cfg.img_size
+    if len(depths) != n_poses or any(d.shape != (H, W) or not np.isfinite(d).all()
+                                     for d in depths):
+        fail(f"generate-novel-depths wrote {len(depths)} of {n_poses} depths, shapes "
+             f"{sorted({d.shape for d in depths})}, finite "
+             f"{all(np.isfinite(d).all() for d in depths)}")
+    # kernel T's volume (depth2tsdf's file) against the plain version on the
+    # written depths and PNG colors, posed as fuse_kitti_sweep poses them
+    vol = recon.kitti_volume(dev)
+    cam_poses = np.stack([np.linalg.inv(item["T_velo_2_cam"]) @ p for p in poses])
+    w2cs = np.stack([np.linalg.inv(p) for p in cam_poses]).astype(np.float32)
+    integrate_plain(vol.tsdf, vol.weight, vol.color,
+                    torch.from_numpy(np.stack(depths)).to(dev),
+                    pack_colors(torch.from_numpy(np.stack(colors)).to(dev)),
+                    torch.from_numpy(np.tile(item["cam_K"][None], (n_poses, 1, 1))).to(dev),
+                    torch.from_numpy(w2cs).to(dev), vol._vol_origin, vol._voxel_size,
+                    vol._trunc_margin, 1.0)
+    written = np.load(recon_dir / "tsdf" / "08" / f"{CHAIN_FRAME}.npy")
+    plain = vol.tsdf.cpu().numpy()
+    equal = float((written == plain).mean())
+    if written.shape != (256, 256, 32) or equal < TSDF_MIN_EQUAL:
+        fail(f"depth2tsdf's volume {written.shape}: bit-equal to the plain version on "
+             f"{equal:.6%} of voxels (at least {TSDF_MIN_EQUAL:.2%})")
+    # eval-sr against a recompute from the written volume on the host
+    target = item["target_1_1"]
+    occ = tsdf2occ(written, cfg.occ_threshold, cfg.occ_max_threshold)
+    occ[:, :, np.nonzero(np.where(target == 255, 0, target))[2].max():] = 0
+    whole, fov = SSCMetrics(2), SSCMetrics(2)
+    whole.add_batch(occ[None], target[None])
+    fov.add_batch(occ[None], target[None], item["fov_mask_1"].reshape(target.shape)[None])
+    scores = {}
+    for name, got_s, want_s in (("whole", sr[0], whole.get_stats()),
+                                ("fov", sr[1], fov.get_stats())):
+        scores[name] = {k: float(got_s[k]) for k in ("iou", "precision", "recall")}
+        if any(float(got_s[k]) != float(want_s[k]) for k in scores[name]):
+            fail(f"eval-sr {name}: {scores[name]} against the recompute "
+                 f"{ {k: float(want_s[k]) for k in scores[name]} }")
+    # launches: one encode (6 sphere resamples, 192 eval applies); per pose,
+    # per render chunk two pyramid gathers and one C; one T
+    n_rays = len(common.strided_pixel_grid(tuple(cfg.img_size), 2)[0])
+    chunks = n_poses * -(-n_rays // rc.SWEEP_CHUNK)
+    want_l = {"gather_levels": SPHERE_RESAMPLES + 2 * chunks, "sort_composite": chunks,
+              "bn_apply": BN_SITES, "tsdf_integrate": 1, "bn_stats": 0, "gather_levels_bwd": 0,
+              "sort_composite_bwd": 0, "ray_som": 0, "gather_levels_bf16": 0}
+    got_l = {k: launches[k] for k in want_l}
+    if got_l != want_l:
+        fail(f"chain launches {launches}; expected {want_l}")
+    numbers = dict(import_s=import_s, ckpt_mib=ckpt_mib, stage_s=stage_s,
+                   encode_s=sweep["encode_s"][0], render_s=sweep["render_s"][0],
+                   write_s=sweep["write_s"][0], peak_gib=peak / 2**30, n_poses=n_poses)
+    print(f"[18 import] phase 14's best ({len(want)} tensors) in the reference's layout "
+          f"({ckpt_mib:.0f} MiB with the unread keys, hparams under the reference's names) -> "
+          f"scripts/import_reference_ckpt_torch.py {import_s:.1f} s -> load_model: every tensor "
+          f"bit-equal, every hparam on the config (f32)")
+    print(f"[18 chain] generate-novel-depths -> depth2tsdf -> eval-sr through click on {dev} "
+          f"with the imported checkpoint, frame 08/{CHAIN_FRAME}, {n_poses} poses "
+          f"(--max_distance {CHAIN_MAX_DISTANCE}) at stride 2: depths finite {H}x{W}; T's volume "
+          f"bit-equal to the plain version on {equal:.6%} of voxels; eval-sr = the host "
+          f"recompute: {scores}; launches {got_l}")
+    print(f"[18 numbers] on {card}: stages "
+          f"{ {k: round(v, 2) for k, v in stage_s.items()} } s; the sweep's frame: encode "
+          f"{numbers['encode_s'] * 1e3:.1f} ms, {n_poses} poses {numbers['render_s']:.2f} s "
+          f"({numbers['render_s'] / n_poses:.3f} s a pose, f32), files {numbers['write_s']:.2f} "
+          f"s; peak device memory {numbers['peak_gib']:.2f} GiB")
+    return {"launches": launches, "numbers": numbers}
+
+
+def quality_phase(dev, card: str, tree: Path) -> dict:
+    """Phase 18 (c) and (d): scripts/quality_runs_torch.py's bf16x4 and
+    f32x4 arms for QUALITY_STEPS steps on phase 14's tree at full width, its
+    JSON through scripts/quality_table.py; scripts/overfit_probe_torch.py for
+    OVERFIT_STEPS steps. Returns the launches of each and the numbers."""
+    import io
+
+    import torch
+
+    from scenerf_tpu_torch.ops import build
+
+    out = tree / "quality.json"
+    argv = ["--root", str(tree), "--prep", str(tree / "preprocess"), "--steps",
+            str(QUALITY_STEPS), "--val_every", str(QUALITY_VAL_EVERY), "--configs",
+            ",".join(QUALITY_ARMS), "--out", str(out), "--device", str(dev)]
+    torch.cuda.empty_cache()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    load_script("quality_runs_torch").main(argv)
+    quality_s = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    with open(out) as f:
+        hist = json.load(f)
+    table = io.StringIO()
+    with contextlib.redirect_stdout(table):
+        load_script("quality_table").main(str(out))
+    rows = [line for line in table.getvalue().splitlines()
+            if any(line.startswith(f"| {a} | 1 |") for a in QUALITY_ARMS)]
+    values = [v for h in hist.values() for v in (
+        h["val_abs_rel"] + h["val_rmse"] + h["train_loss"][1:] + [h["wall_s"], h["peak_gib"]])]
+    values = [math.nan if v is None else v for v in values]
+    ids = [hist[a]["frame_ids"] for a in QUALITY_ARMS]
+    steps = list(range(0, QUALITY_STEPS + 1, QUALITY_VAL_EVERY))
+    if (set(hist) != set(QUALITY_ARMS) or len(rows) != len(QUALITY_ARMS)
+            or any("nan" in r for r in rows) or not all(math.isfinite(v) for v in values)
+            or any(h["steps"] != steps for h in hist.values())):
+        fail(f"quality_runs_torch.py: arms {sorted(hist)}, table rows {rows}, steps "
+             f"{[h['steps'] for h in hist.values()]}, values {values}")
+    if ids[0] != ids[1] or len(ids[0]) != QUALITY_STEPS:
+        fail(f"quality arms read different frames: {ids}")
+    kernels = TRAIN_KERNELS + tuple(f"{k}_bf16" for k in (
+        "gather_levels", "gather_levels_bwd", "bn_stats", "bn_apply", "bn_bwd_reduce",
+        "bn_bwd_apply"))
+    if min(launches[k] for k in kernels) < 1:
+        fail(f"quality arms launches {launches}; expected every training kernel in both dtypes")
+
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    best = load_script("overfit_probe_torch").main(["--steps", str(OVERFIT_STEPS), "--device",
+                                                    str(dev)])
+    overfit_s = time.perf_counter() - t0
+    overfit_launches = dict(build.LAUNCHES)
+    if not math.isfinite(best) or min(overfit_launches[k] for k in (
+            "gather_levels", "gather_levels_bwd", "sort_composite", "sort_composite_bwd")) < 1:
+        fail(f"overfit probe: best abs_rel {best}, launches {overfit_launches}")
+    numbers = dict(quality_s=quality_s, overfit_s=overfit_s, overfit_best=best,
+                   arms={a: {k: hist[a][k] for k in ("val_abs_rel", "val_rmse", "train_loss",
+                                                      "wall_s", "peak_gib")}
+                         for a in QUALITY_ARMS})
+    for a in QUALITY_ARMS:
+        h = hist[a]
+        print(f"[18 quality] {a}: steps {h['steps']} val abs_rel "
+              f"{['%.5f' % v for v in h['val_abs_rel']]} rmse {['%.4f' % v for v in h['val_rmse']]}"
+              f" loss {['%.5f' % v for v in h['train_loss'][1:]]}; frames {h['frame_ids']}")
+    print("[18 quality] quality_table.py:\n    " + "\n    ".join(rows))
+    print(f"[18 numbers] on {card}: quality arms {quality_s:.1f} s ("
+          + ", ".join(f"{a} wall {hist[a]['wall_s']} s, peak {hist[a]['peak_gib']:.2f} GiB"
+                      for a in QUALITY_ARMS)
+          + f"); overfit probe {OVERFIT_STEPS} steps {overfit_s:.1f} s, best abs_rel {best:.4f}")
+    return {"launches": launches, "overfit_launches": overfit_launches, "numbers": numbers}
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description="Smoke run of the port on one NVIDIA GPU.")
     ap.add_argument("--bf-som-chunk", default=None,
@@ -4331,6 +4633,9 @@ def main() -> None:
     # ---- 17. several ranks ---------------------------------------------------
     synced = k5_synced_stages(dev, card, rows16, gen)
     p17 = parallel_phase(dev, card, Path(tree_dir.name), p14["model_path"], p15, synced)
+    # ---- 18. import, the KITTI reconstruction CLIs, quality arm, overfit ---
+    p18 = import_chain_phase(dev, card, Path(tree_dir.name), p14["model_path"])
+    q18 = quality_phase(dev, card, Path(tree_dir.name))
     tree_dir.cleanup()
     for name, row in synced["kernels"].items():
         results[name] = {**row, "bf16": {"launches": p17["launches"][f"{name}_bf16"]},
@@ -4342,6 +4647,7 @@ def main() -> None:
         results[name]["bf16"]["launches_by_path"]["train_kitti"] = \
             p14["launches"][f"{name}_bf16"]
         results[name]["bf16"]["launches_by_path"]["eval"] = p15["launches"][f"{name}_bf16"]
+        results[name]["bf16"]["launches_by_path"]["quality"] = q18["launches"][f"{name}_bf16"]
 
     sources = {
         "gather_levels": ("scenerf_tpu_torch/ops/csrc/gather.cu", "scenerf_tpu/geometry.py:106"),
@@ -4371,7 +4677,9 @@ def main() -> None:
                               "train_kitti": p14["launches"][name],
                               "eval": p15["launches"][name],
                               **{k: v[name] for k, v in p16["launches"].items()},
-                              "parallel": p17["launches"][name]},
+                              "parallel": p17["launches"][name],
+                              "chain": p18["launches"][name], "quality": q18["launches"][name],
+                              "overfit": q18["overfit_launches"][name]},
          **results[name]}
         for name, (src, rep) in sources.items()]}))
     print(f"card: {card}")

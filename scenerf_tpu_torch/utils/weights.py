@@ -146,10 +146,17 @@ def _skipped(key: str) -> bool:
             or key.endswith(".num_batches_tracked"))
 
 
+def reference_model_state(sd: Mapping[str, Any]) -> Dict[str, Any]:
+    """A reference Lightning checkpoint's state_dict (or the checkpoint dict
+    holding it) minus the keys the reference forward never reads: the port's
+    state_dict keys, under the same names."""
+    if "state_dict" in sd:
+        sd = sd["state_dict"]
+    return {k: v for k, v in sd.items() if not _skipped(k)}
+
+
 def load_reference_state_dict(model: nn.Module, sd: Mapping[str, Any]) -> None:
     """Load a reference Lightning checkpoint's state_dict (or the checkpoint
     dict holding it) into the port, strictly, minus the keys the reference
     forward never reads."""
-    if "state_dict" in sd:
-        sd = sd["state_dict"]
-    model.load_state_dict({k: v for k, v in sd.items() if not _skipped(k)}, strict=True)
+    model.load_state_dict(reference_model_state(sd), strict=True)

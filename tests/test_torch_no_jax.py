@@ -1,8 +1,10 @@
 """The port runs where JAX is not installed: in a fresh interpreter where
 `jax`, `flax` and the JAX package `scenerf_tpu` cannot be imported, every
-module of `scenerf_tpu_torch` imports, and so does `chip_smoke.py`. The
-library's modules (all but `cli/`) import no `click` either."""
+module of `scenerf_tpu_torch` imports, and so do `chip_smoke.py` and the
+port's scripts that drive it (SCRIPTS, whose functions name no JAX module
+either). The library's modules (all but `cli/`) import no `click` either."""
 import os
+import re
 import subprocess
 import sys
 
@@ -39,7 +41,11 @@ def run(code: str) -> str:
     return res.stdout
 
 
-@pytest.mark.parametrize("part", ["library", "cli and chip_smoke"])
+SCRIPTS = ("import_reference_ckpt_torch", "quality_runs_torch", "overfit_probe_torch",
+           "smoke_eval_chain_torch")
+
+
+@pytest.mark.parametrize("part", ["library", "cli and chip_smoke", "scripts"])
 def test_port_imports_without_jax(part):
     if part == "library":
         out = run('''
@@ -54,6 +60,21 @@ assert "click" not in sys.modules, "a library module imported click"
 print(len(lib))
 ''')
         assert int(out) >= 30
+    elif part == "scripts":
+        out = run(f'''
+import importlib.util
+for name in {SCRIPTS!r}:
+    spec = importlib.util.spec_from_file_location(name, f"{{REPO}}/scripts/{{name}}.py")
+    module = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(module)
+    assert callable(module.main), name
+print(len({SCRIPTS!r}))
+''')
+        assert int(out) == len(SCRIPTS)
+        for name in SCRIPTS:
+            with open(os.path.join(REPO, "scripts", name + ".py")) as f:
+                assert not re.search(r"^\s*(import|from)\s+(jax|flax|scenerf_tpu)\b", f.read(),
+                                     re.M), name
     else:
         out = run('''
 for n in names:
