@@ -1,0 +1,12 @@
+"""upload_idle_pct.train: the device's idle time inside the program's `upload`
+spans (`Trainer.device_batch`: the batch's copies to the card and the
+sphere-map cache), over the traced training steps' window, in %. The stages
+do not overlap, so the five `*_idle_pct.train` add up to at most
+`idle_pct.train`."""
+from benchmark.harness.cell import BENCH, load_module
+
+spans = load_module(BENCH / "metrics" / "_spans.py")
+
+
+def read(rec):
+    return spans.idle_pct(rec, "train", ["upload"])

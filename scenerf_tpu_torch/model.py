@@ -34,6 +34,7 @@ from scenerf_tpu_torch.encoder.unet_sphere import UNet2DSphere
 from scenerf_tpu_torch.fields import ResnetFC
 from scenerf_tpu_torch.ops.gather import PyramidGrads, share_pyramid_grads
 from scenerf_tpu_torch.parallel import dist as D
+from scenerf_tpu_torch.utils import tracing
 
 LEVEL_KEYS = ("1_1", "1_2", "1_4", "1_8", "1_16")
 LOSS_KEYS = ("loss_reprojection", "loss_color", "loss_kl", "loss_dist2closest_gauss")
@@ -49,6 +50,7 @@ def to_device(t: torch.Tensor, device) -> torch.Tensor:
     the host would wait there for the device's queued work."""
     device = torch.device(device)
     if device.type == "cuda" and t.device.type == "cpu":
+        tracing.count("h2d_bytes", t.numel() * t.element_size())
         return t.pin_memory().to(device, non_blocking=True)
     return t.to(device)
 
@@ -90,11 +92,12 @@ class SceneRF(nn.Module):
         BNs use batch statistics and update their running averages, and the
         levels carry gradients. `sphere_maps` (numpy or device tensors) skip
         the host-side map build."""
-        if sphere_maps is None:
-            sphere_maps = self.compute_sphere_maps(cam_K)
-        maps = {s: torch.as_tensor(m, device=img.device) for s, m in sphere_maps.items()}
-        with torch.set_grad_enabled(self.training and torch.is_grad_enabled()):
-            return self.net_rgb(img.to(self.cfg.dtype), maps)
+        with tracing.span("encode"):
+            if sphere_maps is None:
+                sphere_maps = self.compute_sphere_maps(cam_K)
+            maps = {s: torch.as_tensor(m, device=img.device) for s, m in sphere_maps.items()}
+            with torch.set_grad_enabled(self.training and torch.is_grad_enabled()):
+                return self.net_rgb(img.to(self.cfg.dtype), maps)
 
     @staticmethod
     def pyramid_for_item(levels: Dict[str, torch.Tensor], b: int) -> R.Pyramid:
@@ -126,12 +129,12 @@ class SceneRF(nn.Module):
                      T_source2infer: torch.Tensor, generator: torch.Generator,
                      stride: int = 1, ray_chunk: Optional[int] = None) -> Dict[str, torch.Tensor]:
         """Depth [H/stride, W/stride] and color [..., 3] at one pose."""
-        pixels, (h, w) = self._strided_pixels(stride, pyramid[0].device)
-        with torch.no_grad():
+        with tracing.span("render_image"), torch.no_grad():
+            pixels, (h, w) = self._strided_pixels(stride, pyramid[0].device)
             out = self.render_rays(pyramid, cam_K, T_source2infer, pixels, generator,
                                    ray_chunk=ray_chunk or self.cfg.eval_ray_chunk)
-        return {"depth": out["depth"].reshape(h, w),
-                "color": out["color"].reshape(h, w, 3)}
+            return {"depth": out["depth"].reshape(h, w),
+                    "color": out["color"].reshape(h, w, 3)}
 
     def render_pose_sweep(self, pyramid: R.Pyramid, cam_K: torch.Tensor,
                           poses: torch.Tensor, seed: int = 0, stride: int = 2,
@@ -189,29 +192,30 @@ class SceneRF(nn.Module):
         cfg = self.cfg
         res = {}
         if with_losses:
-            pix = noise["pixels"]
-            out = self.render_rays(pyramid, item_K, src["T_source2infer"], pix,
-                                   noise_uni=noise["uni"], noise_gauss=noise["gauss"],
-                                   with_som=True, pyramid_grads=pyramid_grads)
-            color_src = geo.sample_pix_features(pix, src["img_source"])
-            d2g = L.dist2closest_gaussian(out["gaussian_means"], out["gaussian_stds"],
-                                          out["som_vars"], out["depth"])
-            loss_reproj, valid = L.reprojection_loss(
-                noise["reproj"], pix, color_src, out["depth"], src["img_target"], item_inv_K,
-                item_K, src["T_source2target"])
-            res = {
-                "loss_reprojection": L.masked_mean(loss_reproj, valid, group=ray_group),
-                "loss_color": torch.abs(out["color"] - color_src).mean(),
-                "loss_kl": out["loss_kl"].mean(),
-                "loss_dist2closest_gauss": d2g["loss_dist2closest_gauss"].mean(),
-                "min_som_vars": d2g["min_som_vars"].mean(),
-                "min_stds": d2g["min_stds"].mean(),
-                "closest_pts_to_depth": out["closest_pts_to_depth"].mean(),
-                "weights_at_depth": out["weights_at_depth"].mean(),
-            }
+            with tracing.span("render_train"):
+                pix = noise["pixels"]
+                out = self.render_rays(pyramid, item_K, src["T_source2infer"], pix,
+                                       noise_uni=noise["uni"], noise_gauss=noise["gauss"],
+                                       with_som=True, pyramid_grads=pyramid_grads)
+                color_src = geo.sample_pix_features(pix, src["img_source"])
+                d2g = L.dist2closest_gaussian(out["gaussian_means"], out["gaussian_stds"],
+                                              out["som_vars"], out["depth"])
+                loss_reproj, valid = L.reprojection_loss(
+                    noise["reproj"], pix, color_src, out["depth"], src["img_target"],
+                    item_inv_K, item_K, src["T_source2target"])
+                res = {
+                    "loss_reprojection": L.masked_mean(loss_reproj, valid, group=ray_group),
+                    "loss_color": torch.abs(out["color"] - color_src).mean(),
+                    "loss_kl": out["loss_kl"].mean(),
+                    "loss_dist2closest_gauss": d2g["loss_dist2closest_gauss"].mean(),
+                    "min_som_vars": d2g["min_som_vars"].mean(),
+                    "min_stds": d2g["min_stds"].mean(),
+                    "closest_pts_to_depth": out["closest_pts_to_depth"].mean(),
+                    "weights_at_depth": out["weights_at_depth"].mean(),
+                }
         if with_depth_eval:
             # depth metrics at the GT pixels: logs only, no gradient
-            with torch.no_grad():
+            with tracing.span("render_gt"), torch.no_grad():
                 ev = self.render_rays([lv.detach() for lv in pyramid], item_K,
                                       src["T_source2infer"], src["gt_pix"],
                                       ray_chunk=cfg.eval_ray_chunk, noise_uni=noise["gt_uni"],

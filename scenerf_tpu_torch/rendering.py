@@ -30,6 +30,7 @@ from scenerf_tpu_torch.fields import ResnetFC, gaussian_params_from_offsets, rad
 from scenerf_tpu_torch.ops.composite import SOM_KEYS, SomInputs, sort_composite
 from scenerf_tpu_torch.ops.gather import PyramidGrads, gather_levels
 from scenerf_tpu_torch.som import ray_som
+from scenerf_tpu_torch.utils import tracing
 
 SCALES = (1, 2, 4, 8, 16)
 
@@ -202,13 +203,13 @@ def render_rays(
     if noise_gauss is None:
         noise_gauss = S.row_noise(generator, R, cfg.n_pts_gauss, dist="normal",
                                   device=pixels.device)
-    blocks = [
-        render_ray_block(pixels[i:i + chunk], pyramid, cam_K, inv_K, T_source2infer,
-                         mlp, mlp_gaussian, cfg, noise_uni[i:i + chunk],
-                         noise_gauss[i:i + chunk], with_som=with_som,
-                         pyramid_grads=pyramid_grads)
-        for i in range(0, R, chunk)
-    ]
+    blocks = []
+    for i in range(0, R, chunk):
+        with tracing.span("chunk"):
+            blocks.append(render_ray_block(
+                pixels[i:i + chunk], pyramid, cam_K, inv_K, T_source2infer, mlp,
+                mlp_gaussian, cfg, noise_uni[i:i + chunk], noise_gauss[i:i + chunk],
+                with_som=with_som, pyramid_grads=pyramid_grads))
     if len(blocks) == 1:
         return blocks[0]
     return {k: torch.cat([b[k] for b in blocks]) for k in blocks[0]}

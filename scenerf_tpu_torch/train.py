@@ -55,6 +55,7 @@ from scenerf_tpu_torch.encoder.norm import set_sync_group
 from scenerf_tpu_torch.model import Noise, SceneRF, to_device
 from scenerf_tpu_torch.ops.build import resolve_device
 from scenerf_tpu_torch.parallel import dist as D
+from scenerf_tpu_torch.utils import tracing
 
 MODES = ("data", "ray_parallel", "ray_shard")
 
@@ -110,14 +111,15 @@ class Trainer:
     def device_batch(self, batch: Mapping[str, np.ndarray]):
         """(batch as f32 device tensors, the sphere maps of its first camera
         on the device, built on the host once per intrinsics)."""
-        host_K = np.ascontiguousarray(batch["cam_K"][0], np.float32)
-        key = host_K.tobytes()
-        if key not in self._maps:
-            self._maps[key] = {s: torch.as_tensor(m, device=self.device)
-                               for s, m in self.model.compute_sphere_maps(host_K).items()}
-        tensors = {k: to_device(torch.as_tensor(v, dtype=torch.float32), self.device)
-                   for k, v in batch.items()}
-        return tensors, self._maps[key]
+        with tracing.span("upload"):
+            host_K = np.ascontiguousarray(batch["cam_K"][0], np.float32)
+            key = host_K.tobytes()
+            if key not in self._maps:
+                self._maps[key] = {s: torch.as_tensor(m, device=self.device)
+                                   for s, m in self.model.compute_sphere_maps(host_K).items()}
+            tensors = {k: to_device(torch.as_tensor(v, dtype=torch.float32), self.device)
+                       for k, v in batch.items()}
+            return tensors, self._maps[key]
 
     def train_step(self, batch: Mapping[str, np.ndarray],
                    generator: Optional[torch.Generator] = None,
@@ -127,18 +129,22 @@ class Trainer:
         trainer's own when None) unless `noise` gives them all
         (`SceneRF.draw_noise`). Returns the metrics as device
         tensors."""
-        tensors, maps = self.device_batch(batch)
-        noise = self._noise(tensors, generator or self.generator, noise)
-        for group in self.optimizer.param_groups:
-            group["lr"] = self.lr_at(self.step)
-        self.optimizer.zero_grad(set_to_none=True)
-        loss, metrics = self.model(tensors, noise, train=True, sphere_maps=maps,
-                                   ray_group=self.ray_group)
-        loss.backward()
-        D.average_gradients(list(self.model.parameters()), self.group)
-        self.optimizer.step()
-        self.step += 1
-        return D.all_reduce_metrics({k: v.detach() for k, v in metrics.items()}, self.group)
+        with tracing.span("train_step", self.step):
+            tensors, maps = self.device_batch(batch)
+            noise = self._noise(tensors, generator or self.generator, noise)
+            for group in self.optimizer.param_groups:
+                group["lr"] = self.lr_at(self.step)
+            self.optimizer.zero_grad(set_to_none=True)
+            loss, metrics = self.model(tensors, noise, train=True, sphere_maps=maps,
+                                       ray_group=self.ray_group)
+            with tracing.span("backward"):
+                loss.backward()
+            D.average_gradients(list(self.model.parameters()), self.group)
+            with tracing.span("adamw"):
+                self.optimizer.step()
+            self.step += 1
+            return D.all_reduce_metrics({k: v.detach() for k, v in metrics.items()},
+                                        self.group)
 
     def _noise(self, tensors, generator: torch.Generator, noise: Optional[Noise]) -> Noise:
         if noise is not None:
