@@ -47,12 +47,16 @@ Phases (each prints one line and raises on failure):
      every parameter gets a nonzero gradient, the first AdamW step moves
      each weight by -lr g / (|g| + eps), BN running statistics move,
      every kernel launches, S only inside C's launches, K5 192 times forward
-     and backward per step; step 0 again on the plain versions but K5's
-     kernels, from the same weights and draws, loss and every gradient leaf
-     held to the kernel path's; K5 on the train-mode encode (levels, and the
-     encoder's gradients under a fixed cotangent) against the plain version,
-     each held to the plain version in f64; ms per step, rays/s, peak device
-     memory
+     and backward per step (counted over step 0, eager, and step 1, which
+     captures the step's CUDA graphs; step 2 replays them); step 2 against
+     an eager twin from the same state (loss and metrics within
+     GRAPH_METRIC_RTOL, the gradients as one vector within the compute
+     dtype's GRAPH_GRAD_REL_L2); step 0 and step 2 again on the plain
+     versions but K5's kernels, from the same state and draws, loss and
+     every gradient leaf held to the kernel path's; K5 on the train-mode
+     encode (levels, and the encoder's gradients under a fixed cotangent)
+     against the plain version, each held to the plain version in f64; ms
+     per replayed step, rays/s, peak device memory
  11. reconstruction: the phase-4 weights encode the synthetic frame with
      KITTI's calibration, render the CLI's full default sweep (63 poses) at
      stride 2, chunk 5000 (kernels G, C), upsample it to 1220x370, quantize
@@ -89,7 +93,9 @@ Phases (each prints one line and raises on failure):
      finite loss and gradients, parameters, gradients and BN statistics f32,
      the statistics move, every parameter gets a gradient, the first AdamW
      move, K5 at 192 sites forward and backward in bf16, bf16 G and G-bwd,
-     one C training launch (R = 1200, S's EM inside) per source, step 0's
+     one C training launch (R = 1200, S's EM inside) per source (counted
+     over the eager and the capturing step), the replayed step 2 against an
+     eager twin as in phase 10, step 0's
      batch statistics at every BN site (recovered from the running
      statistics, set to 0 before the step) within BN_STATS_TOL of the f64
      statistics of the site's bf16 input, and step 0's loss beside the f32
@@ -111,10 +117,12 @@ Phases (each prints one line and raises on failure):
      step 3 with epoch 1's staircase lr; both validate on sequence 08 and
      save last / best. Checks: the resume and its lr, last and best saved,
      meta.json's best value the best epoch's mean val depth/abs_rel, losses
-     and val metrics finite, every training kernel launched (K5 at 192 sites
-     forward and backward a step, N2 also at each val encode, the one-launch
-     counts phase 13's per step, S only inside C: one C training launch per
-     ray chunk, source, step and val item), ICP's cached refinements rigid
+     and val metrics finite, each run's first step eager, its second
+     capturing the step graphs and its third replaying them, every training
+     kernel launched (K5 at 192 sites forward and backward in each eager and
+     capturing step, N2 also at each val encode, the one-launch counts phase
+     13's per step, S only inside C: one C training launch per ray chunk,
+     source, such step and val item), ICP's cached refinements rigid
      (R^T R = I and det 1 within RIGID_TOL), best through load_model
      rendering one stride-2 pose through G and C with finite depth. Prints
      ms per step through the loader (median after each run's first), host
@@ -147,8 +155,11 @@ Phases (each prints one line and raises on failure):
      sources), at the BF preset (B7 at 640x480, 960x720 sphere, 32 + 4x8
      samples, f32): train-bundlefusion at the CLI's defaults (2048 rays in
      one chunk, som_sigma 0.02) with --max_steps_per_epoch 3, then resumed
-     with --n_epochs 2; one more step hooked to record each BN site's
-     configuration and K5 path and kernel C's launches; K5 at every
+     with --n_epochs 2 (each run's steps eager, capturing, replaying); one
+     more step of the run's trainer, which replays, against an eager twin
+     as in phase 10; the first step of a new trainer from the same state
+     (eager) hooked to record each BN site's configuration and K5 path and
+     kernel C's launches; K5 at every
      distinct BF configuration (train and eval) held to its plain version
      by phase 12's checks; RaySOM's EM inside C against its plain version
      on the step's chunk (saved with --bf-som-chunk for the CPU test against
@@ -283,6 +294,20 @@ COMPOSITE_BWD_RTOL = 1e-4  # the plain cumprod backward divides by 1 - alpha + 1
 SOM_RTOL = 1e-4            # EM sums over samples in another order
 SOM_MIN_SHARE = 0.999
 TRAIN_STEPS = 3
+# of a trainer's steps on one shape the first runs eagerly and the second
+# captures the step's CUDA graphs (scenerf_tpu_torch/step_graphs.py): both
+# call the kernels' wrappers, which count launches, and run module hooks;
+# every later step replays the graphs and calls neither
+LAUNCHING_STEPS = 2
+GRAPH_METRIC_RTOL = 1e-6   # a replayed step's loss and metrics vs an eager twin's: the
+                           # same kernels in the same order on the same inputs
+# its gradients as one vector: G-bwd's float atomics add in another order.
+# In f32 that moves them by ~4e-6 at KITTI. In bf16, where such a sum tips a
+# bf16 rounding, the encoder backward's later roundings part one after
+# another, and two eager steps from one state differ as much as a replayed
+# and an eager step (tiny config: up to 1.1e-2 and 1.2e-2; KITTI, graphed
+# against eager: 3.3e-2); the eager twin's own spread is printed beside
+GRAPH_GRAD_REL_L2 = {"float32": 1e-4, "bfloat16": 0.1}
 TRAIN_LOSS_RTOL = 1e-3
 TRAIN_GRAD_REL_L2 = 1e-2   # per gradient leaf, kernel path vs plain path
 BN_STATS_TOL = 1e-4        # a step's batch statistics vs f64 ones of each site's input, in
@@ -416,16 +441,79 @@ def k5_path_hooks(model, paths: dict) -> list:
 
 
 def k5_fused_check(launches: dict, paths: dict, suffix: str = "") -> dict:
-    """K5's one-launch counts per training step (`launches` over TRAIN_STEPS
-    steps) held to the sites `k5_path_hooks` saw take the cluster path in
-    one step, in each direction; the per-step counts."""
-    fused = {k: launches[k + suffix] / TRAIN_STEPS for k in BN_FUSED}
+    """K5's one-launch counts per training step (`launches` over the
+    LAUNCHING_STEPS of TRAIN_STEPS steps) held to the sites `k5_path_hooks`
+    saw take the cluster path in one step, in each direction; the per-step
+    counts."""
+    fused = {k: launches[k + suffix] / LAUNCHING_STEPS for k in BN_FUSED}
     plan = {k: paths[d].count("cluster") for k, d in zip(BN_FUSED, ("forward", "backward"))}
     if [len(paths[d]) for d in ("forward", "backward")] != [BN_SITES] * 2 or fused != plan \
             or min(plan.values()) < 1:
         fail(f"train{suffix}: K5 one-launch (cluster) launches per step {fused}; the plan puts "
              f"{plan} of {[len(paths[d]) for d in ('forward', 'backward')]} sites there")
     return fused
+
+
+def step_kinds() -> list:
+    """The kind of each training step `tracing` recorded, oldest first:
+    "eager", "capture" (captured the step graphs, then replayed them) or
+    "replay"."""
+    from scenerf_tpu_torch.utils import tracing
+
+    return ["capture" if s.counts.get("graph_capture") else
+            "replay" if s.counts.get("graph_replay") else "eager"
+            for s in tracing.snapshot() if s.name == "train_step"]
+
+
+def replay_against_eager(trainer, before: dict, batch, noise, metrics: dict,
+                         grads: dict) -> dict:
+    """A step of `trainer` that replayed its step graphs (its `metrics` and
+    gradients `grads`, taken from `before`, a copy of its `state_dict()`)
+    against the same step of an eager twin from that state: a trainer on
+    the same model that runs every step eagerly. The loss and metrics are
+    held within GRAPH_METRIC_RTOL, the gradients as one vector within the
+    compute dtype's GRAPH_GRAD_REL_L2; the twin takes the step twice, and
+    the gap of its two steps' gradients is returned beside ("floor"), and
+    the fields' gradients' gap ("fields", upstream of G-bwd); `trainer`'s
+    state after its step is put back. Returns the gaps."""
+    import torch
+
+    from scenerf_tpu_torch.train import Trainer
+
+    def rel(a: dict, b: dict, names) -> float:
+        num = sum(float((a[n].double() - b[n].double()).square().sum()) for n in names)
+        return (num / max(sum(float(b[n].double().square().sum()) for n in names), 1e-60)) ** 0.5
+
+    after = copy.deepcopy(trainer.state_dict())
+    twin = Trainer(trainer.cfg, device=trainer.device, model=trainer.model,
+                   steps_per_epoch=trainer.steps_per_epoch)
+    twin._eager = True
+    runs = []
+    for _ in range(2):
+        twin.load_state_dict(copy.deepcopy(before))
+        want = {k: float(v) for k, v in twin.train_step(batch, noise=noise).items()}
+        runs.append({n: p.grad.detach().clone() for n, p in trainer.model.named_parameters()
+                     if p.grad is not None})
+    got = {k: float(v) for k, v in metrics.items()}
+    want_g = runs[0]
+    if set(got) != set(want) or set(grads) != set(want_g):
+        fail(f"a replayed step's metrics {sorted(got)} or gradient leaves ({len(grads)}) "
+             f"differ from its eager twin's ({sorted(want)}, {len(want_g)})")
+    fields = [n for n in want_g if not n.startswith("net_rgb.")]
+    gaps = {"metric": max(abs(got[k] - want[k]) / max(abs(want[k]), 1e-12) for k in want),
+            "grad": rel(grads, want_g, want_g), "floor": rel(runs[1], want_g, want_g),
+            "fields": rel(grads, want_g, fields),
+            "grad_limit": GRAPH_GRAD_REL_L2[trainer.cfg.compute_dtype]}
+    del runs, want_g
+    trainer.load_state_dict(after)
+    trainer.model.zero_grad(set_to_none=True)
+    del twin
+    torch.cuda.empty_cache()
+    if not (gaps["metric"] <= GRAPH_METRIC_RTOL and gaps["grad"] <= gaps["grad_limit"]):
+        fail(f"a replayed step against its eager twin from the same state: metrics "
+             f"{gaps['metric']:.3e} (limit {GRAPH_METRIC_RTOL}), gradients {gaps['grad']:.3e} "
+             f"(limit {gaps['grad_limit']})")
+    return gaps
 
 
 def bn_stats_hooks(model, record: list) -> list:
@@ -724,6 +812,7 @@ def train_kitti_phase(dev, card: str, tree: Path, tree_procs: list, ref: dict | 
     from scenerf_tpu_torch.data.synthetic import make_batch
     from scenerf_tpu_torch.native import build as native_build
     from scenerf_tpu_torch.ops import build
+    from scenerf_tpu_torch.utils import tracing
     from scenerf_tpu_torch.utils.checkpoint import load_model
 
     t0 = time.perf_counter()
@@ -753,10 +842,14 @@ def train_kitti_phase(dev, card: str, tree: Path, tree_procs: list, ref: dict | 
     torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
     t0 = time.perf_counter()
-    run1 = train_cli.cli.main(argv + ["--n_epochs", "1"], standalone_mode=False)
+    with tracing.recording():
+        run1 = train_cli.cli.main(argv + ["--n_epochs", "1"], standalone_mode=False)
+    kinds = step_kinds()
     run1_s = time.perf_counter() - t0
     t0 = time.perf_counter()
-    run2 = train_cli.cli.main(argv + ["--n_epochs", "2"], standalone_mode=False)
+    with tracing.recording():
+        run2 = train_cli.cli.main(argv + ["--n_epochs", "2"], standalone_mode=False)
+    kinds += step_kinds()
     run2_s = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
@@ -789,18 +882,26 @@ def train_kitti_phase(dev, card: str, tree: Path, tree_procs: list, ref: dict | 
              f"{ {k: v for k, v in meta.items() if k != 'config'} }; val abs_rel per epoch "
              f"{abs_rel}")
 
+    # each run's first step eager, its second capturing the step graphs, the
+    # others replaying them
+    run_kinds = ["eager", "capture"] + ["replay"] * (KITTI_STEPS - LAUNCHING_STEPS)
+    if kinds != run_kinds * 2:
+        fail(f"train-kitti: the steps of its two runs ran {kinds}; expected {run_kinds} each")
+
     # every training kernel, K5 at its 192 sites a step in each direction (N2
     # also at each val encode), S only inside C: per source, one C training
-    # launch per ray chunk, in every step and every val item
+    # launch per ray chunk, in every step that ran the wrappers (eager,
+    # capturing) and every val item
     n_val = sum(run1["val_items"]) + sum(run2["val_items"])
+    n_launch = 2 * LAUNCHING_STEPS
     chunks = -(-cfg.n_rays // cfg.ray_chunk)
-    want = {"bn_stats_bf16": BN_SITES * n_steps, "bn_bwd_reduce_bf16": BN_SITES * n_steps,
-            "bn_bwd_apply_bf16": BN_SITES * n_steps,
-            "bn_apply_bf16": BN_SITES * (n_steps + n_val),
-            "ray_som_in_sort_composite": cfg.n_sources * chunks * (n_steps + n_val),
-            "ray_som": cfg.n_sources * chunks * (n_steps + n_val), "tsdf_integrate": 0}
+    want = {"bn_stats_bf16": BN_SITES * n_launch, "bn_bwd_reduce_bf16": BN_SITES * n_launch,
+            "bn_bwd_apply_bf16": BN_SITES * n_launch,
+            "bn_apply_bf16": BN_SITES * (n_launch + n_val),
+            "ray_som_in_sort_composite": cfg.n_sources * chunks * (n_launch + n_val),
+            "ray_som": cfg.n_sources * chunks * (n_launch + n_val), "tsdf_integrate": 0}
     if ref is not None:
-        want.update({f"{k}_bf16": ref["fused_per_step"][k] * n_steps for k in BN_FUSED})
+        want.update({f"{k}_bf16": ref["fused_per_step"][k] * n_launch for k in BN_FUSED})
     got = {k: launches[k] for k in want}
     if got != want or min(launches[k] for k in TRAIN_KERNELS + (
             "gather_levels_bf16", "gather_levels_bwd_bf16") + tuple(f"{k}_bf16" for k in BN_FUSED)) < 1:
@@ -885,7 +986,8 @@ def train_kitti_phase(dev, card: str, tree: Path, tree_procs: list, ref: dict | 
           f"step {run2['start_step']} with epoch 1's lr {lr1:.4e}; losses "
           f"{['%.5f' % v for v in losses]}; val abs_rel per epoch {['%.5f' % v for v in abs_rel]}"
           f" ({n_val} val items), best {meta['best_value']:.5f} at step {meta['best_step']}; "
-          f"launches {got}; best loaded and rendered a stride-2 pose, depth finite "
+          f"each run's steps {run_kinds}; launches in the eager and the capturing steps and "
+          f"the val items {got}; best loaded and rendered a stride-2 pose, depth finite "
           f"({float(depth.min()):.2f} .. {float(depth.max()):.2f} m)")
     print(f"[14 train-kitti] ICP: {n_pairs} cached sources, every refinement rigid (R^T R = I "
           f"and det 1 within {RIGID_TOL}); they move the odometry by at most "
@@ -1279,6 +1381,8 @@ def bf_phase(dev, card: str, tree: Path, tree_procs: list, som_chunk: str | None
     from scenerf_tpu_torch.ops import build
     from scenerf_tpu_torch.ops import norm as NM
     from scenerf_tpu_torch.som import som_em_plain
+    from scenerf_tpu_torch.train import Trainer
+    from scenerf_tpu_torch.utils import tracing
     from scenerf_tpu_torch.utils.checkpoint import load_model
     from scenerf_tpu_torch.utils.lpips import LPIPS
 
@@ -1297,8 +1401,12 @@ def bf_phase(dev, card: str, tree: Path, tree_procs: list, som_chunk: str | None
     torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
     t0 = time.perf_counter()
-    run1 = train_cli.cli.main(argv + ["--n_epochs", "1"], standalone_mode=False)
-    run2 = train_cli.cli.main(argv + ["--n_epochs", "2"], standalone_mode=False)
+    with tracing.recording():
+        run1 = train_cli.cli.main(argv + ["--n_epochs", "1"], standalone_mode=False)
+    kinds = step_kinds()
+    with tracing.recording():
+        run2 = train_cli.cli.main(argv + ["--n_epochs", "2"], standalone_mode=False)
+    kinds += step_kinds()
     train_s = time.perf_counter() - t0
     launches_train = dict(build.LAUNCHES)
     train_peak = torch.cuda.max_memory_allocated()
@@ -1330,10 +1438,34 @@ def bf_phase(dev, card: str, tree: Path, tree_procs: list, som_chunk: str | None
         fail(f"train-bundlefusion checkpoints: meta "
              f"{ {k: v for k, v in meta.items() if k != 'config'} }; val abs_rel {abs_rel}")
 
-    # one more step on a train item, hooked: each BN site's configuration and
-    # K5 path, kernel C's launches (rays, with the EM) and the RaySOM inputs
+    # each run's first step eager, its second capturing the step graphs, the
+    # others replaying them
+    run_kinds = ["eager", "capture"] + ["replay"] * (BF_STEPS - LAUNCHING_STEPS)
+    if kinds != run_kinds * 2:
+        fail(f"train-bundlefusion: the steps of its two runs ran {kinds}; expected "
+             f"{run_kinds} each")
+    n_launch = 2 * LAUNCHING_STEPS  # the steps that ran the wrappers
+
+    # one more step of the run's trainer on a train item, which replays its
+    # graphs, against an eager twin from the same state
     batch = bfd.to_model_batch([bfd.BundlefusionDataset(
         "train", root, n_sources=1, frame_interval=2, n_frames=16, seed=SEED)[0]], cfg)
+    before = copy.deepcopy(trainer.state_dict())
+    with tracing.recording():
+        metrics = trainer.train_step(batch)
+    if step_kinds() != ["replay"]:
+        fail(f"train-bundlefusion: a step after the runs ran {step_kinds()}; expected a replay")
+    grads = {n: p.grad.detach().clone() for n, p in trainer.model.named_parameters()
+             if p.grad is not None}
+    twin_gaps = replay_against_eager(trainer, before, batch, None, metrics, grads)
+    del before, metrics, grads
+
+    # and one on a new trainer from the same state, whose first step runs
+    # eagerly, hooked: each BN site's configuration and K5 path, kernel C's
+    # launches (rays, with the EM) and the RaySOM inputs
+    hooked = Trainer(cfg, device=dev, model=trainer.model,
+                     steps_per_epoch=trainer.steps_per_epoch)
+    hooked.load_state_dict(copy.deepcopy(trainer.state_dict()))
     paths, sites = {"forward": [], "backward": []}, {"train": [], "eval": []}
 
     def site_hooks(path):
@@ -1360,13 +1492,17 @@ def bf_phase(dev, card: str, tree: Path, tree_procs: list, som_chunk: str | None
     try:
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        trainer.train_step(batch)
+        with tracing.recording():
+            hooked.train_step(batch)
         torch.cuda.synchronize()
         hooked_step_ms = (time.perf_counter() - t0) * 1e3
     finally:
         rendering.sort_composite, rendering.ray_som = sort_composite, ray_som
         for h in hooks:
             h.remove()
+    if step_kinds() != ["eager"]:
+        fail(f"train-bundlefusion: a new trainer's first step ran {step_kinds()}")
+    del hooked
     trainer.model.eval()
     hooks = site_hooks("eval")
     with torch.no_grad():
@@ -1378,11 +1514,11 @@ def bf_phase(dev, card: str, tree: Path, tree_procs: list, som_chunk: str | None
              f"{len(sites['eval'])}; expected {BN_SITES} each")
     cluster = {d: paths[d].count("cluster") for d in paths}
     n_val = sum(run1["val_items"]) + sum(run2["val_items"])
-    want = {"bn_stats": BN_SITES * n_steps, "bn_bwd_reduce": BN_SITES * n_steps,
-            "bn_bwd_apply": BN_SITES * n_steps, "bn_apply": BN_SITES * (n_steps + n_val),
-            "bn_forward_fused": cluster["forward"] * n_steps,
-            "bn_backward_fused": cluster["backward"] * n_steps,
-            "ray_som_in_sort_composite": n_steps + n_val, "ray_som": n_steps + n_val,
+    want = {"bn_stats": BN_SITES * n_launch, "bn_bwd_reduce": BN_SITES * n_launch,
+            "bn_bwd_apply": BN_SITES * n_launch, "bn_apply": BN_SITES * (n_launch + n_val),
+            "bn_forward_fused": cluster["forward"] * n_launch,
+            "bn_backward_fused": cluster["backward"] * n_launch,
+            "ray_som_in_sort_composite": n_launch + n_val, "ray_som": n_launch + n_val,
             "tsdf_integrate": 0, **{f"{k}_bf16": 0 for k in build.BF16_KERNELS}}
     train_got = {k: launches_train[k] for k in want}
     if train_got != want or min(launches_train[k] for k in TRAIN_KERNELS) < 1:
@@ -1400,7 +1536,12 @@ def bf_phase(dev, card: str, tree: Path, tree_procs: list, som_chunk: str | None
           f"{len(run1['loss'])} steps, run 2 resumed at step "
           f"{run2['start_step']} with epoch 1's lr {lr1:.3e}; losses "
           f"{['%.5f' % v for v in losses]}; val abs_rel {['%.5f' % v for v in abs_rel]} "
-          f"({n_val} val items); launches {train_got}")
+          f"({n_val} val items); each run's steps {run_kinds}; launches in the eager and the "
+          f"capturing steps and the val items {train_got}; a replayed step against an eager "
+          f"twin from the same state: metrics {twin_gaps['metric']:.2e} (limit "
+          f"{GRAPH_METRIC_RTOL}), gradients as one vector {twin_gaps['grad']:.2e} (limit "
+          f"{twin_gaps['grad_limit']}; the twin's two steps {twin_gaps['floor']:.2e}; the "
+          f"fields' {twin_gaps['fields']:.2e})")
 
     # K5 at every distinct BundleFusion site configuration against its plain
     # version (phase 12's checks, f32)
@@ -2785,6 +2926,7 @@ def main() -> None:
                                              pyramid_level_size)
     from scenerf_tpu_torch.som import som_em, som_em_plain
     from scenerf_tpu_torch.train import Trainer
+    from scenerf_tpu_torch.utils import tracing
 
     dev = torch.device("cuda", 0)
     # phase 14's KITTI tree, written by two host processes meanwhile
@@ -3460,18 +3602,22 @@ def main() -> None:
     noises = [model.draw_noise(1, cfg.n_sources, gen, dev) for _ in range(TRAIN_STEPS)]
     start_state = {k: v.detach().clone() for k, v in model.state_dict().items()}
     seen_nonzero = {n: False for n in params}
-    step_ms, losses = [], []
+    step_ms, losses, kinds = [], [], []
     torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
     NM.cotangent_copies = 0
     for i in range(TRAIN_STEPS):
-        # step 0's layouts and K5 paths; not timed warm
+        # step 0 (eager): the layouts and K5 paths
         hooks = site_hooks("train") + k5_path_hooks(model, k5_paths) if i == 0 else []
+        if i == TRAIN_STEPS - 1:
+            before_last = copy.deepcopy(trainer.state_dict())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        metrics = trainer.train_step(batch, noise=noises[i])
+        with tracing.recording():
+            metrics = trainer.train_step(batch, noise=noises[i])
         torch.cuda.synchronize()
         step_ms.append((time.perf_counter() - t0) * 1e3)
+        kinds += step_kinds()
         for h in hooks:
             h.remove()
         gmax = torch.stack([p.grad.abs().max() for p in params.values()]).cpu()
@@ -3501,15 +3647,20 @@ def main() -> None:
                          f"{float(moved_by.max()):.3f} lr")
     launches = dict(build.LAUNCHES)
     peak = torch.cuda.max_memory_allocated()
+    metrics_last = metrics
+    grads_last = {n: p.grad.detach().clone() for n, p in params.items()}
+    if kinds != ["eager", "capture"] + ["replay"] * (TRAIN_STEPS - LAUNCHING_STEPS):
+        fail(f"train: the steps ran {kinds}; expected the first eager, the second capturing "
+             f"the step graphs, the others replaying them")
     for name in TRAIN_KERNELS:
         if launches[name] < 1:
             fail(f"kernel {name} was not launched on the training path")
     if launches["ray_som"] != launches["ray_som_in_sort_composite"]:
         fail(f"the training path launched kernel S alone: {launches}")
     bn_train = [launches[k] for k in BN_KERNELS]
-    if bn_train != [BN_SITES * TRAIN_STEPS] * 4:
-        fail(f"train: K5 launches {dict(zip(BN_KERNELS, bn_train))} in {TRAIN_STEPS} steps; "
-             f"expected {BN_SITES} of each per step")
+    if bn_train != [BN_SITES * LAUNCHING_STEPS] * 4:
+        fail(f"train: K5 launches {dict(zip(BN_KERNELS, bn_train))} in the eager and the "
+             f"capturing step; expected {BN_SITES} of each per step")
     # one launch (N1 + N2, N3 + N4) at each site the plan puts on the cluster path
     bn_fused = k5_fused_check(launches, k5_paths)
     k5_per_step = sum(2 * BN_SITES - bn_fused[k] for k in BN_FUSED)
@@ -3524,51 +3675,64 @@ def main() -> None:
     moved = sum(not torch.equal(state[k], start_state[k]) for k in stats)
     if moved != len(stats):
         fail(f"{len(stats) - moved} of {len(stats)} BN running statistics did not move")
-    warm = statistics.median(step_ms[1:])
+    last = TRAIN_STEPS - 1
     print(f"[10 train] {TRAIN_STEPS} steps, {cfg.n_sources} sources x {cfg.n_rays} rays x "
-          f"{cfg.n_pts_per_ray} samples, f32: loss {['%.5f' % v for v in losses]}; finite; "
-          f"{len(params)} parameter tensors, all with nonzero gradients; {moved} BN running "
-          f"statistics moved; main-path launches {launches} (K5: {BN_SITES} forward and "
-          f"{BN_SITES} backward per step, of which {bn_fused} per step in one launch, "
-          f"{k5_per_step:.0f} K5 kernels a step; inputs {layouts('train')}; {bn_copies} "
-          f"cotangents copied to their input's layout)")
+          f"{cfg.n_pts_per_ray} samples, f32, {kinds}: loss {['%.5f' % v for v in losses]}; "
+          f"finite; {len(params)} parameter tensors, all with nonzero gradients; {moved} BN "
+          f"running statistics moved; main-path launches in the eager and the capturing step "
+          f"{launches} (K5: {BN_SITES} forward and {BN_SITES} backward per step, of which "
+          f"{bn_fused} per step in one launch, {k5_per_step:.0f} K5 kernels a step; inputs "
+          f"{layouts('train')}; {bn_copies} cotangents copied to their input's layout)")
     print(f"[10 train] {adam_text}")
+    twin_gaps = replay_against_eager(trainer, before_last, batch, noises[last], metrics_last,
+                                     grads_last)
+    print(f"[10 train] step {last} (replayed) against an eager twin from the same state: "
+          f"metrics {twin_gaps['metric']:.2e} (limit {GRAPH_METRIC_RTOL}), gradients as one "
+          f"vector {twin_gaps['grad']:.2e} (limit {twin_gaps['grad_limit']}; the twin's two "
+          f"steps {twin_gaps['floor']:.2e}; the fields' {twin_gaps['fields']:.2e})")
 
-    # step 0 again on the plain versions but K5's kernels: the step's loss
-    # and gradients move by far more than rounding when the encode moves by
-    # rounding (RaySOM's assignments, the closest-sample argmins: on this
+    # step 0 (eager) and the last step (replayed) again on the plain versions
+    # but K5's kernels, each from the state it was taken from: the step's
+    # loss and gradients move by far more than rounding when the encode moves
+    # by rounding (RaySOM's assignments, the closest-sample argmins: on this
     # card a 1e-6 change of the input frame on the plain path moved some
     # gradient leaves by over 100%), so both sides share K5's encode, and K5
     # is held to its plain version on the encode below
-    model.load_state_dict(start_state)
-    plain_trainer = Trainer(cfg, device=dev, model=model)
-    with build.plain_versions(keep=("bn",)):
-        metrics_p = plain_trainer.train_step(batch, noise=noises[0])
-    torch.cuda.synchronize()
-    loss_k, loss_p = metrics0["total_loss"], float(metrics_p["total_loss"])
-    if not abs(loss_k - loss_p) <= TRAIN_LOSS_RTOL * abs(loss_p):
-        fail(f"train step 0: kernel-path loss {loss_k} vs plain {loss_p}")
-    norms = {n: float(g.norm()) for n, g in grads0.items()}
-    gscale = max(norms.values())
-    worst, worst_name = 0.0, ""
-    for n, p in params.items():
-        diff = float((grads0[n] - p.grad).norm())
-        if norms[n] <= 1e-6 * gscale:  # zero up to rounding on both paths
-            if diff > 1e-5 * gscale:
-                fail(f"train step 0: gradient {n} differs by {diff} (scale {gscale})")
-            continue
-        rel = diff / norms[n]
-        if rel > worst:
-            worst, worst_name = rel, n
-    if worst > TRAIN_GRAD_REL_L2:
-        fail(f"train step 0: gradient {worst_name} relative L2 {worst:.3e} > {TRAIN_GRAD_REL_L2}")
-    metric_err = max(abs(metrics0[k] - float(v)) / max(abs(float(v)), 1e-12)
-                     for k, v in metrics_p.items())
-    print(f"[10 train] step 0 on the plain versions (K5's kernels kept) from the same weights "
-          f"and draws: loss "
-          f"{loss_p:.6f} vs kernel path {loss_k:.6f}; worst metric relative difference "
-          f"{metric_err:.2e}; worst gradient leaf relative L2 {worst:.3e} ({worst_name}; "
-          f"limit {TRAIN_GRAD_REL_L2})")
+    for i, state, got_m, got_g in ((0, None, metrics0, grads0),
+                                   (last, before_last, metrics_last, grads_last)):
+        plain_trainer = Trainer(cfg, device=dev, model=model)  # its first step: eager
+        if state is None:
+            model.load_state_dict(start_state)
+        else:
+            plain_trainer.load_state_dict(copy.deepcopy(state))
+        with build.plain_versions(keep=("bn",)):
+            metrics_p = plain_trainer.train_step(batch, noise=noises[i])
+        torch.cuda.synchronize()
+        loss_k, loss_p = float(got_m["total_loss"]), float(metrics_p["total_loss"])
+        if not abs(loss_k - loss_p) <= TRAIN_LOSS_RTOL * abs(loss_p):
+            fail(f"train step {i}: kernel-path loss {loss_k} vs plain {loss_p}")
+        norms = {n: float(g.norm()) for n, g in got_g.items()}
+        gscale = max(norms.values())
+        worst, worst_name = 0.0, ""
+        for n, p in params.items():
+            diff = float((got_g[n] - p.grad).norm())
+            if norms[n] <= 1e-6 * gscale:  # zero up to rounding on both paths
+                if diff > 1e-5 * gscale:
+                    fail(f"train step {i}: gradient {n} differs by {diff} (scale {gscale})")
+                continue
+            rel = diff / norms[n]
+            if rel > worst:
+                worst, worst_name = rel, n
+        if worst > TRAIN_GRAD_REL_L2:
+            fail(f"train step {i}: gradient {worst_name} relative L2 {worst:.3e} > "
+                 f"{TRAIN_GRAD_REL_L2}")
+        metric_err = max(abs(float(got_m[k]) - float(v)) / max(abs(float(v)), 1e-12)
+                         for k, v in metrics_p.items())
+        print(f"[10 train] step {i} ({kinds[i]}) on the plain versions (K5's kernels kept) "
+              f"from the same state and draws: loss {loss_p:.6f} vs kernel path "
+              f"{loss_k:.6f}; worst metric relative difference {metric_err:.2e}; worst "
+              f"gradient leaf relative L2 {worst:.3e} ({worst_name}; limit "
+              f"{TRAIN_GRAD_REL_L2})")
 
     # K5 on the train-mode encode: the levels, and every encoder gradient
     # under one fixed cotangent of the levels, through K5's kernels and
@@ -3618,10 +3782,12 @@ def main() -> None:
           f"gradients under a fixed cotangent {ek['grads']:.2e} (plain f32 {ep['grads']:.2e}; "
           f"limit {ENCODE_F64_RATIO}x)")
     n_step_rays = cfg.n_sources * cfg.n_rays
-    print(f"[10 numbers] on {card}: {warm:.1f} ms per step (median of steps "
-          f"{list(range(1, TRAIN_STEPS))}; step 0 {step_ms[0]:.1f} ms), "
-          f"{n_step_rays / warm * 1e3:.0f} rays/s, peak device memory {peak / 2**30:.2f} GiB "
-          f"(the {TRAIN_STEPS} kernel-path steps)")
+    warm = statistics.median(step_ms[LAUNCHING_STEPS:])
+    print(f"[10 numbers] on {card}: {warm:.1f} ms per replayed step (median of steps "
+          f"{list(range(LAUNCHING_STEPS, TRAIN_STEPS))}; step 0, eager, {step_ms[0]:.1f} ms; "
+          f"step 1, capturing, {step_ms[1]:.1f} ms), {n_step_rays / warm * 1e3:.0f} rays/s, "
+          f"peak device memory {peak / 2**30:.2f} GiB allocated (the {TRAIN_STEPS} kernel-path "
+          f"steps; a replay allocates through the graphs' own pool)")
 
     # ---- 11. reconstruction ----------------------------------------------
     from scenerf_tpu_torch import reconstruction as recon
@@ -3631,7 +3797,7 @@ def main() -> None:
     from scenerf_tpu_torch.ops.tsdf import integrate, integrate_plain, pixel_ties
     from scenerf_tpu_torch.utils.ssc_metrics import SSCMetrics
 
-    del trainer, plain_trainer, batch, noises, grads0
+    del trainer, plain_trainer, batch, noises, grads0, before_last, metrics_last, grads_last
     model.load_state_dict(start_state)
     model.eval()
     torch.cuda.empty_cache()
@@ -4049,7 +4215,8 @@ def main() -> None:
     print(f"[12 kernel K5] per training step over the {bn_step['sites']} sites "
           f"({bn_step['configurations']} configurations; inputs: train {layouts('train')}, eval "
           f"{layouts('eval')}; {bn_step['cotangent_copies_in_train']} cotangents copied "
-          f"in {TRAIN_STEPS} steps; the cluster path at {bn_step['cluster_sites']} sites): "
+          f"in the eager and the capturing step; the cluster path at "
+          f"{bn_step['cluster_sites']} sites): "
           f"kernels alone forward {bn_step['forward_ms']:.3f} ms (bound "
           f"{bn_step['forward_bound_ms']:.3f}, one-launch {bn_step['forward_min_bound_ms']:.3f}; "
           f"stages one by one {bn_step['stages_forward_ms']:.3f}), backward "
@@ -4265,7 +4432,7 @@ def main() -> None:
     trainer16 = Trainer(cfg16, device=dev, model=model16)
     params16 = dict(model16.named_parameters())
     seen16 = {n: False for n in params16}
-    step16_ms, losses16 = [], []
+    step16_ms, losses16, kinds16 = [], [], []
     k5_paths16 = {"forward": [], "backward": []}  # each site's K5 paths (step 0)
     torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
@@ -4273,11 +4440,15 @@ def main() -> None:
         stats16_rec = []  # step 0's BN inputs' f64 statistics (running statistics set to 0)
         hooks16 = (site_hooks16("train") + k5_path_hooks(model16, k5_paths16)
                    + bn_stats_hooks(model16, stats16_rec)) if i == 0 else []
+        if i == TRAIN_STEPS - 1:
+            before16 = copy.deepcopy(trainer16.state_dict())
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        metrics16 = trainer16.train_step(batch16, noise=noises16[i])
+        with tracing.recording():
+            metrics16 = trainer16.train_step(batch16, noise=noises16[i])
         torch.cuda.synchronize()
         step16_ms.append((time.perf_counter() - t0) * 1e3)
+        kinds16 += step_kinds()
         for h in hooks16:
             h.remove()
         gmax = torch.stack([p.grad.abs().max() for p in params16.values()]).cpu()
@@ -4305,15 +4476,21 @@ def main() -> None:
                      f"away from -lr g / (|g| + eps), or a parameter with a gradient stayed")
     train16_launches = dict(build.LAUNCHES)
     train16_peak = torch.cuda.max_memory_allocated()
-    launches16_per_step = {k: train16_launches[k] / TRAIN_STEPS for k in train16_launches}
+    grads16_last = {n: p.grad.detach().clone() for n, p in params16.items()}
+    if kinds16 != ["eager", "capture"] + ["replay"] * (TRAIN_STEPS - LAUNCHING_STEPS):
+        fail(f"bf16 train: the steps ran {kinds16}; expected the first eager, the second "
+             f"capturing the step graphs, the others replaying them")
+    # per step that ran the wrappers (the eager and the capturing step)
+    launches16_per_step = {k: train16_launches[k] / LAUNCHING_STEPS for k in train16_launches}
     bn16 = [train16_launches[f"{k}_bf16"] for k in BN_KERNELS]
     bn16_fused = k5_fused_check(train16_launches, k5_paths16, "_bf16")
-    if bn16 != [BN_SITES * TRAIN_STEPS] * 4 or [train16_launches[k] for k in BN_KERNELS] != bn16:
+    if (bn16 != [BN_SITES * LAUNCHING_STEPS] * 4
+            or [train16_launches[k] for k in BN_KERNELS] != bn16):
         fail(f"bf16 train: K5 launches {train16_launches}; expected {BN_SITES} bf16 launches "
              f"of each of N1-N4 per step")
     if not (train16_launches["gather_levels_bf16"] >= 1
             and train16_launches["gather_levels_bwd_bf16"] >= 1
-            and train16_launches["ray_som_in_sort_composite"] == cfg16.n_sources * TRAIN_STEPS
+            and train16_launches["ray_som_in_sort_composite"] == cfg16.n_sources * LAUNCHING_STEPS
             and train16_launches["ray_som"] == train16_launches["ray_som_in_sort_composite"]
             and train16_launches["sort_composite_bwd"] >= 1):
         fail(f"bf16 train launches {train16_launches}: expected bf16 G and G-bwd, and one "
@@ -4331,21 +4508,31 @@ def main() -> None:
     if any(state16[k].dtype != torch.float32 or torch.equal(state16[k], start_state[k])
            for k in stats16):
         fail("bf16 train: a BN running statistic is not f32 or did not move")
-    warm16 = statistics.median(step16_ms[1:])
+    twin16 = replay_against_eager(trainer16, before16, batch16, noises16[-1], metrics16,
+                                  grads16_last)
+    del before16, grads16_last
+    warm16 = statistics.median(step16_ms[LAUNCHING_STEPS:])
     rays16 = cfg16.n_sources * cfg16.n_rays
     print(f"[13 train bf16] {TRAIN_STEPS} steps of kitti(n_sources=4, ray_chunk=1200, "
-          f"n_gt_depth=256, compute_dtype=bfloat16): loss {['%.5f' % v for v in losses16]}, "
+          f"n_gt_depth=256, compute_dtype=bfloat16), {kinds16}: loss "
+          f"{['%.5f' % v for v in losses16]}; step {TRAIN_STEPS - 1} (replayed) against an "
+          f"eager twin from the same state: metrics {twin16['metric']:.2e} (limit "
+          f"{GRAPH_METRIC_RTOL}), gradients as one vector {twin16['grad']:.2e} (limit "
+          f"{twin16['grad_limit']}; the twin's two steps {twin16['floor']:.2e}; the fields' "
+          f"{twin16['fields']:.2e}); "
           f"step 0's batch statistics {stats16_err:.2e} from f64 (limit {BN_STATS_TOL}); step 0 "
           f"vs f32 from the same weights and draws {loss32:.5f} (rel "
           f"{abs(losses16[0] - loss32) / abs(loss32):.2e}); finite; "
           f"params, gradients and {len(stats16)} BN statistics f32, the statistics moved; "
           f"AdamW step 0 within {max(float(excess16.max()), 0.0):.2e} lr; launches per step "
+          f"that ran the wrappers (eager, capturing) "
           f"{ {k: launches16_per_step[k] for k in TRAIN_KERNELS + tuple(f'{k}_bf16' for k in build.BF16_KERNELS)} }")
-    print(f"[13 numbers] on {card}: bf16 {warm16:.1f} ms per step (median of steps "
-          f"{list(range(1, TRAIN_STEPS))}; step 0 {step16_ms[0]:.1f} ms), "
-          f"{rays16 / warm16 * 1e3:.0f} rays/s, peak device memory "
-          f"{train16_peak / 2**30:.2f} GiB; f32 phase 10 (ray_chunk {cfg.ray_chunk}): "
-          f"{warm:.1f} ms per step, {n_step_rays / warm * 1e3:.0f} rays/s, {peak / 2**30:.2f} GiB")
+    print(f"[13 numbers] on {card}: bf16 {warm16:.1f} ms per replayed step (median of steps "
+          f"{list(range(LAUNCHING_STEPS, TRAIN_STEPS))}; step 0, eager, {step16_ms[0]:.1f} ms; "
+          f"step 1, capturing, {step16_ms[1]:.1f} ms), {rays16 / warm16 * 1e3:.0f} rays/s, peak "
+          f"device memory {train16_peak / 2**30:.2f} GiB allocated; f32 phase 10 (ray_chunk "
+          f"{cfg.ray_chunk}): {warm:.1f} ms per replayed step, {n_step_rays / warm * 1e3:.0f} "
+          f"rays/s, {peak / 2**30:.2f} GiB")
 
     # K5 and G in bf16 on the train-mode encode: levels and encoder gradients
     # under a fixed cotangent, through the kernels and through the plain bf16

@@ -18,6 +18,7 @@ and _net.{1,2,3}.conv_block{1,2}.{0,1} (BasicBlocks).
 """
 from __future__ import annotations
 
+import functools
 from typing import Dict, Optional, Tuple
 
 import numpy as np
@@ -98,14 +99,24 @@ def interp_matrix_align_corners(n_in: int, n_out: int) -> np.ndarray:
     return M
 
 
+@functools.lru_cache(maxsize=None)
+def _interp_matrix(n_in: int, n_out: int, dtype: torch.dtype, device: torch.device
+                   ) -> torch.Tensor:
+    """`interp_matrix_align_corners` on `device` in `dtype`, copied there once
+    per size (a handful a model) and shared, never written: a copy from
+    pageable host memory waits for the card's queue to drain, and inside a
+    training step's CUDA graph capture it is refused, so the step's first,
+    eager run makes the matrices its graphs read."""
+    return torch.as_tensor(interp_matrix_align_corners(n_in, n_out), dtype=dtype,
+                           device=device)
+
+
 def resize_bilinear_align_corners(x: torch.Tensor, out_hw: Tuple[int, int]) -> torch.Tensor:
     """Bilinear resize (align_corners=True) of [B, H, W, C] via two matmuls
     in x's dtype (the matrices rounded to it)."""
     H, W = x.shape[-3], x.shape[-2]
-    My = torch.as_tensor(interp_matrix_align_corners(H, out_hw[0]), dtype=x.dtype,
-                         device=x.device)
-    Mx = torch.as_tensor(interp_matrix_align_corners(W, out_hw[1]), dtype=x.dtype,
-                         device=x.device)
+    My = _interp_matrix(H, out_hw[0], x.dtype, x.device)
+    Mx = _interp_matrix(W, out_hw[1], x.dtype, x.device)
     x = torch.einsum("oh,bhwc->bowc", My, x)
     return torch.einsum("pw,bhwc->bhpc", Mx, x)
 

@@ -3,7 +3,9 @@
 each cosine computed as a sine with a pi/2 phase offset."""
 from __future__ import annotations
 
+import functools
 import math
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -11,6 +13,19 @@ import torch
 
 def positional_encoding_dim(num_freqs: int = 6, d_in: int = 3, include_input: bool = True) -> int:
     return num_freqs * 2 * d_in + (d_in if include_input else 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _freqs_phases(num_freqs: int, freq_factor: float, dtype: torch.dtype,
+                  device: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The encoding's [2F] frequencies and phases on `device`, copied there
+    once and shared, never written (see `encoder/sphere_decoder._interp_matrix`)."""
+    freqs = freq_factor * (2.0 ** np.arange(num_freqs, dtype=np.float32))
+    freqs = np.repeat(freqs, 2)
+    phases = np.zeros(2 * num_freqs, dtype=np.float32)
+    phases[1::2] = math.pi * 0.5
+    return (torch.as_tensor(freqs, dtype=dtype, device=device),
+            torch.as_tensor(phases, dtype=dtype, device=device))
 
 
 def positional_encoding(
@@ -22,13 +37,7 @@ def positional_encoding(
     """[..., d_in] points -> [..., d_out]; block j of 2F covers the d_in coords
     at flat positions j * d_in + c, even j = sin, odd j = cos."""
     d_in = x.shape[-1]
-    freqs = freq_factor * (2.0 ** np.arange(num_freqs, dtype=np.float32))
-    freqs = np.repeat(freqs, 2)
-    phases = np.zeros(2 * num_freqs, dtype=np.float32)
-    phases[1::2] = math.pi * 0.5
-    freqs_t = torch.as_tensor(freqs, dtype=x.dtype, device=x.device)
-    phases_t = torch.as_tensor(phases, dtype=x.dtype, device=x.device)
-
+    freqs_t, phases_t = _freqs_phases(num_freqs, freq_factor, x.dtype, x.device)
     scaled = x[..., None, :] * freqs_t[:, None] + phases_t[:, None]
     embed = torch.sin(scaled).reshape(*x.shape[:-1], 2 * num_freqs * d_in)
     if include_input:

@@ -12,6 +12,7 @@ not `F.grid_sample`, whose NCHW layout and arithmetic differ.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Dict, List, Tuple
 
@@ -135,8 +136,14 @@ def pix_feature_coords(pix: torch.Tensor, H: int, W: int) -> Tuple[torch.Tensor,
 def normalize_pix(pix: torch.Tensor, norm_wh: Tuple[int, int]) -> torch.Tensor:
     """Pixel coords [N, 2] -> normalized [-1, 1] coords by a caller-provided
     nominal (W, H), which can differ by one pixel from the map sampled."""
-    norm = torch.tensor(norm_wh, dtype=pix.dtype, device=pix.device)
-    return (pix / norm) * 2.0 - 1.0
+    return (pix / _norm(tuple(norm_wh), pix.dtype, pix.device)) * 2.0 - 1.0
+
+
+@functools.lru_cache(maxsize=None)
+def _norm(norm_wh: Tuple[int, int], dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """`norm_wh` as a tensor on `device`, copied there once per level and
+    shared, never written (see `encoder/sphere_decoder._interp_matrix`)."""
+    return torch.tensor(norm_wh, dtype=dtype, device=device)
 
 
 # --------------------------------------------------------------------------- #

@@ -18,7 +18,8 @@ every loss stay f32, so gradients reach the f32 parameters through the casts.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional, Tuple
+from functools import partial
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -40,6 +41,11 @@ LEVEL_KEYS = ("1_1", "1_2", "1_4", "1_8", "1_16")
 LOSS_KEYS = ("loss_reprojection", "loss_color", "loss_kl", "loss_dist2closest_gauss")
 LOG_KEYS = ("min_som_vars", "min_stds", "closest_pts_to_depth", "weights_at_depth")
 NOISE_KEYS = ("pixels", "uni", "gauss", "reproj", "gt_uni", "gt_gauss")
+# an item's per-source batch keys and draws, of its training and its GT-depth renders
+TRAIN_KEYS = ("T_source2infer", "T_source2target", "img_sources", "img_targets")
+TRAIN_NOISE = ("pixels", "uni", "gauss", "reproj")
+GT_KEYS = ("T_source2infer", "gt_pix", "gt_depth", "gt_mask")
+GT_NOISE = ("gt_uni", "gt_gauss")
 
 Noise = Dict[str, torch.Tensor]  # NOISE_KEYS -> [B, S, ...] draws of one step
 
@@ -85,19 +91,21 @@ class SceneRF(nn.Module):
         return compute_sphere_maps(self.cfg, cam_K)
 
     def encode(self, img: torch.Tensor, cam_K,
-               sphere_maps: Optional[Dict[int, np.ndarray]] = None) -> Dict[str, torch.Tensor]:
+               sphere_maps: Optional[Dict[int, np.ndarray]] = None,
+               net: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
         """img [B, H, W, 3] on the model's device -> levels dict
         {"1_1".."1_16": [B, H_s, W_s, C_s]}. In eval mode (the serve path) it
         runs without autograd on the BN running statistics; in train mode the
         BNs use batch statistics and update their running averages, and the
         levels carry gradients. `sphere_maps` (numpy or device tensors) skip
-        the host-side map build."""
+        the host-side map build. `net` runs `net_rgb` in its place (the
+        trainer's CUDA-graph replay of it; None: the module)."""
         with tracing.span("encode"):
             if sphere_maps is None:
                 sphere_maps = self.compute_sphere_maps(cam_K)
             maps = {s: torch.as_tensor(m, device=img.device) for s, m in sphere_maps.items()}
             with torch.set_grad_enabled(self.training and torch.is_grad_enabled()):
-                return self.net_rgb(img.to(self.cfg.dtype), maps)
+                return (net or self.net_rgb)(img.to(self.cfg.dtype), maps)
 
     @staticmethod
     def pyramid_for_item(levels: Dict[str, torch.Tensor], b: int) -> R.Pyramid:
@@ -181,49 +189,85 @@ class SceneRF(nn.Module):
         }
         return {k: to_device(v, device) for k, v in noise.items()}
 
-    def _per_source(self, pyramid: R.Pyramid, pyramid_grads: Optional[PyramidGrads],
-                    item_K: torch.Tensor, item_inv_K: torch.Tensor,
-                    src: Dict[str, torch.Tensor], noise: Noise, with_losses: bool = True,
-                    with_depth_eval: bool = True, ray_group=None) -> Dict[str, torch.Tensor]:
-        """Losses and logs (the training render) and the depth metrics (the
-        GT-depth render) of one (item, source) pair, each when asked for.
-        `ray_group`: the rays (and GT rows) of `noise` and `src` are this
-        rank's slice, and the masked means sum over the group."""
+    def loss_weights(self) -> Dict[str, float]:
+        """The weight of each LOSS_KEYS term that `forward`'s total_loss sums,
+        in its order; a term the config switches off is left out. Its keys
+        are the outputs of a training render that gradients reach."""
         cfg = self.cfg
-        res = {}
+        weights = {"loss_kl": 1.0, "loss_dist2closest_gauss": cfg.dist2closest_weight}
+        if cfg.use_reprojection:
+            weights["loss_reprojection"] = cfg.reprojection_weight
+        if cfg.use_color:
+            weights["loss_color"] = 1.0
+        return weights
+
+    @staticmethod
+    def item_inputs(batch: Dict[str, torch.Tensor], noise: Noise, b: int,
+                    with_losses: bool, with_depth_eval: bool) -> Tuple[Dict, Dict]:
+        """Item b's inputs of its training renders and of its GT-depth
+        renders (each None when not asked for): its camera, and per source
+        key [S, ...]."""
+        K = batch["cam_K"][b]
+        train = gt = None
         if with_losses:
-            with tracing.span("render_train"):
-                pix = noise["pixels"]
-                out = self.render_rays(pyramid, item_K, src["T_source2infer"], pix,
-                                       noise_uni=noise["uni"], noise_gauss=noise["gauss"],
-                                       with_som=True, pyramid_grads=pyramid_grads)
-                color_src = geo.sample_pix_features(pix, src["img_source"])
-                d2g = L.dist2closest_gaussian(out["gaussian_means"], out["gaussian_stds"],
-                                              out["som_vars"], out["depth"])
-                loss_reproj, valid = L.reprojection_loss(
-                    noise["reproj"], pix, color_src, out["depth"], src["img_target"],
-                    item_inv_K, item_K, src["T_source2target"])
-                res = {
-                    "loss_reprojection": L.masked_mean(loss_reproj, valid, group=ray_group),
-                    "loss_color": torch.abs(out["color"] - color_src).mean(),
-                    "loss_kl": out["loss_kl"].mean(),
-                    "loss_dist2closest_gauss": d2g["loss_dist2closest_gauss"].mean(),
-                    "min_som_vars": d2g["min_som_vars"].mean(),
-                    "min_stds": d2g["min_stds"].mean(),
-                    "closest_pts_to_depth": out["closest_pts_to_depth"].mean(),
-                    "weights_at_depth": out["weights_at_depth"].mean(),
-                }
+            train = {"cam_K": K, "inv_K": R.inverse(K),
+                     **{k: batch[k][b] for k in TRAIN_KEYS},
+                     **{k: noise[k][b] for k in TRAIN_NOISE}}
         if with_depth_eval:
-            # depth metrics at the GT pixels: logs only, no gradient
-            with tracing.span("render_gt"), torch.no_grad():
-                ev = self.render_rays([lv.detach() for lv in pyramid], item_K,
-                                      src["T_source2infer"], src["gt_pix"],
-                                      ray_chunk=cfg.eval_ray_chunk, noise_uni=noise["gt_uni"],
-                                      noise_gauss=noise["gt_gauss"])
-                dm = L.depth_metrics(src["gt_depth"], ev["depth"], mask=src["gt_mask"] > 0,
-                                     max_depth=cfg.eval_depth, group=ray_group)
-            res.update({f"depth/{k}": v for k, v in dm.items()})
-        return res
+            gt = {"cam_K": K, **{k: batch[k][b] for k in GT_KEYS},
+                  **{k: noise[k][b] for k in GT_NOISE}}
+        return train, gt
+
+    def render_train_item(self, pyramid: R.Pyramid, item: Dict[str, torch.Tensor],
+                          ray_group=None) -> List[Dict[str, torch.Tensor]]:
+        """The training renders of one item's sources (`item_inputs`) with
+        their losses and logs, one dict of LOSS_KEYS + LOG_KEYS a source.
+        Every gather on the item's pyramid adds into one gradient buffer per
+        level (none when no gradient is recorded). `ray_group`: the rays of
+        `item` are this rank's slice, and the masked mean sums over the
+        group."""
+        pyramid, pyramid_grads = share_pyramid_grads(pyramid)
+        out = []
+        for s in range(item["pixels"].shape[0]):
+            pix = item["pixels"][s]
+            r = self.render_rays(pyramid, item["cam_K"], item["T_source2infer"][s], pix,
+                                 noise_uni=item["uni"][s],
+                                 noise_gauss=item["gauss"][s], with_som=True,
+                                 pyramid_grads=pyramid_grads)
+            color_src = geo.sample_pix_features(pix, item["img_sources"][s])
+            d2g = L.dist2closest_gaussian(r["gaussian_means"], r["gaussian_stds"],
+                                          r["som_vars"], r["depth"])
+            loss_reproj, valid = L.reprojection_loss(
+                item["reproj"][s], pix, color_src, r["depth"], item["img_targets"][s],
+                item["inv_K"], item["cam_K"], item["T_source2target"][s])
+            out.append({
+                "loss_reprojection": L.masked_mean(loss_reproj, valid, group=ray_group),
+                "loss_color": torch.abs(r["color"] - color_src).mean(),
+                "loss_kl": r["loss_kl"].mean(),
+                "loss_dist2closest_gauss": d2g["loss_dist2closest_gauss"].mean(),
+                "min_som_vars": d2g["min_som_vars"].mean(),
+                "min_stds": d2g["min_stds"].mean(),
+                "closest_pts_to_depth": r["closest_pts_to_depth"].mean(),
+                "weights_at_depth": r["weights_at_depth"].mean(),
+            })
+        return out
+
+    @torch.no_grad()
+    def render_gt_item(self, pyramid: R.Pyramid, item: Dict[str, torch.Tensor],
+                       ray_group=None) -> List[Dict[str, torch.Tensor]]:
+        """The depth metrics at one item's GT pixels (`item_inputs`), one dict
+        of "depth/*" keys a source: logs only, no gradient. `ray_group`: the
+        GT rows are this rank's slice, the metrics sum over the group."""
+        pyramid = [lv.detach() for lv in pyramid]
+        out = []
+        for s in range(item["gt_pix"].shape[0]):
+            ev = self.render_rays(pyramid, item["cam_K"], item["T_source2infer"][s],
+                                  item["gt_pix"][s], ray_chunk=self.cfg.eval_ray_chunk,
+                                  noise_uni=item["gt_uni"][s], noise_gauss=item["gt_gauss"][s])
+            dm = L.depth_metrics(item["gt_depth"][s], ev["depth"], mask=item["gt_mask"][s] > 0,
+                                 max_depth=self.cfg.eval_depth, group=ray_group)
+            out.append({f"depth/{k}": v for k, v in dm.items()})
+        return out
 
     def _ray_slice(self, noise: Noise, batch: Dict[str, torch.Tensor], group,
                    with_losses: bool, with_depth_eval: bool) -> Tuple[Noise, Dict]:
@@ -247,8 +291,8 @@ class SceneRF(nn.Module):
 
     def forward(self, batch: Dict[str, torch.Tensor], noise: Noise, train: bool = True,
                 sphere_maps: Optional[Dict[int, torch.Tensor]] = None,
-                with_losses: bool = True, with_depth_eval: bool = True, ray_group=None
-                ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                with_losses: bool = True, with_depth_eval: bool = True, ray_group=None,
+                graphs=None) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
         """The training (train=True) or validation forward over a batch of
         device tensors (see data/synthetic.py for the contract) with every
         random draw given in `noise` (`draw_noise`). Puts the model in train
@@ -267,50 +311,48 @@ class SceneRF(nn.Module):
         metrics) sum numerator and denominator over the group, the other
         losses and logs are this rank's means. Averaged over the ranks (the
         trainer's gradient and metric mean), a step equals the unsplit one up
-        to the order of f32 sums."""
+        to the order of f32 sums.
+
+        `graphs` (the trainer's `step_graphs.StepGraphs` for these shapes;
+        None: every block eager): the encoder and each item's training and
+        GT-depth renders replay its CUDA graphs, reached through the same
+        calls of `encode` and `pyramid_for_item` and the same spans."""
         if not (with_losses or with_depth_eval):
             raise ValueError("forward with with_losses=False requires with_depth_eval=True "
                              "(nothing to compute)")
-        cfg = self.cfg
         self.train(train)
         B, S_n = batch["T_source2infer"].shape[:2]
         if ray_group is not None:
             noise, batch = self._ray_slice(noise, batch, ray_group, with_losses,
                                            with_depth_eval)
-        levels = self.encode(batch["img_input"], batch["cam_K"][0], sphere_maps=sphere_maps)
+        levels = self.encode(batch["img_input"], batch["cam_K"][0], sphere_maps=sphere_maps,
+                             net=graphs and graphs.encoder)
 
         sums: Dict[str, torch.Tensor] = {}
         for b in range(B):
-            # every gather on the item's pyramid adds into one gradient
-            # buffer per level (None: no gradient recorded)
-            pyramid, pyramid_grads = share_pyramid_grads(self.pyramid_for_item(levels, b))
-            item_K = batch["cam_K"][b]
-            item_inv_K = R.inverse(item_K)
+            pyramid = self.pyramid_for_item(levels, b)
+            train_in, gt_in = self.item_inputs(batch, noise, b, with_losses, with_depth_eval)
+            res = [{} for _ in range(S_n)]
+            if with_losses:
+                with tracing.span("render_train"):
+                    run = (graphs.render_train[b] if graphs
+                           else partial(self.render_train_item, ray_group=ray_group))
+                    for r, out in zip(res, run(pyramid, train_in)):
+                        r.update(out)
+            if with_depth_eval:
+                with tracing.span("render_gt"):
+                    run = (graphs.render_gt[b] if graphs
+                           else partial(self.render_gt_item, ray_group=ray_group))
+                    for r, out in zip(res, run(pyramid, gt_in)):
+                        r.update(out)
             for s in range(S_n):
-                src = {
-                    "T_source2infer": batch["T_source2infer"][b, s],
-                    "T_source2target": batch["T_source2target"][b, s],
-                    "img_source": batch["img_sources"][b, s],
-                    "img_target": batch["img_targets"][b, s],
-                    "gt_pix": batch["gt_pix"][b, s],
-                    "gt_depth": batch["gt_depth"][b, s],
-                    "gt_mask": batch["gt_mask"][b, s],
-                }
-                res = self._per_source(pyramid, pyramid_grads, item_K, item_inv_K, src,
-                                       {k: v[b, s] for k, v in noise.items()}, with_losses,
-                                       with_depth_eval, ray_group)
                 m = batch["source_mask"][b, s]
-                for k, v in res.items():
+                for k, v in res[s].items():
                     sums[k] = sums[k] + m * v if k in sums else m * v
 
         if with_losses:
             totals = {k: sums[k] / B for k in LOSS_KEYS}
-            total_loss = (totals["loss_kl"]
-                          + totals["loss_dist2closest_gauss"] * cfg.dist2closest_weight)
-            if cfg.use_reprojection:
-                total_loss = total_loss + totals["loss_reprojection"] * cfg.reprojection_weight
-            if cfg.use_color:
-                total_loss = total_loss + totals["loss_color"]
+            total_loss = sum(totals[k] * w for k, w in self.loss_weights().items())
             metrics = dict(totals)
             metrics["loss_som_kl"] = metrics.pop("loss_kl")
         else:

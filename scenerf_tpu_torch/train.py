@@ -14,6 +14,20 @@ decay lr * gamma^(step // steps_per_epoch), set before each step as
 statistics move in train mode only. Every step returns its metrics as
 device tensors and never waits for the device.
 
+On one rank on a CUDA device, a training step replays CUDA graphs
+(`step_graphs.py`): the first step of a set of batch and draw shapes runs
+eagerly (and warms cuDNN and cuBLAS up), the second captures the encoder's
+forward and backward and each item's training renders and GT-depth
+renders, and it and every later step of those shapes replay them, with the
+same kernels in the same order. The upload, the calls of `SceneRF.encode`
+and `pyramid_for_item`, the loss sums, `zero_grad` and AdamW stay eager, so
+what a caller hooks there (and a tensor hook on a pyramid view) still
+fires; a module hook inside the encoder or the fields runs at the capture
+only. Several ranks, the CPU, `val_step` and `depth_eval_step` run every
+step eagerly. The graphs read the parameters and batch-norm statistics
+where they lie, and AdamW's state stays outside them, so `state_dict()` and
+`load_state_dict()` (which copies into the parameters) work across them.
+
 The training draws come from the trainer's generator, a host generator
 seeded with `seed` (so a seed gives the same draws on the CPU and on the
 card), unless a step is given its own. `state_dict()` holds what a resumed run
@@ -55,6 +69,7 @@ from scenerf_tpu_torch.encoder.norm import set_sync_group
 from scenerf_tpu_torch.model import Noise, SceneRF, to_device
 from scenerf_tpu_torch.ops.build import resolve_device
 from scenerf_tpu_torch.parallel import dist as D
+from scenerf_tpu_torch.step_graphs import StepGraphs, shape_key
 from scenerf_tpu_torch.utils import tracing
 
 MODES = ("data", "ray_parallel", "ray_shard")
@@ -93,6 +108,9 @@ class Trainer:
         self.step = 0
         self.generator = torch.Generator().manual_seed(self.draw_seed(seed))
         self._maps: Dict[bytes, Dict[int, torch.Tensor]] = {}
+        # shape_key -> the step's CUDA graphs (None: the shape was seen once)
+        self._graphs: Dict[tuple, Optional[StepGraphs]] = {}
+        self._eager = False  # checks only (tests, chip_smoke.py): every step eager
 
     @property
     def ray_group(self):
@@ -132,11 +150,12 @@ class Trainer:
         with tracing.span("train_step", self.step):
             tensors, maps = self.device_batch(batch)
             noise = self._noise(tensors, generator or self.generator, noise)
+            graphs = self._step_graphs(tensors, noise, maps)
             for group in self.optimizer.param_groups:
                 group["lr"] = self.lr_at(self.step)
             self.optimizer.zero_grad(set_to_none=True)
             loss, metrics = self.model(tensors, noise, train=True, sphere_maps=maps,
-                                       ray_group=self.ray_group)
+                                       ray_group=self.ray_group, graphs=graphs)
             with tracing.span("backward"):
                 loss.backward()
             D.average_gradients(list(self.model.parameters()), self.group)
@@ -145,6 +164,23 @@ class Trainer:
             self.step += 1
             return D.all_reduce_metrics({k: v.detach() for k, v in metrics.items()},
                                         self.group)
+
+    def _step_graphs(self, tensors, noise: Noise, maps) -> Optional[StepGraphs]:
+        """The CUDA graphs of this step's shapes (the module docstring), or
+        None for an eager step; counts `graph_capture` and `graph_replay`
+        in the `train_step` span."""
+        if self.device.type != "cuda" or self.group is not None or self._eager:
+            return None
+        key = shape_key(tensors, noise)
+        if key not in self._graphs:
+            self._graphs[key] = None
+            return None
+        graphs = self._graphs[key]
+        if graphs is None:
+            graphs = self._graphs[key] = StepGraphs(self.model, tensors, noise, maps)
+            tracing.count("graph_capture", 1)
+        tracing.count("graph_replay", 1)
+        return graphs
 
     def _noise(self, tensors, generator: torch.Generator, noise: Optional[Noise]) -> Noise:
         if noise is not None:

@@ -2,7 +2,7 @@
 on one `tiny` training step and one render on the CPU: nothing is recorded
 by default; under `tracing.recording()` and under a CPU `torch.profiler`
 session the step's span tree is `train_step` over `upload`, `encode`,
-`render_train` and `render_gt` per source (each over its `chunk`s),
+`render_train` and `render_gt` per item (each over its sources' `chunk`s),
 `backward` and `adamw`, its ids, parents and roots consistent and every
 interval inside its parent's and inside the call; recording stops with the
 profiler; the buffer keeps its bound. The `h2d_bytes` counter of a batch's
@@ -92,13 +92,13 @@ def test_span_tree_of_a_step(run, how):
     roots = [s for s in spans if s.parent == 0]
     assert [(s.name, s.root) for s in roots] == [("train_step", step)]
     children = sorted((s for s in spans if s.parent == roots[0].id), key=lambda s: s.start)
-    per_source = ["render_train", "render_gt"] * cfg.n_sources
-    assert [s.name for s in children] == ["upload", "encode", *per_source, "backward", "adamw"]
+    per_item = ["render_train", "render_gt"] * batch["img_input"].shape[0]
+    assert [s.name for s in children] == ["upload", "encode", *per_item, "backward", "adamw"]
     for s in children:
         n_chunks = sum(c.parent == s.id for c in spans)
         rays, chunk = {"render_train": (cfg.n_rays, cfg.ray_chunk),
                        "render_gt": (cfg.n_gt_depth, cfg.eval_ray_chunk)}.get(s.name, (0, 1))
-        assert n_chunks == -(-rays // chunk), s.name
+        assert n_chunks == cfg.n_sources * -(-rays // chunk), s.name
     assert all(s.name == "chunk" for s in spans if s.parent not in (0, roots[0].id))
     # the stages on the main thread are disjoint
     stages = [(s.start, s.end) for s in children]
